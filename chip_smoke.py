@@ -6,19 +6,28 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build the five CUDA kernels from src/repro_torch/csrc (ptxas report);
-  3. kernel phase: a short probe of the main path records each kernel's
+  2. build the nine CUDA kernels from src/repro_torch/csrc, one nvcc per
+     source, all at once (ptxas report);
+  3. kernel phase: a short probe of both paths records each kernel's
      largest call; each kernel is held against its plain PyTorch version
      on those inputs (bit equality: every output is integer) and timed
-     beside its plain version, its byte bound and, where one exists, one
+     beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function;
-  4. main path: a 2**26-bucket hash map (block 64, u32 keys and values)
-     takes 4 insert waves of 2**23 keys (one wave with ~1% duplicates),
-     a speculative find of 2**23 keys (half absent) and a find_insert of
-     2**22 + 2**22, through the port's entry points on a SerialBackend;
-     run with the kernels (launch counts reset just before, read just
-     after) and with the plain versions, and held against each other and
-     against the key/value oracle.
+  4. hash-map path: a 2**26-bucket hash map (block 64, u32 keys and
+     values) takes 4 insert waves of 2**23 keys (one wave with ~1%
+     duplicates), a speculative find of 2**23 keys (half absent) and a
+     find_insert of 2**22 + 2**22;
+  5. genomics path (paper section 9.2): reads of a 2**21-base genome
+     (coverage 8, 1% errors) give 13.4 M 21-mers, packed on the card; a
+     2**28-bit Bloom filter pre-pass, k-mer counting into a 2**25-bucket
+     table, the de Bruijn table of the solid extensions built twice
+     (direct insert, and HashMapBuffer insert + flush), a local find of
+     every extension and as many absent keys, and 2**16 walks of 64
+     steps.
+Each path runs through the port's entry points on a SerialBackend, with
+the kernels (launch counts reset just before, read just after) and with
+the plain versions; the two runs must be bit-identical and pass the
+path's oracle, computed on the card.
 The last line is {"ok": true, "device": {...}}; the line before it the
 nvidia-smi name and power limit; before that the kernels' JSON line.
 Without a CUDA device (and without --cpu-rehearsal) it exits 1.
@@ -39,12 +48,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 # the port; a lone copy of this script fails here
+from repro_torch.containers import bloom as bl  # noqa: E402
 from repro_torch.containers import hashmap as hm  # noqa: E402
+from repro_torch.containers import hashmap_buffer as hb  # noqa: E402
 from repro_torch.core.backend import SerialBackend  # noqa: E402
 from repro_torch.core.hashing import fmix32  # noqa: E402
 from repro_torch.core.object_container import Spec  # noqa: E402
+from repro_torch.core.promises import ConProm  # noqa: E402
 from repro_torch.core.u32 import as_u64, to_i32  # noqa: E402
-from repro_torch.kernels import binning, build, hash_probe  # noqa: E402
+from repro_torch.data import genomics as gen  # noqa: E402
+from repro_torch.kernels import binning, bloom_kernel, build, hash_probe  # noqa: E402
+from repro_torch.kernels.ops import MODE_ADD  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (float32)
@@ -53,6 +67,12 @@ FULL = dict(capacity=1 << 26, block=64, wave=1 << 23, waves=4, find=1 << 23,
             fi=1 << 22, reps=10)
 REHEARSAL = dict(capacity=1 << 12, block=64, wave=1 << 9, waves=4, find=1 << 9,
                  fi=1 << 8, reps=2)
+# genomics path: benchmarks/kmer.py's K, coverage and error rate;
+# meraculous.py's two build arms and its walk
+G_FULL = dict(genome_len=1 << 21, k=21, bloom_bits=1 << 28, bloom_k=4, table=1 << 25,
+              block=64, probes=1 << 22, walks=1 << 16, steps=64)
+G_REHEARSAL = dict(genome_len=1 << 12, k=21, bloom_bits=1 << 16, bloom_k=4,
+                   table=1 << 15, block=64, probes=1 << 8, walks=1 << 6, steps=8)
 
 # name -> (module, wrapper, plain, source, TPU kernel it replaces)
 KERNELS = {
@@ -68,7 +88,19 @@ KERNELS = {
     "find_arrivals": (hash_probe, "find_arrivals", "find_arrivals_plain",
                       "src/repro_torch/csrc/hash_probe.cu",
                       "src/repro/kernels/hash_probe.py:406"),
+    "insert": (hash_probe, "insert", "insert_plain", "src/repro_torch/csrc/hash_probe.cu",
+               "src/repro/kernels/hash_probe.py:134"),
+    "find": (hash_probe, "find", "find_plain", "src/repro_torch/csrc/hash_probe.cu",
+             "src/repro/kernels/hash_probe.py:328"),
+    "membership": (bloom_kernel, "membership", "membership_plain",
+                   "src/repro_torch/csrc/bloom.cu", "src/repro/kernels/bloom_kernel.py:88"),
+    "hash_words": (bloom_kernel, "hash_words", "hash_words_plain",
+                   "src/repro_torch/csrc/bloom.cu", "src/repro/kernels/bloom_kernel.py:62"),
 }
+#: the kernels each path runs
+HASHMAP_KERNELS = ("bin_offsets", "pack_rows", "place_rows", "insert_arrivals",
+                   "find_arrivals")
+GENOMICS_KERNELS = tuple(KERNELS)
 
 
 def check(cond: bool, what: str) -> None:
@@ -190,22 +222,187 @@ def same_results(a: dict, b: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# the genomics path: k-mer counting and de Bruijn build + walk
+# --------------------------------------------------------------------------
+
+KSPEC, VSPEC = Spec((2,), torch.uint32), Spec((), torch.uint32)
+
+
+def _absent_kmers(n: int, gen_: torch.Generator, dev) -> torch.Tensor:
+    """(n, 2) words no 21-mer can be: hi above the 10 bits a 21-mer uses."""
+    hi = torch.randint(1 << 10, 1 << 30, (n,), generator=gen_)
+    lo = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen_)
+    return torch.stack([hi, lo], dim=1).to(torch.int32).to(dev)
+
+
+def genomics_workload(gz: dict, dev, seed: int) -> dict:
+    """Reads from the seed (numpy, as the JAX package makes them), packed
+    into k-mers on the card, and the oracle's facts, computed on the
+    card independently of the containers."""
+    k = gz["k"]
+    sim = gen.GenomeSim(genome_len=gz["genome_len"], read_len=100, coverage=8,
+                        error_rate=0.01, seed=seed)
+    reads = torch.from_numpy(sim.reads()).to(dev)
+    kmers = gen.read_kmer_lanes(reads, k)
+    uniq, cnt = torch.unique(gen.kmer_values(kmers), return_counts=True)
+    # solid extensions: (k+1)-mers seen at least twice; keep the k-mers
+    # with exactly one solid extension (Meraculous' unique-extension rule)
+    ext, ecnt = torch.unique(gen.kmer_values(gen.read_kmer_lanes(reads, k + 1)),
+                             return_counts=True)
+    ext = ext[ecnt >= 2]
+    key = ext >> 2                                   # sorted, as ext is
+    _, per_key = torch.unique_consecutive(key, return_counts=True)
+    single = torch.repeat_interleave(per_key == 1, per_key)
+    ext_key, ext_next = gen.kmer_lanes(key[single]), (ext[single] & 3).to(torch.int32)
+    n, n_ext = kmers.shape[0], ext_key.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    half = gz["probes"] // 2
+    pick = torch.randint(0, n, (half,), generator=g).to(dev)
+    starts = torch.randint(0, n_ext, (gz["walks"],), generator=g).to(dev)
+    return dict(
+        kmers=kmers, n=n, uniq=uniq, cnt=cnt, ext_key=ext_key, ext_next=ext_next,
+        n_ext=n_ext, probes=torch.cat([kmers[pick], _absent_kmers(half, g, dev)]),
+        lookup=torch.cat([ext_key, _absent_kmers(n_ext, g, dev)]),
+        starts=ext_key[starts])
+
+
+def genomics_path(impl: str, gz: dict, g: dict, dev, steps=None) -> dict:
+    """The port's containers along the paper's assembly pipeline."""
+    bk = SerialBackend()
+    n, n_ext = g["n"], g["n_ext"]
+    t = {}
+
+    def lap(name, t0):
+        sync(dev)
+        t[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    def table():
+        return hm.hashmap_create(bk, gz["table"], KSPEC, VSPEC, block_size=gz["block"],
+                                 impl=impl, device=dev)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    bspec, bst = bl.bloom_create(bk, gz["bloom_bits"], KSPEC, k=gz["bloom_k"],
+                                 impl=impl, device=dev)
+    bst, seen = bl.insert(bk, bspec, bst, g["kmers"], capacity=n)
+    t0 = lap("bloom_insert_s", t0)
+    present = bl.find(bk, bspec, bst, g["probes"], capacity=g["probes"].shape[0])
+    t0 = lap("bloom_find_s", t0)
+
+    cspec, cst = table()
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    cst, cok = hm.insert(bk, cspec, cst, g["kmers"], ones, capacity=n, mode=MODE_ADD,
+                         attempts=2, valid=seen)
+    t0 = lap("count_s", t0)
+
+    dspec, dst = table()
+    dst, dok = hm.insert(bk, dspec, dst, g["ext_key"], g["ext_next"], capacity=n_ext,
+                         attempts=2)
+    t0 = lap("build_direct_s", t0)
+
+    mspec, mst = table()
+    hspec, hst = hb.create(bk, mspec, mst, queue_capacity=2 * n_ext,
+                           buffer_cap=2 * n_ext)
+    hst, over = hb.insert(hspec, hst, g["ext_key"], g["ext_next"])
+    hst, dropped = hb.flush(bk, hspec, hst, capacity=2 * n_ext)
+    t0 = lap("build_buffered_s", t0)
+
+    _, lvals, lfound = hm.find(bk, mspec, hst.map, g["lookup"], capacity=1,
+                               promise=ConProm.HashMap.local)
+    t0 = lap("lookup_s", t0)
+
+    cur, walked = g["starts"], torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(gz["steps"] if steps is None else steps):
+        _, v, f = hm.find(bk, mspec, hst.map, cur, capacity=cur.shape[0],
+                          promise=ConProm.HashMap.find, attempts=2)
+        cur = torch.where(f[:, None], gen.kmer_step(cur, v.view(torch.int32), gz["k"]),
+                          cur)
+        walked += f.sum()
+    lap("walk_s", t0)
+
+    return dict(times=t, bloom=bst.words, seen=seen, present=present, count=cst,
+                cok=cok, direct=dst, dok=dok, buffered=hst.map, over=int(over),
+                dropped=int(dropped), lvals=lvals.view(torch.int32), lfound=lfound,
+                walked=int(walked), count_ready=int(hm.count_ready(bk, hst.map)),
+                direct_ready=int(hm.count_ready(bk, dst)),
+                fill=float(bl.fill_fraction(bk, bst)))
+
+
+def check_genomics(r: dict, g: dict, gz: dict) -> None:
+    """Counts within [c-1, c] for every k-mer seen c >= 2 times (a Bloom
+    false positive can add one, nothing can take one away); every present
+    probe found; both builds hold exactly the extensions; the local find
+    returns each extension's next base and no absent key."""
+    half = gz["probes"] // 2
+    check(bool(r["present"][:half].all()), "bloom.find: every inserted k-mer found")
+    occ = (r["count"].status.reshape(-1) & 3) == 2
+    tkey = gen.kmer_values(r["count"].tkeys.reshape(-1, 2)[occ])
+    tval = r["count"].tvals.reshape(-1)[occ].to(torch.int64)
+    pos = torch.searchsorted(g["uniq"], tkey).clamp(max=g["uniq"].numel() - 1)
+    check(bool((g["uniq"][pos] == tkey).all()), "count table: every key is a k-mer")
+    check(torch.unique(tkey).numel() == tkey.numel(), "count table: keys distinct")
+    tcount = torch.zeros_like(g["cnt"])
+    tcount[pos] = tval
+    held = torch.zeros_like(g["cnt"], dtype=torch.bool)
+    held[pos] = True
+    need = g["cnt"] >= 2
+    check(bool(held[need].all()), "count table: every k-mer seen twice is counted")
+    c = g["cnt"][need]
+    check(bool(((tcount[need] >= c - 1) & (tcount[need] <= c)).all()),
+          "count table: counts within [c-1, c]")
+    check(bool(r["cok"][r["seen"]].all()), "count insert: every seen k-mer landed")
+    check(bool(r["dok"].all()) and r["direct_ready"] == g["n_ext"],
+          f"direct build: {r['direct_ready']} entries == {g['n_ext']} extensions")
+    check(r["dropped"] == 0 and r["over"] == 0 and r["count_ready"] == g["n_ext"],
+          f"buffered build: dropped {r['dropped']}, count_ready {r['count_ready']} "
+          f"== {g['n_ext']}")
+    ne = g["n_ext"]
+    check(bool(r["lfound"][:ne].all()) and not bool(r["lfound"][ne:].any()),
+          "local find: every extension found, no absent key")
+    check(torch.equal(r["lvals"][:ne], g["ext_next"]),
+          "local find: each extension's next base")
+    check(r["walked"] > 0, "walk: the walks advanced")
+
+
+def same_genomics(a: dict, b: dict) -> None:
+    for name in ("bloom", "seen", "present", "cok", "dok", "lvals", "lfound"):
+        check(torch.equal(a[name], b[name]), f"kernel and plain runs: {name} identical")
+    for table in ("count", "direct", "buffered"):
+        for f in ("tkeys", "tvals", "status"):
+            check(torch.equal(getattr(a[table], f), getattr(b[table], f)),
+                  f"kernel and plain runs: {table} table {f} bit-identical")
+    for name in ("over", "dropped", "walked", "count_ready", "direct_ready", "fill"):
+        check(a[name] == b[name], f"kernel and plain runs: {name} {a[name]} == {b[name]}")
+
+
+# --------------------------------------------------------------------------
 # kernel phase
 # --------------------------------------------------------------------------
 
+#: the valid-mask argument of each probe
+_VALID_ARG = {"insert_arrivals": 4, "find_arrivals": 4, "insert": 6, "find": 5}
+
+
 def _work(name: str, args: tuple) -> int:
-    """Size of one call, to keep the largest the main path makes."""
+    """Size of one call, to keep the largest a path makes."""
     if name == "bin_offsets":
         return int(args[2].sum())
     if name == "pack_rows":
         return int(args[4].sum())
     if name == "place_rows":
         return int((args[1] < args[0].numel()).sum()) * args[2].shape[1]
-    return int(args[4].sum())                  # probes: valid arrivals
+    if name == "membership":
+        return int(args[2].sum())
+    if name == "hash_words":
+        return args[0].shape[0]
+    return int(args[_VALID_ARG[name]].sum())   # probes: valid queries
 
 
-def capture_calls(sz: dict, data: dict, dev) -> dict:
-    """Run two insert waves and one find, recording each kernel's largest call.
+def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, dev) -> dict:
+    """Run two insert waves and one find of the hash-map path, and the
+    genomics path with two walk steps, recording each kernel's largest
+    call.
 
     Both the wrapper and the plain version are tapped: on the CPU
     (rehearsal) the dispatcher calls the plain version directly.
@@ -226,6 +423,7 @@ def capture_calls(sz: dict, data: dict, dev) -> dict:
     try:
         probe = dict(data, waves=data["waves"][:2])
         main_path("auto", dict(sz, waves=2), probe, dev)
+        genomics_path("auto", gz, gdata, dev, steps=2)
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
@@ -258,14 +456,18 @@ def bound_bytes(name: str, args: tuple, out) -> int:
     """Bytes the function must move: each input read once, each output
     written once; the find reads only the blocks its queries touch."""
     outs = out if isinstance(out, tuple) else (out,)
-    if name == "find_arrivals":
-        tk, tv, st, seg, valid = args
+    if name in ("find_arrivals", "find"):
+        if name == "find":
+            tk, tv, st, qblock, qkeys, valid = args
+        else:
+            tk, tv, st, seg, valid = args
+            qblock, qkeys = seg[:, 0], seg[:, 1:1 + tk.shape[2]]
         nb, bsz, lk = tk.shape
         lv = tv.shape[2]
-        blocks = torch.unique(seg[:, 0][valid]).numel()
+        blocks = torch.unique(qblock[valid]).numel()
         hits = int(outs[0].sum())
         return (blocks * bsz * (lk + 1) * 4 + hits * lv * 4
-                + seg.shape[0] * (1 + lk) * 4 + _nbytes(valid, *outs))
+                + qblock.numel() * 4 + qkeys.shape[0] * lk * 4 + _nbytes(valid, *outs))
     if name == "insert_arrivals":
         tk, tv, st, seg, valid, _mode = args
         rows = seg.shape[0] * (1 + tk.shape[2] + tv.shape[2]) * 4
@@ -282,8 +484,13 @@ def bound_ops(name: str, args: tuple) -> int:
         return 12 * args[0].numel()            # window test + slot per word
     if name == "place_rows":
         return 6 * args[2].numel() + args[0].numel()
+    if name == "membership":
+        return 6 * args[0].shape[0]            # two and-compares, valid, combine
+    if name == "hash_words":
+        m, lanes = args[0].shape               # two hashes (8 per fmix32, 11 per
+        return m * (21 + 22 * lanes + 6 * args[1])    # lane) and 6 per bit
     tk = args[0]
-    probes = int(args[4].sum())
+    probes = int(args[_VALID_ARG[name]].sum())
     return probes * tk.shape[1] * (tk.shape[2] + 3)   # key compare + state test per slot
 
 
@@ -341,6 +548,38 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
 
 # --------------------------------------------------------------------------
 
+def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, smi: str) -> None:
+    """One JSON line of a path's end-to-end numbers, with the card."""
+    label = "kernels" if impl == "auto" else "plain"
+    if path == "hash-map path":
+        n_ins = sz["wave"] * sz["waves"]
+        line = dict(
+            card=smi, insert_keys_per_s=n_ins / sum(r["insert_s"]),
+            insert_wave_s=r["insert_s"],
+            find_keys_per_s=sz["find"] / r["find_s"],
+            find_insert_ops_per_s=2 * sz["fi"] / r["find_insert_s"],
+            total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
+            count_ready=r["count"], launches=r["launches"])
+    else:
+        t = r["times"]
+        line = dict(
+            card=smi, genome_len=gz["genome_len"], kmers=g["n"], extensions=g["n_ext"],
+            bloom_insert_kmers_per_s=g["n"] / t["bloom_insert_s"],
+            bloom_find_keys_per_s=gz["probes"] / t["bloom_find_s"],
+            count_kmers_per_s=g["n"] / t["count_s"],
+            build_direct_keys_per_s=g["n_ext"] / t["build_direct_s"],
+            build_buffered_keys_per_s=g["n_ext"] / t["build_buffered_s"],
+            buffered_speedup=t["build_direct_s"] / t["build_buffered_s"],
+            lookup_keys_per_s=2 * g["n_ext"] / t["lookup_s"],
+            walk_steps_per_s=gz["walks"] * gz["steps"] / t["walk_s"],
+            walked=r["walked"], bloom_fill=r["fill"],
+            bloom_false_positive_share=float(
+                r["present"][gz["probes"] // 2:].float().mean()),
+            seconds=t, total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
+            launches=r["launches"])
+    print(f"{path} ({label}): " + json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -373,45 +612,54 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {src}: {line.strip()}", flush=True)
 
-    # 3. kernel phase at the main path's shapes
+    # 3. kernel phase at the paths' shapes
+    gz = G_REHEARSAL if rehearsal else G_FULL
     data = workload(sz, dev, args.seed)
-    calls = capture_calls(sz, data, dev)
+    gdata = genomics_workload(gz, dev, args.seed)
+    print(f"genomics data: {gdata['n']} k-mers of {gz['k']} bases, "
+          f"{gdata['uniq'].numel()} distinct, {gdata['n_ext']} solid extensions",
+          flush=True)
+    calls = capture_calls(sz, data, gz, gdata, dev)
     krows = kernel_phase(calls, sz["reps"], dev)
     del calls
 
-    # 4. main path: kernels, then plain versions
+    # 4./5. each path: kernels, then plain versions
+    paths = {
+        "hash-map path": (lambda impl: main_path(impl, sz, data, dev),
+                          lambda r: check_oracle(r, data, sz), same_results,
+                          HASHMAP_KERNELS),
+        "genomics path": (lambda impl: genomics_path(impl, gz, gdata, dev),
+                          lambda r: check_genomics(r, gdata, gz), same_genomics,
+                          GENOMICS_KERNELS),
+    }
     runs = {}
-    for impl in ("auto", "torch"):
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        t0 = time.perf_counter()
-        runs[impl] = main_path(impl, sz, data, dev)
-        runs[impl]["total_s"] = time.perf_counter() - t0
-        runs[impl]["launches"] = build.launch_counts()
-        runs[impl]["peak_bytes"] = (torch.cuda.max_memory_allocated()
-                                    if dev.type == "cuda" else None)
-        check_oracle(runs[impl], data, sz)
-    same_results(runs["auto"], runs["torch"])
-    if not rehearsal:
-        check(all(n > 0 for n in runs["auto"]["launches"].values()),
-              f"every kernel ran on the main path: {runs['auto']['launches']}")
-    check(all(n == 0 for n in runs["torch"]["launches"].values()),
-          f"the plain run launched no kernel: {runs['torch']['launches']}")
+    for path, (drive, oracle, same, used) in paths.items():
+        for impl in ("auto", "torch"):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            r = drive(impl)
+            r["total_s"] = time.perf_counter() - t0
+            r["launches"] = build.launch_counts()
+            r["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                               if dev.type == "cuda" else None)
+            oracle(r)
+            runs[path, impl] = r
+        same(runs[path, "auto"], runs[path, "torch"])
+        if not rehearsal:
+            launched = runs[path, "auto"]["launches"]
+            check(all(launched[name] > 0 for name in used),
+                  f"every kernel of the {path} ran: {launched}")
+        check(all(n == 0 for n in runs[path, "torch"]["launches"].values()),
+              f"the plain run of the {path} launched no kernel: "
+              f"{runs[path, 'torch']['launches']}")
+        for impl in ("auto", "torch"):
+            report(path, impl, runs[path, impl], sz, gz, gdata, smi)
 
-    n_ins = sz["wave"] * sz["waves"]
-    for impl, r in runs.items():
-        label = "kernels" if impl == "auto" else "plain"
-        print(f"main path ({label}): " + json.dumps(dict(
-            insert_keys_per_s=n_ins / sum(r["insert_s"]),
-            insert_wave_s=r["insert_s"],
-            find_keys_per_s=sz["find"] / r["find_s"],
-            find_insert_ops_per_s=2 * sz["fi"] / r["find_insert_s"],
-            total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
-            count_ready=r["count"], launches=r["launches"])), flush=True)
-
+    # launches: both paths' kernel runs (each path's counts are printed above)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=runs["auto"]["launches"][name],
+                    launches=sum(runs[p, "auto"]["launches"][name] for p in paths),
                     **{k: v for k, v in krows[name].items() if k != "shape"})
                for name, (_m, _w, _p, src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's hash-map main path goes, on one card.
+"""Where the time of the port's paths goes, on one card.
 
-    python3 scripts/torch_profile_hashmap.py [--out build/profile]
+    python3 scripts/torch_profile_hashmap.py [--path hashmap|genomics] [--out build/profile]
 
-Runs chip_smoke.py's main path (same sizes, seed and data) once with the
-kernels to warm up, then once more under ``torch.profiler`` and prints:
+Runs one of chip_smoke.py's paths (same sizes, seed and data: the
+hash-map path by default, or the genomics path) once with the kernels
+to warm up, then once more under ``torch.profiler`` and prints:
   * wall time of the profiled run and the device's busy share (the sum
     of kernel and memcpy/memset times over the wall time; one stream,
     so they do not overlap);
   * device time by kernel name, largest first, and the time of the
-    five hand-written kernels.
+    port's hand-written kernels.
 The Chrome trace and the full table are written under ``--out``.
 ``--cpu-rehearsal`` runs the tiny CPU sizes (CPU activity only).
 """
@@ -32,11 +33,13 @@ import chip_smoke  # noqa: E402
 
 #: name fragments of the port's kernels as the profiler lists them
 PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "pack_rows_kernel", "copy_words",
-                "place_rows_kernel", "insert_arrivals_kernel", "find_arrivals_kernel")
+                "place_rows_kernel", "insert_arrivals_kernel", "find_arrivals_kernel",
+                "insert_kernel", "find_kernel", "membership_kernel", "hash_words_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("hashmap", "genomics"), default="hashmap")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     ap.add_argument("--cpu-rehearsal", action="store_true")
     args = ap.parse_args(argv)
@@ -50,15 +53,23 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         print(chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.build.build()
-    data = chip_smoke.workload(sz, dev, 0)
-    chip_smoke.main_path("auto", sz, data, dev)          # warm-up
+    if args.path == "hashmap":
+        data = chip_smoke.workload(sz, dev, 0)
+        drive = lambda: chip_smoke.main_path("auto", sz, data, dev)  # noqa: E731
+        oracle = lambda r: chip_smoke.check_oracle(r, data, sz)  # noqa: E731
+    else:
+        gz = chip_smoke.G_REHEARSAL if args.cpu_rehearsal else chip_smoke.G_FULL
+        data = chip_smoke.genomics_workload(gz, dev, 0)
+        drive = lambda: chip_smoke.genomics_path("auto", gz, data, dev)  # noqa: E731
+        oracle = lambda r: chip_smoke.check_genomics(r, data, gz)  # noqa: E731
+    drive()                                             # warm-up
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        r = chip_smoke.main_path("auto", sz, data, dev)
+        r = drive()
         wall = time.perf_counter() - t0
-    chip_smoke.check_oracle(r, data, sz)
+    oracle(r)
 
     # device activities only (kernels, memcpy, memset): the aten ops that
     # launch them carry the same device time and would count it twice
@@ -72,15 +83,18 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     busy_ms = sum(t for t, _, _ in rows) if device else float("nan")
     ours = sum(t for t, _, k in rows if any(p in k for p in PORT_KERNELS))
-    print(f"profiled main path: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+    print(f"profiled {args.path} path: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / (wall * 1e3):.1f}%), port kernels {ours:.1f} ms", flush=True)
     print(f"{'ms':>10} {'calls':>7}  name", flush=True)
     for t, n, k in rows[:25]:
         print(f"{t:10.3f} {n:7d}  {k[:100]}", flush=True)
-    with open(out / "by_op.txt", "w") as f:
+    if args.path == "genomics":
+        print("phase seconds: " + " ".join(f"{k}={v:.4f}" for k, v in r["times"].items()),
+              flush=True)
+    with open(out / f"{args.path}_by_op.txt", "w") as f:
         for t, n, k in rows:
             f.write(f"{t:.4f}\t{n}\t{k}\n")
-    prof.export_chrome_trace(str(out / "trace.json"))
+    prof.export_chrome_trace(str(out / f"{args.path}_trace.json"))
     return 0
 
 

@@ -291,6 +291,10 @@ class CommittedPlan:
         """Owner-side view of one flow."""
         return self._views[handle]
 
+    def reply_lanes(self, handle: int) -> int:
+        """Reply words per row that flow ``handle`` declared (0 = none)."""
+        return self._plan._flows[handle].reply_lanes
+
     def leftover(self, handle: int) -> tuple[torch.Tensor, torch.Tensor]:
         """``(payload, mask)`` of items that were valid but never shipped,
         in the flow's original batch coordinates (``overflow="carry"``)."""

@@ -1,7 +1,9 @@
 """Kernels of the port, one hand-written CUDA kernel per TPU kernel.
 
   binning      bin_offsets, pack_rows, place_rows  (csrc/binning.cu)
-  hash_probe   insert_arrivals, find_arrivals      (csrc/hash_probe.cu)
+  hash_probe   insert_arrivals, find_arrivals,     (csrc/hash_probe.cu)
+               insert, find
+  bloom_kernel hash_words, membership              (csrc/bloom.cu)
 
 Each module keeps a plain PyTorch version beside every kernel; ``ops``
 dispatches between them, ``build`` compiles and binds the CUDA sources

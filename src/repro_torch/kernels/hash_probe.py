@@ -1,4 +1,6 @@
-"""Owner-side hash probe kernels: ``insert_arrivals`` and ``find_arrivals``.
+"""Owner-side hash probe kernels: the arrival front ends
+``insert_arrivals``/``find_arrivals`` and the column front ends
+``insert``/``find``.
 
 Each wrapper launches its hand-written CUDA kernel
 (``csrc/hash_probe.cu``) on CUDA tensors and takes its plain PyTorch
@@ -7,11 +9,14 @@ vectorized jnp paths (``repro/kernels/ops.py:72-223``), bit for bit.
 
 ``seg`` is the exchange's owner view of an arrival segment: rows of
 [local block | key lanes | value lanes]; its rows may be strided (a
-column slice of the wire segment), its words must be contiguous.
+column slice of the wire segment), its words must be contiguous.  The
+column front ends take ``qblock (M,)``, ``qkeys (M, Lk)``, ``qvals
+(M, Lv)`` and ``qvalid (M,)`` as separate arrays (the local-promise
+path of the hash map); key and value rows may be strided too.
 
-Neither kernel has a per-block query capacity: the JAX package's Pallas
-kernels fail (insert) or re-probe (find) arrivals past ``q_cap``, the
-port serves every arrival, as the jnp path does.
+No kernel has a per-block query capacity: the JAX package's Pallas
+kernels fail (insert) or re-probe (find) items past ``q_cap``, the port
+serves every item, as the jnp path does.
 """
 
 from __future__ import annotations
@@ -40,6 +45,12 @@ _INSERT = register("insert_arrivals", Kernel(
 _FIND = register("find_arrivals", Kernel(
     "hash_probe", "find_arrivals_launch",
     [_P, _P, _P, _P, _LL, _P, _LL, _LL, _INT, _INT, _INT, _P, _P]))
+_INSERT_COLS = register("insert", Kernel(
+    "hash_probe", "insert_launch",
+    [_P, _P, _P, _P, _LL, _P, _LL, _P, _P, _LL, _INT, _INT, _INT, _INT, _P]))
+_FIND_COLS = register("find", Kernel(
+    "hash_probe", "find_launch",
+    [_P, _P, _P, _P, _P, _LL, _P, _LL, _LL, _INT, _INT, _INT, _P, _P]))
 
 
 def bin_queries(qblock: torch.Tensor, valid: torch.Tensor, nb: int):
@@ -57,24 +68,34 @@ def bin_queries(qblock: torch.Tensor, valid: torch.Tensor, nb: int):
     return order.to(_I32), start.to(_I32)
 
 
-def _check_table(tkeys, tvals, status, seg, valid, what: str, seg_lanes: int):
+def _check_rows(t, name: str, m: int, lanes: int, dev) -> None:
+    """Raise unless ``t`` is (m, >= lanes) int32 rows of contiguous words."""
+    if (t.dtype != _I32 or t.device != dev or t.ndim != 2 or t.shape[0] != m
+            or t.shape[1] < lanes or (m and t.shape[1] > 1 and t.stride(1) != 1)):
+        raise ValueError(f"{name}: want ({m}, >= {lanes}) int32 rows of contiguous "
+                         f"words on {dev}, got {t.dtype} {tuple(t.shape)} strides "
+                         f"{t.stride() if t.ndim else ()} on {t.device}")
+
+
+def _check_table(tkeys, tvals, status, rows, valid, what: str, row_lanes: int):
     nb, bsz, lk = tkeys.shape
     lv = tvals.shape[2]
     dev = tkeys.device
     require(tkeys, f"{what} tkeys", _I32, (nb, bsz, lk), dev)
     require(tvals, f"{what} tvals", _I32, (nb, bsz, lv), dev)
     require(status, f"{what} status", _I32, (nb, bsz), dev)
-    m = seg.shape[0]
+    m = rows.shape[0]
     require(valid, f"{what} valid", torch.bool, (m,), dev)
-    if (seg.dtype != _I32 or seg.device != dev or seg.ndim != 2
-            or seg.shape[1] < seg_lanes or seg.stride(1) != 1):
-        raise ValueError(f"{what} seg: want int32 rows of >= {seg_lanes} "
-                         f"contiguous words on {dev}, got {seg.dtype} "
-                         f"{tuple(seg.shape)} strides {seg.stride()} on {seg.device}")
+    _check_rows(rows, f"{what} rows", m, row_lanes, dev)
     if lk > MAX_LANES or lv > MAX_LANES:
         raise ValueError(f"{what}: {lk} key / {lv} value lanes; the kernel "
                          f"serves at most {MAX_LANES}")
     return nb, bsz, lk, lv, m
+
+
+def _check_mode(mode: int, what: str) -> None:
+    if mode not in (MODE_SET, MODE_ADD, MODE_KEEP):
+        raise ValueError(f"{what}: unknown mode {mode}")
 
 
 # --------------------------------------------------------------------------
@@ -93,8 +114,8 @@ def _lexsort_items(qblock, qkeys, qvalid, nb):
     return order, b[order]
 
 
-def bulk_insert_plain(tkeys, tvals, status, qblock, qkeys, qvals, qvalid,
-                      mode: int = MODE_SET):
+def insert_plain(tkeys, tvals, status, qblock, qkeys, qvals, qvalid,
+                 mode: int = MODE_SET):
     """Vectorized blocked insert (``repro/kernels/ops.py:72-176``).
 
     Equal to the sequential oracle for any batch, duplicate keys
@@ -186,11 +207,11 @@ def bulk_insert_plain(tkeys, tvals, status, qblock, qkeys, qvals, qvalid,
 
 def insert_arrivals_plain(tkeys, tvals, status, seg, valid, mode: int = MODE_SET):
     """Plain insert off an arrival segment: slice the columns, then
-    :func:`bulk_insert_plain` (``ops.py:221-224``)."""
+    :func:`insert_plain` (``ops.py:221-224``)."""
     lk = tkeys.shape[2]
     qblock = torch.where(valid, seg[:, 0], 0)
-    return bulk_insert_plain(tkeys, tvals, status, qblock, seg[:, 1:1 + lk],
-                             seg[:, 1 + lk:], valid, mode)
+    return insert_plain(tkeys, tvals, status, qblock, seg[:, 1:1 + lk],
+                        seg[:, 1 + lk:], valid, mode)
 
 
 def insert_arrivals(tkeys, tvals, status, seg, valid, mode: int = MODE_SET):
@@ -205,8 +226,7 @@ def insert_arrivals(tkeys, tvals, status, seg, valid, mode: int = MODE_SET):
     nb, bsz, lk, lv, m = _check_table(tkeys, tvals, status, seg, valid,
                                       "insert_arrivals", 1 + tkeys.shape[2]
                                       + tvals.shape[2])
-    if mode not in (MODE_SET, MODE_ADD, MODE_KEEP):
-        raise ValueError(f"insert_arrivals: unknown mode {mode}")
+    _check_mode(mode, "insert_arrivals")
     order, start = bin_queries(seg[:, 0], valid, nb)
     tk, tv, st = tkeys.clone(), tvals.clone(), status.clone()
     ok = torch.zeros(m, dtype=torch.bool, device=tk.device)
@@ -215,9 +235,55 @@ def insert_arrivals(tkeys, tvals, status, seg, valid, mode: int = MODE_SET):
     return tk, tv, st, ok
 
 
+def insert(tkeys, tvals, status, qblock, qkeys, qvals, qvalid, mode: int = MODE_SET):
+    """Insert a batch of column arrays; returns new (tkeys, tvals, status,
+    success).
+
+    CUDA: the same warp-per-block walk as :func:`insert_arrivals`, reading
+    each item's key and value words from ``qkeys``/``qvals`` in place.
+    """
+    if not tkeys.is_cuda:
+        return insert_plain(tkeys, tvals, status, qblock, qkeys, qvals, qvalid, mode)
+    nb, bsz, lk, lv, m = _check_table(tkeys, tvals, status, qkeys, qvalid, "insert",
+                                      tkeys.shape[2])
+    require(qblock, "insert qblock", _I32, (m,), tkeys.device)
+    _check_rows(qvals, "insert qvals", m, lv, tkeys.device)
+    _check_mode(mode, "insert")
+    order, start = bin_queries(qblock, qvalid, nb)
+    tk, tv, st = tkeys.clone(), tvals.clone(), status.clone()
+    ok = torch.zeros(m, dtype=torch.bool, device=tk.device)
+    _INSERT_COLS(tk, tv, st, qkeys, qkeys.stride(0), qvals, qvals.stride(0), order,
+                 start, nb, bsz, lk, lv, mode, ok)
+    return tk, tv, st, ok
+
+
 # --------------------------------------------------------------------------
 # find
 # --------------------------------------------------------------------------
+
+def find_plain(tkeys, tvals, status, qblock, qkeys, qvalid):
+    """Plain column find: the blocked-find oracle (``ref.py``), which is
+    the jnp path (``ops.py:181-187``)."""
+    return hash_probe_find_ref(tkeys, tvals, status, qblock, qkeys, qvalid)
+
+
+def find(tkeys, tvals, status, qblock, qkeys, qvalid):
+    """Find a batch of column arrays; returns (found (M,), values (M, Lv)).
+
+    CUDA: one warp per query; ``qblock`` is read only for valid queries,
+    invalid ones give found 0 and zero values.
+    """
+    if not tkeys.is_cuda:
+        return find_plain(tkeys, tvals, status, qblock, qkeys, qvalid)
+    nb, bsz, lk, lv, m = _check_table(tkeys, tvals, status, qkeys, qvalid, "find",
+                                      tkeys.shape[2])
+    require(qblock, "find qblock", _I32, (m,), tkeys.device)
+    found = torch.empty(m, dtype=torch.bool, device=tkeys.device)
+    vals = torch.empty((m, lv), dtype=_I32, device=tkeys.device)
+    _FIND_COLS(tkeys, tvals, status, qblock, qkeys, qkeys.stride(0), qvalid, m, nb, bsz,
+               lk, lv, found, vals)
+    return found, vals
+
 
 def find_arrivals_plain(tkeys, tvals, status, seg, valid):
     """Plain find off an arrival segment (``ops.py:202-205``)."""

@@ -15,10 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import binning, hash_probe
+from repro_torch.kernels import binning, bloom_kernel, hash_probe
 from repro_torch.kernels.ref import (FREE, READY, STATE_MASK, bucket_state,  # noqa: F401
-                                     MODE_SET, MODE_ADD, MODE_KEEP,
-                                     hash_probe_find_ref)
+                                     MODE_SET, MODE_ADD, MODE_KEEP, bloom_find_ref)
 
 _I32 = torch.int32
 
@@ -111,30 +110,24 @@ def place_rows(dst, slots, rows, impl: str = "auto"):
 # blocked hash table
 # --------------------------------------------------------------------------
 
-def _column_front_end(what: str):
-    return NotImplementedError(
-        f"{what} with CUDA tensors: the column front end (Pallas "
-        "hash_probe.insert/find) is not ported yet, ROADMAP.md Queue 2; "
-        "the exchange path uses bulk_insert_arrivals/bulk_find_arrivals")
-
-
 def bulk_insert(tkeys, tvals, status, qblock, qkeys, qvals, qvalid,
                 mode: int = MODE_SET, impl: str = "auto"):
     """Insert a batch of column arrays; see ``ref.hash_probe_insert_ref``.
 
     Returns (tkeys, tvals, status, success(M,)).
     """
-    if resolve(impl, tkeys) == "cuda":
-        raise _column_front_end("bulk_insert")
-    return hash_probe.bulk_insert_plain(tkeys, tvals, status, _w(qblock), _w(qkeys),
-                                        _w(qvals), _b(qvalid), mode)
+    args = (tkeys, tvals, status, _w(qblock), _w(qkeys), _w(qvals), _b(qvalid), mode)
+    if resolve(impl, tkeys) == "torch":
+        return hash_probe.insert_plain(*args)
+    return hash_probe.insert(*args)
 
 
 def bulk_find(tkeys, tvals, status, qblock, qkeys, qvalid, impl: str = "auto"):
     """Batch find of column arrays; returns (found(M,), values(M, Lv))."""
-    if resolve(impl, tkeys) == "cuda":
-        raise _column_front_end("bulk_find")
-    return hash_probe_find_ref(tkeys, tvals, status, _w(qblock), _w(qkeys), _b(qvalid))
+    args = (tkeys, tvals, status, _w(qblock), _w(qkeys), _b(qvalid))
+    if resolve(impl, tkeys) == "torch":
+        return hash_probe.find_plain(*args)
+    return hash_probe.find(*args)
 
 
 def bulk_insert_arrivals(tkeys, tvals, status, seg, valid, mode: int = MODE_SET,
@@ -155,3 +148,89 @@ def bulk_find_arrivals(tkeys, tvals, status, seg, valid, impl: str = "auto"):
     if resolve(impl, tkeys) == "torch":
         return hash_probe.find_arrivals_plain(tkeys, tvals, status, seg, valid)
     return hash_probe.find_arrivals(tkeys, tvals, status, seg, _b(valid))
+
+
+# --------------------------------------------------------------------------
+# blocked Bloom filter
+# --------------------------------------------------------------------------
+
+def seg_exclusive_or_scan(words: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Exclusive segmented bitwise-OR scan over rows (segments contiguous).
+
+    words: (M, L) int32 words; seg_start: (M,) bool marking segment heads.
+    Row i receives the OR of earlier rows in its segment (0 at heads).
+    Plain PyTorch on every device, as the JAX package computes it with
+    ``lax.associative_scan`` outside any kernel: a log-step
+    (Hillis-Steele) segmented scan.
+    """
+    m = words.shape[0]
+    incl, flag = words.clone(), seg_start.clone()
+    d = 1
+    while d < m:
+        # rows i >= d combine with row i - d unless a head lies in (i-d, i]
+        take = ~flag[d:]
+        incl[d:] = torch.where(take[:, None], incl[d:] | incl[:-d], incl[d:])
+        flag[d:] = flag[d:] | flag[:-d]
+        d *= 2
+    out = torch.zeros_like(words)
+    if m > 1:
+        out[1:] = incl[:-1]
+    return torch.where(seg_start[:, None], 0, out)
+
+
+def hash_words(lanes, k: int, impl: str = "auto") -> torch.Tensor:
+    """(M, L) u32 item lanes -> (M, 2) Bloom block words with k bits set
+    (``bloom_words_ref(double_hash(lanes, k, 64), k)``)."""
+    if resolve(impl, lanes) == "torch":
+        return bloom_kernel.hash_words_plain(lanes, k)
+    return bloom_kernel.hash_words(_w(lanes), k)
+
+
+def bloom_insert(filter_words, qblock, qwords, qvalid, impl: str = "auto"):
+    """Batch blocked-Bloom insert with first-inserter-wins atomicity
+    (``repro/kernels/ops.py:231-266``).
+
+    A stable sort by block, an exclusive OR-scan per block segment gives
+    each item the bits its earlier batch-mates set; ``membership`` (the
+    kernel on CUDA tensors) tests each item against them; each segment's
+    last row writes the block's new word.  Returns (filter_words,
+    already_present(M,)); the filter is a new tensor.
+    """
+    kind = resolve(impl, filter_words)
+    nb = filter_words.shape[0]
+    m = qblock.shape[0]
+    qvalid = _b(qvalid)
+    b = torch.where(qvalid, _w(qblock), nb)
+    order = torch.argsort(b, stable=True)
+    sb, sw, svalid = b[order], _w(qwords)[order], qvalid[order]
+
+    change = sb[1:] != sb[:-1]
+    seg_start = torch.cat([torch.ones(min(m, 1), dtype=torch.bool, device=sb.device),
+                           change])
+    own = torch.where(svalid[:, None], sw, 0)
+    ex_or = seg_exclusive_or_scan(own, seg_start)
+
+    sb_c = sb.clamp(0, nb - 1).to(torch.int64)
+    base = filter_words[sb_c]
+    prior = base | ex_or
+    if kind == "torch":
+        already = bloom_kernel.membership_plain(prior, sw, svalid)
+    else:
+        already = bloom_kernel.membership(prior, sw, svalid)
+
+    # the inclusive OR of each segment lands on its last row
+    is_last = torch.cat([change, torch.ones(min(m, 1), dtype=torch.bool, device=sb.device)])
+    keep = is_last & (sb < nb)
+    out_words = filter_words.clone()
+    out_words[sb_c[keep]] = (base | ex_or | own)[keep]
+
+    out = torch.zeros(m, dtype=torch.bool, device=sb.device)
+    out[order] = already
+    return out_words, out
+
+
+def bloom_find(filter_words, qblock, qwords, qvalid, impl: str = "auto"):
+    """Membership query of block words; (M,) bool.  Plain on every device:
+    the JAX package has no kernel for it (``ops.py:269-270``)."""
+    resolve(impl, filter_words)
+    return bloom_find_ref(filter_words, _w(qblock), _w(qwords), _b(qvalid))

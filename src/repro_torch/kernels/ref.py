@@ -73,6 +73,49 @@ def hash_probe_find_ref(tkeys, tvals, status, qblock, qkeys, qvalid):
     return found, torch.where(found[:, None], vals, torch.zeros_like(vals))
 
 
+# --------------------------------------------------------------------------
+# blocked Bloom filter
+# --------------------------------------------------------------------------
+
+def bloom_words_ref(hashes: torch.Tensor, k: int) -> torch.Tensor:
+    """Expand (M, k) u32 hashes (each in [0, 64)) into 64-bit block words
+    represented as (M, 2) [lo, hi] int32 words."""
+    bits = as_u64(hashes)
+    lo = torch.zeros(bits.shape[0], dtype=torch.int64, device=bits.device)
+    hi = torch.zeros_like(lo)
+    for i in range(k):
+        bit = torch.ones_like(lo) << (bits[:, i] % 32)
+        lo = lo | torch.where(bits[:, i] < 32, bit, 0)
+        hi = hi | torch.where(bits[:, i] >= 32, bit, 0)
+    return to_i32(torch.stack([lo, hi], dim=1))
+
+
+def bloom_insert_ref(filter_words, qblock, qwords, qvalid):
+    """Sequential-semantics blocked Bloom insert oracle.
+
+    filter_words: (nblocks, 2) words.  Returns (filter_words,
+    already_present(M,)): item i is "already present" iff all of its bits
+    were set before *its own* insertion (earlier batch items count:
+    first-inserter-wins atomicity, paper section 5.4.2).
+    """
+    fw = filter_words.clone()
+    present = torch.zeros(qblock.shape[0], dtype=torch.bool, device=fw.device)
+    for i in range(qblock.shape[0]):
+        if not bool(qvalid[i]):
+            continue
+        b = int(qblock[i])
+        cur, w = fw[b].clone(), qwords[i]
+        present[i] = bool(((cur & w) == w).all())
+        fw[b] = cur | w
+    return fw, present
+
+
+def bloom_find_ref(filter_words, qblock, qwords, qvalid):
+    """All of each query's bits set in its block word; (M,) bool."""
+    cur = filter_words[qblock.long()]                 # (M, 2)
+    return ((cur & qwords) == qwords).all(dim=1) & qvalid
+
+
 def bin_offsets_ref(bins: torch.Tensor, nbins: int, valid=None):
     """Sequential oracle for exchange send-buffer construction.
 

@@ -199,7 +199,8 @@ def _imports(path: pathlib.Path):
 
 
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-              + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_hashmap.py"])
+              + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_hashmap.py",
+                 ROOT / "examples" / "torch_quickstart.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

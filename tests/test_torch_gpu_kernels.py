@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import binning, hash_probe, ref
+from repro_torch.kernels import binning, bloom_kernel, hash_probe, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -118,3 +118,72 @@ def test_find_arrivals_kernel(dev, nb, bsz, lk, lv, m):
     v = valid.to(dev)
     _eq(hash_probe.find_arrivals(*args, view, v),
         hash_probe.find_arrivals_plain(*args, view, v))
+
+
+# column front ends: the local-promise path of the hash map
+COLUMN_CASES = [
+    # nb, B, Lk, Lv, m, key range
+    (4, 16, 1, 1, 48, 50), (2, 8, 1, 2, 40, 50), (8, 16, 2, 1, 64, 50),
+    (4, 64, 1, 1, 0, 50), (16, 40, 2, 3, 3000, 200), (1, 64, 1, 1, 200, 100),
+]
+
+
+def _columns(rng, m, lk, lv, nb, key_hi, dev):
+    """qblock, strided qkeys/qvals views of one wider array, qvalid."""
+    wide = torch.cat([_i32(rng, (m, lk), 0, key_hi), _i32(rng, (m, lv)),
+                      _i32(rng, (m, 1))], dim=1).to(dev)
+    qblock = _i32(rng, (m,), 0, nb).to(dev)
+    valid = torch.from_numpy(rng.random(m) < 0.9).to(dev)
+    return qblock, wide[:, :lk], wide[:, lk:lk + lv], valid
+
+
+@pytest.mark.parametrize("mode", [ref.MODE_SET, ref.MODE_ADD, ref.MODE_KEEP])
+@pytest.mark.parametrize("nb,bsz,lk,lv,m,key_hi", COLUMN_CASES)
+def test_insert_kernel(dev, mode, nb, bsz, lk, lv, m, key_hi):
+    rng = np.random.default_rng(nb * 5 + m + mode)
+    tk, tv, st = _table(rng, nb, bsz, lk, lv, 0.5)
+    if key_hi > 100:                                # keys >= 2**31 ride along
+        tk ^= -(1 << 31)
+    qb, qk, qv, valid = _columns(rng, m, lk, lv, nb, key_hi, dev)
+    if key_hi > 100:
+        qk = qk ^ -(1 << 31)
+    args = [t.to(dev) for t in (tk, tv, st)]
+    got = hash_probe.insert(*args, qb, qk, qv, valid, mode)
+    _eq(got, hash_probe.insert_plain(*args, qb, qk, qv, valid, mode))
+    if m and m <= 64:
+        cpu = [t.cpu() for t in (*args, qb, qk, qv, valid)]
+        _eq(tuple(g.cpu() for g in got), ref.hash_probe_insert_ref(*cpu, mode))
+
+
+@pytest.mark.parametrize("nb,bsz,lk,lv,m,key_hi", COLUMN_CASES)
+def test_find_kernel(dev, nb, bsz, lk, lv, m, key_hi):
+    rng = np.random.default_rng(nb + m)
+    tk, tv, st = _table(rng, nb, bsz, lk, lv, 0.7)
+    qb, qk, _, valid = _columns(rng, m, lk, lv, nb, key_hi, dev)
+    args = [t.to(dev) for t in (tk, tv, st)]
+    # the kernel reads qblock only for valid queries
+    junk = torch.where(valid, qb, 1 << 30)
+    _eq(hash_probe.find(*args, junk, qk, valid), hash_probe.find_plain(*args, qb, qk, valid))
+
+
+@pytest.mark.parametrize("m,lanes,k", [(0, 2, 4), (1, 1, 1), (1000, 1, 4), (4099, 2, 4),
+                                       (70000, 3, 7), (513, 2, 64)])
+def test_hash_words_kernel(dev, m, lanes, k):
+    rng = np.random.default_rng(m + lanes + k)
+    wide = _i32(rng, (m, lanes + 1)).to(dev)
+    view = wide[:, :lanes]                          # strided rows
+    _eq(bloom_kernel.hash_words(view, k), bloom_kernel.hash_words_plain(view, k))
+
+
+@pytest.mark.parametrize("m", [0, 1, 37, 5000, 100003])
+def test_membership_kernel(dev, m):
+    rng = np.random.default_rng(m)
+    words = _i32(rng, (m, 2)) & _i32(rng, (m, 2)) & _i32(rng, (m, 2))
+    prior = _i32(rng, (m, 2))
+    prior[: m // 2] |= words[: m // 2]               # half present
+    valid = torch.from_numpy(rng.random(m) < 0.9)
+    args = [t.to(dev) for t in (prior, words, valid)]
+    got = bloom_kernel.membership(*args)
+    _eq(got, bloom_kernel.membership_plain(*args))
+    if m > 10:
+        assert bool(got.any()) and not bool(got.all())

@@ -107,8 +107,19 @@ def sc_count_resize(hm, P, bk, spec, st, d):
     return {"state": st2, "count": hm.count_ready(bk, st), "count2": hm.count_ready(bk, st2)}
 
 
+def sc_local_insert_find(hm, P, bk, spec, st, d):
+    """The local promise: the column front ends of the probe, no exchange."""
+    st, ok = hm.insert(bk, spec, st, d["keys"], d["vals"], capacity=1,
+                       promise=P.HashMap.local, valid=d["mask"], mode=1)
+    st, ok2 = hm.insert(bk, spec, st, d["ik"], d["iv"], capacity=1,
+                        promise=P.HashMap.local, mode=2)
+    st, v, f = hm.find(bk, spec, st, d["q"], capacity=1, promise=P.HashMap.local,
+                       valid=d["mask"])
+    return {"state": st, "ok": ok, "ok2": ok2, "vals": v, "found": f}
+
+
 SCENARIOS = {f.__name__[3:]: f for f in (
-    sc_insert_a1, sc_insert_a2_rounds2, sc_insert_drops, sc_insert_add_keep,
+    sc_local_insert_find, sc_insert_a1, sc_insert_a2_rounds2, sc_insert_drops, sc_insert_add_keep,
     sc_find_speculative, sc_find_sequential, sc_find_insert, sc_find_insert_fine,
     sc_count_resize)}
 

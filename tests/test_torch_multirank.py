@@ -1,9 +1,11 @@
-"""The port's hash map on 4 gloo ranks against the JAX package at P=4.
+"""The port's hash map, Bloom filter and HashMapBuffer on 4 gloo ranks
+against the JAX package at P=4.
 
 ``tests/torch_multirank_run.py`` runs the same op sequence (insert with
 two attempts, speculative and sequential find, find_insert, a
-small-capacity insert with retry rounds and drops, count_ready, and a
-dropping ``route``) once under JAX ``shard_map`` over 4 fake CPU
+small-capacity insert with retry rounds and drops, count_ready, a
+dropping ``route``, a Bloom insert + find and two HashMapBuffer
+flushes, one of them dropping on the wire) once under JAX ``shard_map`` over 4 fake CPU
 devices (``impl="jnp"``) and once on 4 gloo ranks of the port; each run
 is a subprocess with its own timeout.  Every rank's table shard and
 results must be bit-identical to the JAX rank's, and each rank's cost
@@ -64,9 +66,11 @@ TABLE = ["tkeys", "tvals", "status"]
 RESULTS = ["ok", "vals", "found", "vals2", "found2", "fvals", "ffound", "fok", "okd",
            "count"]
 ROUTE = ["r_payload", "r_valid", "r_src_pos", "r_dropped", "r_send_item", "r_send_occ"]
+BLOOM_BUFFER = ["b_words", "b_seen", "b_present", "h_tkeys", "h_tvals", "h_status",
+                "h_qdata", "h_head", "h_tail", "h_over", "h_dropped", "h_dropped2"]
 
 
-@pytest.mark.parametrize("field", TABLE + RESULTS + ROUTE)
+@pytest.mark.parametrize("field", TABLE + RESULTS + ROUTE + BLOOM_BUFFER)
 def test_ranks_bit_identical_to_shard_map(runs, field):
     ref, ranks = runs
     for r, got in enumerate(ranks):
@@ -94,3 +98,5 @@ def test_multirank_run_exercised_the_exchange(runs):
     assert (~ref["okd"]).any() and ref["okd"].any()
     assert ref["r_dropped"][0] > 0
     assert ref["found"].size == NPROCS * NLOC
+    assert ref["b_seen"].any() and not ref["b_seen"].all()
+    assert ref["h_dropped"][0] > 0 and (ref["h_status"] & 3 == 2).any()

@@ -1,4 +1,5 @@
-"""Four-rank hash-map run for tests/test_torch_multirank.py.
+"""Four-rank hash-map, Bloom filter and HashMapBuffer run for
+tests/test_torch_multirank.py.
 
     python tests/torch_multirank_run.py jax OUT.npz
         the JAX package under shard_map over 4 fake CPU devices, with the
@@ -8,9 +9,9 @@
         the port on 4 gloo ranks spawned with torch.multiprocessing, one
         rank{r}.npz each.
 
-Both run the same op sequence on the same numpy inputs (rank r holds
+Both run the same op sequences on the same numpy inputs (rank r holds
 rows [r*NLOC, (r+1)*NLOC) of every batch) and save every per-rank
-result, the table shards, and the cost log as JSON.
+result, the table, filter and ring shards, and the cost log as JSON.
 """
 
 from __future__ import annotations
@@ -40,6 +41,13 @@ def inputs() -> dict:
         "ik": pool[n:2 * n], "iv": pool[n:2 * n] ^ np.uint32(0xABCDEF),
         "pay": rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(np.uint32),
         "rdest": rng.integers(0, NPROCS, n).astype(np.int32),
+        # 2-lane items with duplicates across and within ranks
+        "items": np.concatenate([pool[:n // 2], pool[:n // 2]])[rng.permutation(n)]
+                 .reshape(-1, 1).repeat(2, axis=1) ^ np.uint32(0x5A5A5A5A) * np.arange(
+                     2, dtype=np.uint32),
+        "ivals": pool[:n] >> np.uint32(3),
+        "probes": np.stack([pool[n // 2:3 * n // 2], pool[n // 2:3 * n // 2]], axis=1)
+                  ^ np.uint32(0x5A5A5A5A) * np.arange(2, dtype=np.uint32),
     }
 
 
@@ -63,6 +71,26 @@ def scenario(hm, ex, bk, spec, st, d) -> dict:
             "r_send_occ": r.send_occ}
 
 
+def scenario_bloom_buffer(bl, hm, hb, bk, kspec, vspec, d, kw) -> dict:
+    """Bloom pre-pass and a HashMapBuffer flush, written once for either
+    package (``kw``: impl and device)."""
+    bspec, bst = bl.bloom_create(bk, 1 << 12, kspec, k=4, **kw)
+    bst, seen = bl.insert(bk, bspec, bst, d["items"], capacity=NLOC)
+    present = bl.find(bk, bspec, bst, d["probes"], capacity=NLOC)
+    mspec, mst = hm.hashmap_create(bk, CAP, kspec, vspec, block_size=BLOCK, **kw)
+    hspec, hst = hb.create(bk, mspec, mst, queue_capacity=2 * NLOC, buffer_cap=NLOC)
+    hst, over = hb.insert(hspec, hst, d["items"], d["ivals"])
+    hst, dropped = hb.flush(bk, hspec, hst, capacity=NLOC // 4)     # the wire drops
+    hst, _ = hb.insert(hspec, hst, d["items"][: NLOC // 2], d["ivals"][: NLOC // 2])
+    hst, dropped2 = hb.flush(bk, hspec, hst, capacity=NLOC, mode=1)
+    return {"b_words": bst.words, "b_seen": seen, "b_present": present,
+            "h_tkeys": hst.map.tkeys, "h_tvals": hst.map.tvals,
+            "h_status": hst.map.status, "h_qdata": hst.queue.data,
+            "h_head": hst.queue.head, "h_tail": hst.queue.tail,
+            "h_over": over.reshape(1), "h_dropped": dropped.reshape(1),
+            "h_dropped2": dropped2.reshape(1)}
+
+
 def cost_summary(log) -> dict:
     return {name: log.by_op(name).__dict__ for name in sorted({n for n, _ in log.entries})}
 
@@ -75,7 +103,9 @@ def run_jax(out_path: str) -> None:
     from jax.sharding import PartitionSpec as P
 
     from repro.compat import make_mesh, shard_map
+    from repro.containers import bloom as bl
     from repro.containers import hashmap as hm
+    from repro.containers import hashmap_buffer as hb
     from repro.core import costs, exchange as ex
     from repro.core.backend import get_backend
 
@@ -87,7 +117,10 @@ def run_jax(out_path: str) -> None:
         bk = get_backend("bcl")
         spec, st = hm.hashmap_create(bk, CAP, SDS((), jnp.uint32), SDS((), jnp.uint32),
                                      block_size=BLOCK, impl="jnp")
-        out = scenario(hm, ex, bk, spec, st, dict(zip(names, arrays)))
+        dd = dict(zip(names, arrays))
+        out = scenario(hm, ex, bk, spec, st, dd)
+        out.update(scenario_bloom_buffer(bl, hm, hb, bk, SDS((2,), jnp.uint32),
+                                         SDS((), jnp.uint32), dd, {"impl": "jnp"}))
         return tuple(out[k] for k in sorted(out)), sorted(out)
 
     keys_out = []
@@ -111,7 +144,9 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+    from repro_torch.containers import bloom as bl
     from repro_torch.containers import hashmap as hm
+    from repro_torch.containers import hashmap_buffer as hb
     from repro_torch.core import costs, exchange as ex
     from repro_torch.core.backend import ProcessGroupBackend
     from repro_torch.core.object_container import Spec
@@ -127,6 +162,9 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
                                      block_size=BLOCK, impl="torch", device="cpu")
         with costs.recording() as log:
             out = scenario(hm, ex, bk, spec, st, d)
+            out.update(scenario_bloom_buffer(bl, hm, hb, bk, Spec((2,), torch.uint32),
+                                             Spec((), torch.uint32), d,
+                                             {"impl": "torch", "device": "cpu"}))
         res = {k: v.numpy() for k, v in out.items()}
         res["costs"] = np.asarray(json.dumps(cost_summary(log)))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
