@@ -6,10 +6,13 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build the nine CUDA kernels from src/repro_torch/csrc, one nvcc per
-     source, all at once (ptxas report);
-  3. kernel phase: a short probe of both paths records each kernel's
-     largest call; each kernel is held against its plain PyTorch version
+  2. build the twelve CUDA kernels from src/repro_torch/csrc, one nvcc
+     per source, all at once (ptxas report);
+  3. kernel phase: a short probe of the paths records each kernel's
+     largest call (ragged_slots takes the inputs of the extensions path's
+     first pack_rows call, histogram the bins of its largest
+     multi_bin_offsets call: no path reaches either, as in the JAX
+     package); each kernel is held against its plain PyTorch version
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function;
@@ -23,7 +26,15 @@ Phases, each fatal on failure:
      table, the de Bruijn table of the solid extensions built twice
      (direct insert, and HashMapBuffer insert + flush), a local find of
      every extension and as many absent keys, and 2**16 walks of 64
-     steps.
+     steps;
+  6. extensions path, at the hash-map path's width (2**26 buckets, block
+     64): an integrity-checked insert of 2**23 keys (capacity 2**20, 8
+     retry rounds) over a wire whose round-0 window is corrupted, the
+     heal of the unacked 2**20 and a find of all keys, a degraded insert
+     with rank 0 dead, the same inserts and a speculative find of 2**23
+     keys over the hierarchical and the dense transport, and a
+     split-phase find_insert of 2**22 + 2**22 over the hierarchical
+     transport against the synchronous one.
 Each path runs through the port's entry points on a SerialBackend, with
 the kernels (launch counts reset just before, read just after) and with
 the plain versions; the two runs must be bit-identical and pass the
@@ -51,7 +62,10 @@ import torch  # noqa: E402
 from repro_torch.containers import bloom as bl  # noqa: E402
 from repro_torch.containers import hashmap as hm  # noqa: E402
 from repro_torch.containers import hashmap_buffer as hb  # noqa: E402
+from repro_torch.core import costs  # noqa: E402
 from repro_torch.core.backend import SerialBackend  # noqa: E402
+from repro_torch.core.faults import FaultInjectingTransport, FaultSpec  # noqa: E402
+from repro_torch.core.transport import DENSE  # noqa: E402
 from repro_torch.core.hashing import fmix32  # noqa: E402
 from repro_torch.core.object_container import Spec  # noqa: E402
 from repro_torch.core.promises import ConProm  # noqa: E402
@@ -73,6 +87,13 @@ G_FULL = dict(genome_len=1 << 21, k=21, bloom_bits=1 << 28, bloom_k=4, table=1 <
               block=64, probes=1 << 22, walks=1 << 16, steps=64)
 G_REHEARSAL = dict(genome_len=1 << 12, k=21, bloom_bits=1 << 16, bloom_k=4,
                    table=1 << 15, block=64, probes=1 << 8, walks=1 << 6, steps=8)
+# extensions path: micro_hashmap's faults arm at the hash-map path's width,
+# with retry rounds so a fault costs one window; the hierarchical hop lane
+# holds ranks below 2**20 per (src, dst) bucket, so its ops run in waves
+X_FULL = dict(capacity=1 << 26, block=64, n=1 << 23, cap=1 << 20, rounds=8,
+              wave=1 << 19, fi=1 << 22)
+X_REHEARSAL = dict(capacity=1 << 14, block=64, n=1 << 12, cap=1 << 9, rounds=8,
+                   wave=1 << 8, fi=1 << 10)
 
 # name -> (module, wrapper, plain, source, TPU kernel it replaces)
 KERNELS = {
@@ -96,11 +117,20 @@ KERNELS = {
                    "src/repro_torch/csrc/bloom.cu", "src/repro/kernels/bloom_kernel.py:88"),
     "hash_words": (bloom_kernel, "hash_words", "hash_words_plain",
                    "src/repro_torch/csrc/bloom.cu", "src/repro/kernels/bloom_kernel.py:62"),
+    "row_mix": (binning, "row_mix", "row_mix_plain", "src/repro_torch/csrc/binning.cu",
+                "src/repro/kernels/binning.py:349"),
+    "ragged_slots": (binning, "ragged_slots", "ragged_slots_plain",
+                     "src/repro_torch/csrc/binning.cu", "src/repro/kernels/binning.py:139"),
+    "histogram": (binning, "histogram", "histogram_plain", "src/repro_torch/csrc/binning.cu",
+                  "src/repro/kernels/binning.py:368"),
 }
 #: the kernels each path runs
 HASHMAP_KERNELS = ("bin_offsets", "pack_rows", "place_rows", "insert_arrivals",
                    "find_arrivals")
-GENOMICS_KERNELS = tuple(KERNELS)
+GENOMICS_KERNELS = HASHMAP_KERNELS + ("insert", "find", "membership", "hash_words")
+EXT_KERNELS = HASHMAP_KERNELS + ("row_mix",)
+#: kernels no path reaches (the kernel phase derives their inputs)
+OFF_PATH = ("ragged_slots", "histogram")
 
 
 def check(cond: bool, what: str) -> None:
@@ -377,6 +407,208 @@ def same_genomics(a: dict, b: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# the extensions path: integrity, faults, degraded commits, hier, split phase
+# --------------------------------------------------------------------------
+
+U32 = Spec((), torch.uint32)
+
+
+def ext_workload(xz: dict, dev, seed: int) -> dict:
+    """Keys of a fresh counter range (the other paths use none of it)."""
+    gen_ = torch.Generator(device="cpu").manual_seed(seed + 2)
+    n, fi = xz["n"], xz["fi"]
+    base = 1 << 30
+    keys = keys_at(base, n, dev)
+    pick = torch.randperm(n, generator=gen_)[:n // 2 + fi // 2].to(dev)
+    return dict(
+        keys=keys, find=torch.cat([keys[pick[:n // 2]], keys_at(base + n, n // 2, dev)]),
+        fi_find=torch.cat([keys[pick[n // 2:]], keys_at(base + 2 * n, fi // 2, dev)]),
+        fi_ins=keys_at(base + 3 * n, fi, dev))
+
+
+def _waves(t: torch.Tensor, wave: int):
+    return [t[i:i + wave] for i in range(0, t.shape[0], wave)]
+
+
+def _tensors(res: dict):
+    """The tensors of a phase's result, tables unpacked."""
+    for v in res.values():
+        yield from (v if isinstance(v, tuple) else (v,))
+
+
+def _table_keys(st) -> torch.Tensor:
+    """The keys a table holds, sorted (read straight off its arrays)."""
+    occ = (st.status.reshape(-1) & 3) == 2
+    return torch.sort(st.tkeys.reshape(-1)[occ]).values
+
+
+def ext_path(impl: str, xz: dict, xd: dict, dev, phases=(1, 2, 3, 4, 5)) -> dict:
+    """The exchange extensions through the hash map's entry points."""
+    bk = SerialBackend()
+    n, cap, rounds, wave = xz["n"], xz["cap"], xz["rounds"], xz["wave"]
+    keys = xd["keys"]
+    vals = value_of(keys)
+    t, out = {}, {}
+
+    def table():
+        return hm.hashmap_create(bk, xz["capacity"], U32, U32, block_size=xz["block"],
+                                 impl=impl, device=dev)
+
+    def lap(name, t0):
+        sync(dev)
+        t[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    spec, st = table()
+    sync(dev)
+    t0 = time.perf_counter()
+    if 1 in phases:
+        # 1. a corrupted round-0 window under integrity checks: a fresh
+        # fault transport, so its launch numbering starts at 0
+        faulty = FaultInjectingTransport(DENSE, FaultSpec(seed=7, corrupt=((0, 0, 0),)))
+        st, ok1 = hm.insert(bk, spec, st, u32(keys), u32(vals), capacity=cap,
+                            max_rounds=rounds, attempts=1, integrity=True,
+                            transport=faulty)
+        t0 = lap("corrupt_insert_s", t0)
+        out.update(ok1=ok1, launches_faulty=faulty.launches, table1=st)
+    if 2 in phases:
+        # 2. heal: re-send exactly the unacked inserts over the clean wire
+        st, ok2 = hm.insert(bk, spec, st, u32(keys), u32(vals), capacity=cap,
+                            max_rounds=rounds, attempts=1, integrity=True,
+                            valid=~out["ok1"])
+        t0 = lap("heal_s", t0)
+        _, hvals, hfound = hm.find(bk, spec, st, u32(keys), capacity=n)
+        t0 = lap("heal_find_s", t0)
+        out.update(ok2=ok2, hvals=hvals.view(torch.int32), hfound=hfound, table2=st)
+    if 3 in phases:
+        # 3. degraded probe: the only rank declared dead at admission
+        with costs.recording() as log:
+            st3, ok3 = hm.insert(bk, spec, st, u32(keys[:8]), u32(vals[:8]), capacity=8,
+                                 attempts=1, dead_ranks=(0,))
+        t0 = lap("degraded_s", t0)
+        out.update(ok3=ok3, unreachable=log.total().unreachable,
+                   degraded_same=all(torch.equal(a, b) for a, b in zip(st, st3)))
+    del st                       # every table below shares ``spec``
+
+    def turn(name, t0):
+        # phases 4 and 5 run each variant twice, in turns (A, B, B, A):
+        # the time kept is the mean of the two runs
+        sync(dev)
+        t[name] = t.get(name, 0.0) + (time.perf_counter() - t0) / 2
+        return time.perf_counter()
+
+    def keep(label, res):
+        # the repeated run of a variant must give the same bits
+        if label in out:
+            check(all(torch.equal(x, y) for x, y in zip(_tensors(out[label]),
+                                                         _tensors(res))),
+                  f"{label}: the repeated run is bit-identical")
+        else:
+            out[label] = res
+
+    if 4 in phases:
+        # 4. the same inserts and a speculative find over both transports
+        for tr in ("dense", "hier", "hier", "dense"):
+            _, st_t = table()
+            sync(dev)
+            t0 = time.perf_counter()
+            oks = []
+            for k, v in zip(_waves(keys, wave), _waves(vals, wave)):
+                st_t, ok = hm.insert(bk, spec, st_t, u32(k), u32(v), capacity=wave,
+                                     transport=tr)
+                oks.append(ok)
+            t0 = turn(f"{tr}_insert_s", t0)
+            fv, ff = [], []
+            for q in _waves(xd["find"], wave):
+                st_t, v, f = hm.find(bk, spec, st_t, u32(q), capacity=wave, transport=tr)
+                fv.append(v.view(torch.int32))
+                ff.append(f)
+            turn(f"{tr}_find_s", t0)
+            keep(tr, dict(table=st_t, ok=torch.cat(oks), vals=torch.cat(fv),
+                          found=torch.cat(ff)))
+    if 5 in phases:
+        # 5. split-phase find_insert over the hier transport vs the sync one,
+        # each on a copy of the hier table
+        for mode in ("async", "sync", "sync", "async"):
+            st_m = hm.HashMapState(*(x.clone() for x in out["hier"]["table"]))
+            waves = zip(_waves(xd["fi_find"], wave), _waves(xd["fi_ins"], wave))
+            sync(dev)
+            t0 = time.perf_counter()
+            res = []
+            for fk, ik in waves:
+                args = (bk, spec, st_m, u32(fk), u32(ik), u32(value_of(ik)))
+                if mode == "async":
+                    r = hm.find_insert(*args, capacity=wave, transport="hier",
+                                       async_=True).finish()
+                else:
+                    r = hm.find_insert(*args, capacity=wave, transport="hier")
+                st_m = r[0]
+                res.append(r[1:])
+            turn(f"{mode}_find_insert_s", t0)
+            keep(mode, dict(table=st_m, vals=torch.cat([r[0] for r in res]).view(torch.int32),
+                            found=torch.cat([r[1] for r in res]),
+                            ok=torch.cat([r[2] for r in res])))
+    out["times"] = t
+    return out
+
+
+def check_ext(r: dict, xd: dict, xz: dict) -> None:
+    """The extensions oracle, computed on the card from the keys alone."""
+    n, cap = xz["n"], xz["cap"]
+    keys = xd["keys"]
+    ok1 = r["ok1"]
+    check(int((~ok1).sum()) == cap, f"corrupted wire: {int((~ok1).sum())} unacked == {cap}")
+    check(not bool(ok1[:cap].any()) and bool(ok1[cap:].all()),
+          "corrupted wire: exactly the round-0 window (bucket ranks < cap) failed")
+    check(torch.equal(_table_keys(r["table1"]), torch.sort(keys[cap:]).values),
+          "corrupted wire: the table holds every acked key and no failed one")
+    check(bool(r["ok2"][~ok1].all()) and int((~ok1 & ~r["ok2"]).sum()) == 0,
+          "heal: every re-sent insert acks, lost == 0")
+    check(bool(r["hfound"].all()) and torch.equal(r["hvals"], value_of(keys)),
+          "heal: a find of every key returns 3k+1")
+    check(not bool(r["ok3"].any()) and r["degraded_same"] and r["unreachable"] == 1,
+          f"degraded probe: no ack, table unchanged, unreachable {r['unreachable']} == 1")
+    d, h = r["dense"], r["hier"]
+    for f in ("tkeys", "tvals", "status"):
+        check(torch.equal(getattr(d["table"], f), getattr(h["table"], f)),
+              f"hier vs dense: table {f} bit-identical")
+    for f in ("ok", "vals", "found"):
+        check(torch.equal(d[f], h[f]), f"hier vs dense: {f} identical")
+    half = n // 2
+    check(bool(h["ok"].all()) and bool(h["found"][:half].all())
+          and not bool(h["found"][half:].any())
+          and torch.equal(h["vals"][:half], value_of(xd["find"][:half])),
+          "hier: every key lands, present keys found with 3k+1, absent not")
+    a, s = r["async"], r["sync"]
+    for f in ("tkeys", "tvals", "status"):
+        check(torch.equal(getattr(a["table"], f), getattr(s["table"], f)),
+              f"split phase vs sync: table {f} bit-identical")
+    for f in ("vals", "found", "ok"):
+        check(torch.equal(a[f], s[f]), f"split phase vs sync: {f} identical")
+    fhalf = xz["fi"] // 2
+    check(bool(a["ok"].all()) and bool(a["found"][:fhalf].all())
+          and not bool(a["found"][fhalf:].any())
+          and torch.equal(a["vals"][:fhalf], value_of(xd["fi_find"][:fhalf])),
+          "split phase: inserts land, present found with 3k+1, absent not")
+
+
+def same_ext(a: dict, b: dict) -> None:
+    for name in ("ok1", "ok2", "hvals", "hfound", "ok3"):
+        check(torch.equal(a[name], b[name]), f"kernel and plain runs: {name} identical")
+    tables = [("table1", a["table1"], b["table1"]), ("table2", a["table2"], b["table2"])]
+    tables += [(m, a[m]["table"], b[m]["table"]) for m in ("dense", "hier", "async")]
+    for label, x, y in tables:
+        for f in ("tkeys", "tvals", "status"):
+            check(torch.equal(getattr(x, f), getattr(y, f)),
+                  f"kernel and plain runs: {label} {f} bit-identical")
+    for m in ("hier", "async"):
+        for f in ("vals", "found", "ok"):
+            check(torch.equal(a[m][f], b[m][f]), f"kernel and plain runs: {m} {f} identical")
+    check(a["unreachable"] == b["unreachable"] and a["launches_faulty"] == b["launches_faulty"],
+          "kernel and plain runs: the same launches and unreachable count")
+
+
+# --------------------------------------------------------------------------
 # kernel phase
 # --------------------------------------------------------------------------
 
@@ -394,22 +626,30 @@ def _work(name: str, args: tuple) -> int:
         return int((args[1] < args[0].numel()).sum()) * args[2].shape[1]
     if name == "membership":
         return int(args[2].sum())
-    if name == "hash_words":
+    if name in ("hash_words", "row_mix"):
         return args[0].shape[0]
     return int(args[_VALID_ARG[name]].sum())   # probes: valid queries
 
 
-def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, dev) -> dict:
-    """Run two insert waves and one find of the hash-map path, and the
-    genomics path with two walk steps, recording each kernel's largest
-    call.
+def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: dict,
+                  dev) -> dict:
+    """Run two insert waves and one find of the hash-map path, the
+    genomics path with two walk steps and the extensions path's first two
+    phases, recording each kernel's largest call.  No path reaches
+    ragged_slots or histogram: they take the inputs of the extensions
+    path's first pack_rows call and the bins of its largest
+    multi_bin_offsets call.
 
     Both the wrapper and the plain version are tapped: on the CPU
     (rehearsal) the dispatcher calls the plain version directly.
     """
     seen: dict[str, tuple] = {}
+    ext: dict[str, tuple] = {}
+    probe = [""]
     originals = []
     for name, (mod, wrapper, plain, *_rest) in KERNELS.items():
+        if name in OFF_PATH:
+            continue
         for attr in (wrapper, plain):
             fn = getattr(mod, attr)
             originals.append((mod, attr, fn))
@@ -418,17 +658,28 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, dev) -> dict:
                 w = _work(_name, args)
                 if w >= seen.get(_name, (-1,))[0]:
                     seen[_name] = (w, args)
+                if probe[0] == "ext":
+                    if _name == "pack_rows" and _name not in ext:
+                        ext[_name] = (w, args)
+                    if _name == "bin_offsets" and w >= ext.get(_name, (-1,))[0]:
+                        ext[_name] = (w, args)
                 return _fn(*args)
             setattr(mod, attr, tap)
     try:
-        probe = dict(data, waves=data["waves"][:2])
-        main_path("auto", dict(sz, waves=2), probe, dev)
+        main_path("auto", dict(sz, waves=2), dict(data, waves=data["waves"][:2]), dev)
         genomics_path("auto", gz, gdata, dev, steps=2)
+        probe[0] = "ext"
+        ext_path("auto", xz, xdata, dev, phases=(1, 2))
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
-    check(set(seen) == set(KERNELS), f"probe reached every kernel: {sorted(seen)}")
-    return {name: args for name, (_, args) in seen.items()}
+    check(set(seen) == set(KERNELS) - set(OFF_PATH),
+          f"probe reached every kernel of the paths: {sorted(seen)}")
+    calls = {name: args for name, (_, args) in seen.items()}
+    rows, *slot_args, total = ext["pack_rows"][1]
+    calls["ragged_slots"] = (*slot_args, total)     # sentinel = the buffer's size
+    calls["histogram"] = ext["bin_offsets"][1]
+    return calls
 
 
 def time_ms(fn, reps: int, dev) -> float:
@@ -489,6 +740,13 @@ def bound_ops(name: str, args: tuple) -> int:
     if name == "hash_words":
         m, lanes = args[0].shape               # two hashes (8 per fmix32, 11 per
         return m * (21 + 22 * lanes + 6 * args[1])    # lane) and 6 per bit
+    if name == "row_mix":
+        m, lanes = args[0].shape               # a multiply-add per lane, fmix32
+        return m * (2 * lanes + 8)
+    if name == "ragged_slots":
+        return 12 * args[0].numel()            # window test + slot per item
+    if name == "histogram":
+        return 4 * args[0].numel()             # range test, match, count per item
     tk = args[0]
     probes = int(args[_VALID_ARG[name]].sum())
     return probes * tk.shape[1] * (tk.shape[2] + 3)   # key compare + state test per slot
@@ -509,7 +767,12 @@ def max_abs_err(a, b) -> int:
 def library_call(name: str, args: tuple):
     """One PyTorch call computing the same function, where there is one:
     place_rows is ``Tensor.index_put`` of the landing words (the drop mask
-    and word indices are prepared outside the timed call)."""
+    and word indices are prepared outside the timed call); histogram is
+    ``torch.bincount`` weighted by the valid mask (float64 sums, exact
+    below 2**53), cast back to int32 outside the timed call."""
+    if name == "histogram":
+        bins, nbins, valid = args
+        return lambda: torch.bincount(bins, weights=valid, minlength=nbins)
     if name != "place_rows":
         return None
     dst, slots, rows = args
@@ -531,7 +794,8 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
         check(err == 0, f"{name}: kernel equals its plain version bit for bit")
         lib = library_call(name, args)
         if lib is not None:
-            check(torch.equal(lib(), got), f"{name}: library call computes the same")
+            check(torch.equal(lib().to(got.dtype), got),
+                  f"{name}: library call computes the same")
         bytes_ms = bound_bytes(name, args, got) / HBM_BYTES_PER_S * 1e3
         ops_ms = bound_ops(name, args) / OPS_PER_S * 1e3
         rows[name] = dict(
@@ -548,7 +812,8 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
 
 # --------------------------------------------------------------------------
 
-def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, smi: str) -> None:
+def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
+           smi: str) -> None:
     """One JSON line of a path's end-to-end numbers, with the card."""
     label = "kernels" if impl == "auto" else "plain"
     if path == "hash-map path":
@@ -560,6 +825,23 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, smi: str)
             find_insert_ops_per_s=2 * sz["fi"] / r["find_insert_s"],
             total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
             count_ready=r["count"], launches=r["launches"])
+    elif path == "extensions path":
+        t = r["times"]
+        n, fi = xz["n"], xz["fi"]
+        line = dict(
+            card=smi, corrupt_insert_keys_per_s=n / t["corrupt_insert_s"],
+            lost=int((~r["ok1"]).sum()), healed=int(r["ok2"][~r["ok1"]].sum()),
+            heal_keys_per_s=int((~r["ok1"]).sum()) / t["heal_s"],
+            heal_lost=int((~r["ok1"] & ~r["ok2"]).sum()),
+            heal_find_keys_per_s=n / t["heal_find_s"], unreachable=r["unreachable"],
+            dense_insert_keys_per_s=n / t["dense_insert_s"],
+            hier_insert_keys_per_s=n / t["hier_insert_s"],
+            dense_find_keys_per_s=n / t["dense_find_s"],
+            hier_find_keys_per_s=n / t["hier_find_s"],
+            async_find_insert_ops_per_s=2 * fi / t["async_find_insert_s"],
+            sync_find_insert_ops_per_s=2 * fi / t["sync_find_insert_s"],
+            fault_launches=r["launches_faulty"], seconds=t, total_s=r["total_s"],
+            peak_mem_bytes=r["peak_bytes"], launches=r["launches"])
     else:
         t = r["times"]
         line = dict(
@@ -619,7 +901,9 @@ def main(argv=None) -> int:
     print(f"genomics data: {gdata['n']} k-mers of {gz['k']} bases, "
           f"{gdata['uniq'].numel()} distinct, {gdata['n_ext']} solid extensions",
           flush=True)
-    calls = capture_calls(sz, data, gz, gdata, dev)
+    xz = X_REHEARSAL if rehearsal else X_FULL
+    xdata = ext_workload(xz, dev, args.seed)
+    calls = capture_calls(sz, data, gz, gdata, xz, xdata, dev)
     krows = kernel_phase(calls, sz["reps"], dev)
     del calls
 
@@ -631,6 +915,8 @@ def main(argv=None) -> int:
         "genomics path": (lambda impl: genomics_path(impl, gz, gdata, dev),
                           lambda r: check_genomics(r, gdata, gz), same_genomics,
                           GENOMICS_KERNELS),
+        "extensions path": (lambda impl: ext_path(impl, xz, xdata, dev),
+                            lambda r: check_ext(r, xdata, xz), same_ext, EXT_KERNELS),
     }
     runs = {}
     for path, (drive, oracle, same, used) in paths.items():
@@ -655,9 +941,9 @@ def main(argv=None) -> int:
               f"the plain run of the {path} launched no kernel: "
               f"{runs[path, 'torch']['launches']}")
         for impl in ("auto", "torch"):
-            report(path, impl, runs[path, impl], sz, gz, gdata, smi)
+            report(path, impl, runs[path, impl], sz, gz, gdata, xz, smi)
 
-    # launches: both paths' kernel runs (each path's counts are printed above)
+    # launches: the paths' kernel runs (each path's counts are printed above)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(runs[p, "auto"]["launches"][name] for p in paths),
                     **{k: v for k, v in krows[name].items() if k != "shape"})

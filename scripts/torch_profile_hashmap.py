@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's paths goes, on one card.
 
-    python3 scripts/torch_profile_hashmap.py [--path hashmap|genomics] [--out build/profile]
+    python3 scripts/torch_profile_hashmap.py [--path hashmap|genomics|ext] [--out build/profile]
 
 Runs one of chip_smoke.py's paths (same sizes, seed and data: the
-hash-map path by default, or the genomics path) once with the kernels
+hash-map path by default, the genomics path, or the extensions path:
+integrity under a corrupted wire, heal, degraded probe, hierarchical vs
+dense transport, split-phase find_insert) once with the kernels
 to warm up, then once more under ``torch.profiler`` and prints:
   * wall time of the profiled run and the device's busy share (the sum
     of kernel and memcpy/memset times over the wall time; one stream,
@@ -34,12 +36,13 @@ import chip_smoke  # noqa: E402
 #: name fragments of the port's kernels as the profiler lists them
 PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "pack_rows_kernel", "copy_words",
                 "place_rows_kernel", "insert_arrivals_kernel", "find_arrivals_kernel",
-                "insert_kernel", "find_kernel", "membership_kernel", "hash_words_kernel")
+                "insert_kernel", "find_kernel", "membership_kernel", "hash_words_kernel",
+                "row_mix_kernel", "ragged_slots_kernel", "histogram_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("hashmap", "genomics"), default="hashmap")
+    ap.add_argument("--path", choices=("hashmap", "genomics", "ext"), default="hashmap")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     ap.add_argument("--cpu-rehearsal", action="store_true")
     args = ap.parse_args(argv)
@@ -57,6 +60,11 @@ def main(argv=None) -> int:
         data = chip_smoke.workload(sz, dev, 0)
         drive = lambda: chip_smoke.main_path("auto", sz, data, dev)  # noqa: E731
         oracle = lambda r: chip_smoke.check_oracle(r, data, sz)  # noqa: E731
+    elif args.path == "ext":
+        xz = chip_smoke.X_REHEARSAL if args.cpu_rehearsal else chip_smoke.X_FULL
+        data = chip_smoke.ext_workload(xz, dev, 0)
+        drive = lambda: chip_smoke.ext_path("auto", xz, data, dev)  # noqa: E731
+        oracle = lambda r: chip_smoke.check_ext(r, data, xz)  # noqa: E731
     else:
         gz = chip_smoke.G_REHEARSAL if args.cpu_rehearsal else chip_smoke.G_FULL
         data = chip_smoke.genomics_workload(gz, dev, 0)
@@ -88,7 +96,7 @@ def main(argv=None) -> int:
     print(f"{'ms':>10} {'calls':>7}  name", flush=True)
     for t, n, k in rows[:25]:
         print(f"{t:10.3f} {n:7d}  {k[:100]}", flush=True)
-    if args.path == "genomics":
+    if args.path != "hashmap":
         print("phase seconds: " + " ".join(f"{k}={v:.4f}" for k, v in r["times"].items()),
               flush=True)
     with open(out / f"{args.path}_by_op.txt", "w") as f:

@@ -3,9 +3,10 @@
 Beside ``repro`` (JAX + Pallas, the reference), with the same layout:
 
   core/        backends (serial, torch.distributed), hashing, object
-               containers, costs, promises, the exchange engine and its
-               dense transport.
-  containers/  the distributed hash map.
+               containers, costs, promises, the exchange engine, its
+               dense and hierarchical transports, fault injection.
+  containers/  the hash map, HashMapBuffer, queues, Bloom filter,
+               DArray and heap.
   kernels/     hand-written CUDA kernels for Hopper (csrc/), each with a
                plain PyTorch version beside it, and the impl= dispatcher.
   interop      state carried across from the JAX package.

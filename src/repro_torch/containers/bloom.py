@@ -12,8 +12,8 @@ kernel on the card).
 
 Cost model (paper Table 2): insert = A, find = R.  ``insert_find`` fuses
 an insert batch and a query batch into one ExchangePlan round trip;
-``Promise.FINE`` recovers the sequential schedule.  Split-phase
-(``async_=True``) is not ported yet.
+``Promise.FINE`` recovers the sequential schedule; ``async_=True``
+commits it split-phase.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import costs
 from repro_torch.core.backend import Backend
-from repro_torch.core.exchange import ExchangePlan
+from repro_torch.core.exchange import ExchangePlan, PendingResult
 from repro_torch.core.hashing import hash_lanes_u64
 from repro_torch.core.object_container import Packer, packer_for
 from repro_torch.core.promises import Promise, fine_grained, validate
@@ -131,19 +131,19 @@ def insert_find(backend: Backend, spec: BloomSpec, state: BloomState,
 
     The insert is serialized before the find, so the query observes this
     batch's insertions (the ``Promise.FINE`` sequential order).  Returns
-    ``(state, already_present, present)``.
+    ``(state, already_present, present)``; ``async_=True`` commits the
+    plan split-phase and returns a :class:`~repro_torch.core.PendingResult`
+    whose ``finish()`` gives the same triple.
     """
     validate(promise)
-    if async_:
-        raise NotImplementedError("bloom.insert_find: split-phase container ops "
-                                  "(async_=True) need commit_async, ROADMAP.md "
-                                  "Queue 1 item 7")
     if fine_grained(promise):
         st, already = insert(backend, spec, state, ins_items, capacity_ins,
                              valid=ins_valid, max_rounds=max_rounds, transport=transport)
         present = find(backend, spec, st, find_items, capacity_find, valid=find_valid,
                        max_rounds=max_rounds, transport=transport)
-        return st, already, present
+        # split-phase FINE stays the sequential oracle: run eagerly
+        out = (st, already, present)
+        return PendingResult(lambda: out) if async_ else out
 
     _, body_i, owner_i, ins_valid = _words_of(spec, ins_items, ins_valid)
     nf, body_f, owner_f, find_valid = _words_of(spec, find_items, find_valid)
@@ -152,9 +152,19 @@ def insert_find(backend: Backend, spec: BloomSpec, state: BloomState,
                   op_name="bloom.insert")
     hf = plan.add(body_f, owner_f, capacity_find, reply_lanes=1, valid=find_valid,
                   op_name="bloom.find")
+    if async_:
+        pend = plan.commit_async(backend, impl=spec.impl, max_rounds=max_rounds,
+                                 transport=transport)
+        return PendingResult(lambda: _insert_find_complete(
+            backend, spec, state, pend.finish(backend), hi, hf, nf))
     c = plan.commit(backend, impl=spec.impl, max_rounds=max_rounds, transport=transport)
-    vi, vf = c.view(hi), c.view(hf)
+    return _insert_find_complete(backend, spec, state, c, hi, hf, nf)
 
+
+def _insert_find_complete(backend, spec, state, c, hi, hf, nf):
+    """Owner-side work + reply round of :func:`insert_find` (the sync and
+    the split-phase path both complete here)."""
+    vi, vf = c.view(hi), c.view(hf)
     rb_i, rw_i = _owner_rows(vi)
     words, already = kops.bloom_insert(state.words, rb_i, rw_i, vi.valid, impl=spec.impl)
     rb_f, rw_f = _owner_rows(vf)

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import costs
 from repro_torch.core.backend import Backend
-from repro_torch.core.exchange import ExchangePlan
+from repro_torch.core.exchange import ExchangePlan, PendingResult
 from repro_torch.core.hashing import hash_lanes_u64
 from repro_torch.core.object_container import Packer, packer_for
 from repro_torch.core.promises import (Promise, find_only, fine_grained,
@@ -317,24 +317,25 @@ def find_insert(backend: Backend, spec: HashMapSpec, state: HashMapState,
     both ops' flows ride one ExchangePlan (2 collectives where the
     ``Promise.FINE`` sequential schedule costs 4).  Both probes use
     attempt 0.  Returns ``(state, values, found, ins_ok)``.
+
+    ``async_=True`` commits the plan split-phase and returns a
+    :class:`~repro_torch.core.PendingResult` whose ``finish()`` gives the
+    same 4-tuple; the request wire is in flight when the call returns.
     """
     validate(promise)
-    if async_:
-        raise NotImplementedError("find_insert(async_=True) needs split-phase "
-                                  "commits, ROADMAP.md Queue 1 item 7")
     find_atomic = not find_only(promise)
     ins_atomic = fully_atomic_hashmap(promise)
+    kw = dict(max_rounds=max_rounds, transport=transport, dead_ranks=dead_ranks,
+              integrity=integrity)
     if fine_grained(promise):
         state, vals, found = find(backend, spec, state, find_keys, capacity,
-                                  promise=promise, valid=find_valid, attempts=1,
-                                  max_rounds=max_rounds, transport=transport,
-                                  dead_ranks=dead_ranks, integrity=integrity)
+                                  promise=promise, valid=find_valid, attempts=1, **kw)
         state, ok = insert(backend, spec, state, ins_keys, ins_vals, capacity,
                            promise=promise, valid=ins_valid, mode=mode, attempts=1,
-                           return_success=True, max_rounds=max_rounds,
-                           transport=transport, dead_ranks=dead_ranks,
-                           integrity=integrity)
-        return state, vals, found, ok
+                           return_success=True, **kw)
+        # split-phase FINE stays the sequential oracle: run eagerly
+        out = (state, vals, found, ok)
+        return PendingResult(lambda: out) if async_ else out
 
     kf = spec.key_packer.pack(find_keys)
     ki = spec.key_packer.pack(ins_keys)
@@ -354,8 +355,21 @@ def find_insert(backend: Backend, spec: HashMapSpec, state: HashMapState,
                   op_name="hashmap.find")
     hi = plan.add(torch.cat([lb_i[:, None], ki, vi], dim=1), owner_i, capacity,
                   reply_lanes=1, valid=ins_valid, op_name="hashmap.insert")
-    c = plan.commit(backend, impl=spec.impl, max_rounds=max_rounds,
-                    transport=transport, dead_ranks=dead_ranks, integrity=integrity)
+
+    def complete(c):
+        return _find_insert_complete(backend, spec, state, c, hf, hi, find_valid,
+                                     ins_valid, mode, find_atomic, ins_atomic, nf, ni)
+
+    if async_:
+        pend = plan.commit_async(backend, impl=spec.impl, **kw)
+        return PendingResult(lambda: complete(pend.finish(backend)))
+    return complete(plan.commit(backend, impl=spec.impl, **kw))
+
+
+def _find_insert_complete(backend, spec, state, c, hf, hi, find_valid, ins_valid, mode,
+                          find_atomic, ins_atomic, nf, ni):
+    """Owner-side work + reply round of :func:`find_insert` (the sync and
+    the split-phase path both complete here)."""
     vf, vw = c.view(hf), c.view(hi)
 
     # find against the pre-insert table, then insert (same reserve pass

@@ -11,8 +11,8 @@ The same three-stage pipeline as ``repro.containers.hashmap_buffer``:
                 the column front end of the probe (``hash_probe.insert``,
                 a CUDA kernel on the card)
 
-Buffer capacity is static; ``insert`` reports overflow.  Split-phase
-(``async_=True``) is not ported yet.
+Buffer capacity is static; ``insert`` reports overflow.  ``spill`` and
+``flush`` take ``async_=True`` to run the spill wire split-phase.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from repro_torch.containers import hashmap as hm
 from repro_torch.containers import queue as q
 from repro_torch.core import costs
 from repro_torch.core.backend import Backend
-from repro_torch.core.exchange import CommittedPlan, ExchangePlan
+from repro_torch.core.exchange import CommittedPlan, ExchangePlan, PendingResult
 from repro_torch.core.promises import ConProm
 from repro_torch.kernels import ops as kops
 
@@ -168,19 +168,25 @@ def spill(backend: Backend, spec: HashMapBufferSpec, state: HashMapBufferState,
     A fresh single-flow plan around :func:`spill_flow`/:func:`spill_apply`,
     committed with the map's kernel dispatch (``impl``); with
     ``overflow="carry"`` the flow declares the ring reply, so the spill
-    loses nothing.  Returns ``(state, dropped)``.
+    loses nothing.  Returns ``(state, dropped)``; ``async_=True`` returns
+    a :class:`~repro_torch.core.PendingResult` that finishes to it.
     """
-    if async_:
-        raise NotImplementedError(f"hashmap_buffer.spill: {q._ASYNC}")
     plan = ExchangePlan(name="queue.push")
     carrying = overflow == "carry"
     h = spill_flow(plan, spec, state, capacity, ring_reply=carrying)
-    committed = plan.commit(backend, impl=spec.map_spec.impl, max_rounds=max_rounds,
-                            overflow=overflow, transport=transport)
-    st, dropped = spill_apply(backend, committed, h, spec, state, overflow=overflow)
-    if carrying:
-        st = spill_absorb(committed.finish(backend)[h], spec, st)
-    return st, dropped
+
+    def complete(committed):
+        st, dropped = spill_apply(backend, committed, h, spec, state, overflow=overflow)
+        if carrying:
+            st = spill_absorb(committed.finish(backend)[h], spec, st)
+        return st, dropped
+
+    kw = dict(impl=spec.map_spec.impl, max_rounds=max_rounds, overflow=overflow,
+              transport=transport)
+    if async_:
+        pend = plan.commit_async(backend, **kw)
+        return PendingResult(lambda: complete(pend.finish(backend)))
+    return complete(plan.commit(backend, **kw))
 
 
 def flush(backend: Backend, spec: HashMapBufferSpec, state: HashMapBufferState,
@@ -190,14 +196,23 @@ def flush(backend: Backend, spec: HashMapBufferSpec, state: HashMapBufferState,
 
     Returns (state, dropped); dropped counts route/ring/table overflow.
     With ``overflow="carry"`` unlanded items stay staged for the next
-    flush.
+    flush.  ``async_=True`` runs the spill wire split-phase and returns a
+    :class:`~repro_torch.core.PendingResult` that finishes to the same
+    pair (the drain and the local insert wait for the spill).
     """
+    kw = dict(max_rounds=max_rounds, overflow=overflow, transport=transport)
     if async_:
-        raise NotImplementedError(f"hashmap_buffer.flush: {q._ASYNC}")
-    state, dropped = spill(backend, spec, state, capacity, max_rounds=max_rounds,
-                           overflow=overflow, transport=transport)
-    backend.barrier()
+        pend = spill(backend, spec, state, capacity, async_=True, **kw)
+        return PendingResult(lambda: _flush_complete(backend, spec, *pend.finish(),
+                                                     mode=mode))
+    return _flush_complete(backend, spec, *spill(backend, spec, state, capacity, **kw),
+                           mode=mode)
 
+
+def _flush_complete(backend, spec, state, dropped, mode):
+    """Drain + local-insert half of :func:`flush` (the sync and the
+    split-phase path both complete here)."""
+    backend.barrier()
     rows, got = q.local_drain(spec.queue_spec, state.queue)
     qstate = state.queue._replace(head=state.queue.tail)
     ms = spec.map_spec

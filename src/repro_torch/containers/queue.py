@@ -9,7 +9,7 @@ the paper's remote fetch-and-add.
 
 ``push``/``pop`` are eager single-flow ExchangePlans; ``push_pop`` fuses
 both ops' flows into one round trip (``Promise.FINE`` recovers the
-sequential schedule).  Split-phase (``async_=True``) is not ported yet.
+sequential schedule); ``push_pop(async_=True)`` commits it split-phase.
 
 Cost model (paper Table 2):
   FastQueue      push = A + nW     pop = A + nR
@@ -30,17 +30,13 @@ import torch
 
 from repro_torch.core import costs
 from repro_torch.core.backend import Backend
-from repro_torch.core.exchange import ExchangePlan, route
+from repro_torch.core.exchange import ExchangePlan, PendingResult, route
 from repro_torch.core.object_container import Packer, packer_for
 from repro_torch.core.promises import (Promise, fine_grained, fully_atomic_queue,
                                        validate)
 
 _I32 = torch.int32
 _I64 = torch.int64
-
-_ASYNC = ("split-phase container ops (async_=True) need commit_async, "
-          "ROADMAP.md Queue 1 item 7")
-
 
 @dataclasses.dataclass(frozen=True)
 class QueueSpec:
@@ -240,20 +236,24 @@ def push_pop(backend: Backend, spec: QueueSpec, state: QueueState,
     The push is applied before the pop is granted (items pushed this
     round are poppable this round).  Returns ``(state, pushed, dropped,
     out_values, got)``, plus ``carry`` with ``overflow="carry"``.
+    ``async_=True`` commits the plan split-phase and returns a
+    :class:`~repro_torch.core.PendingResult` whose ``finish()`` gives the
+    same tuple.
     """
     validate(promise)
-    if async_:
-        raise NotImplementedError(f"queue.push_pop: {_ASYNC}")
     if overflow not in ("drop", "carry"):
         raise ValueError(f'queue.push_pop overflow must be "drop" or "carry", '
                          f"got {overflow!r}")
     kw = dict(max_rounds=max_rounds, transport=transport, dead_ranks=dead_ranks,
-              integrity=integrity, impl=impl)
+              integrity=integrity)
     if fine_grained(promise):
         pushed_out = push(backend, spec, state, values, dest, capacity, valid=valid,
-                          promise=promise, overflow=overflow, **kw)
-        state, out, got = pop(backend, spec, pushed_out[0], n, src, promise=promise, **kw)
-        return (state, *pushed_out[1:3], out, got, *pushed_out[3:])
+                          promise=promise, overflow=overflow, impl=impl, **kw)
+        state, out, got = pop(backend, spec, pushed_out[0], n, src, promise=promise,
+                              impl=impl, **kw)
+        res = (state, *pushed_out[1:3], out, got, *pushed_out[3:])
+        # split-phase FINE stays the sequential oracle: run eagerly
+        return PendingResult(lambda: res) if async_ else res
 
     lanes = spec.packer.pack(values)
     nv = lanes.shape[0]
@@ -268,10 +268,21 @@ def push_pop(backend: Backend, spec: QueueSpec, state: QueueState,
                   op_name="queue.push")
     hq = plan.add(torch.zeros((n, 1), dtype=_I32, device=dev), src, n,
                   reply_lanes=spec.lanes + 1, op_name="queue.pop")
-    c = plan.commit(backend, impl=impl, max_rounds=max_rounds, transport=transport,
-                    dead_ranks=dead_ranks, integrity=integrity)
-    vp, vq = c.view(hp), c.view(hq)
 
+    def complete(c):
+        return _push_pop_complete(backend, spec, state, c, hp, hq, valid, promise,
+                                  carrying, nv, n)
+
+    if async_:
+        pend = plan.commit_async(backend, impl=impl, **kw)
+        return PendingResult(lambda: complete(pend.finish(backend)))
+    return complete(plan.commit(backend, impl=impl, **kw))
+
+
+def _push_pop_complete(backend, spec, state, c, hp, hq, valid, promise, carrying, nv, n):
+    """Owner-side work + reply round of :func:`push_pop` (the sync and the
+    split-phase path both complete here)."""
+    vp, vq = c.view(hp), c.view(hq)
     state, pushed, full_drop, accept = _append(spec, state, vp.payload, vp.valid)
     state, body = _grant(spec, state, vq.valid, promise)
     if carrying:
@@ -287,7 +298,7 @@ def push_pop(backend: Backend, spec: QueueSpec, state: QueueState,
     if carrying:
         outp, answered = outs[hp]
         landed = answered & (outp[:, 0] == 1) & valid
-        return state, pushed, _zero(dev), out_values, got, valid & ~landed
+        return state, pushed, _zero(vp.payload.device), out_values, got, valid & ~landed
     return state, pushed, vp.dropped + backend.psum(full_drop), out_values, got
 
 

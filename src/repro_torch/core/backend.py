@@ -10,10 +10,11 @@ section 8); a backend implements it.  The port ships two:
                        gloo on the CPU, NCCL on CUDA.  Wire words cross
                        the collectives as int32 (gloo refuses uint32).
 
-The JAX package's ``Backend.all_to_all`` is ``tiled_all_to_all`` here:
-the repository's layering lint reserves ``.all_to_all(...)`` call sites
-to the JAX package's transport, and the port's transport is the only
-caller of this primitive.
+The JAX package's ``Backend.all_to_all`` is ``tiled_all_to_all`` here,
+with ``groups=`` sub-axis collectives and a start/wait form for the
+split-phase exchange: the repository's layering lint reserves
+``.all_to_all(...)`` call sites to the JAX package's transport, and the
+port's transports are the only callers of this primitive.
 """
 
 from __future__ import annotations
@@ -25,11 +26,16 @@ import torch
 import torch.distributed as dist
 
 
-def _no_groups(groups) -> None:
-    if groups is not None:
-        raise NotImplementedError(
-            "sub-axis collectives (groups=) arrive with the hierarchical "
-            "transport, ROADMAP.md Queue 1 item 7")
+def _partition(groups, nprocs: int) -> tuple[tuple[int, ...], ...]:
+    """``groups`` as a validated static partition of ``[0, nprocs)`` into
+    equal-size groups, each listed in increasing rank order."""
+    part = tuple(tuple(int(r) for r in g) for g in groups)
+    members = sorted(r for g in part for r in g)
+    if (members != list(range(nprocs)) or len({len(g) for g in part}) != 1
+            or any(list(g) != sorted(g) for g in part)):
+        raise ValueError(f"groups={part}: want a partition of the {nprocs} ranks into "
+                         f"equal-size groups, each in increasing rank order")
+    return part
 
 
 class Backend(abc.ABC):
@@ -51,7 +57,23 @@ class Backend(abc.ABC):
         ``x`` has shape (nprocs * C, ...): rows [d*C:(d+1)*C] are sent to
         rank d; the result's rows [s*C:(s+1)*C] were received from rank s.
         Identity when nprocs == 1.
+
+        ``groups`` restricts the collective to a sub-axis: a static
+        partition of ``[0, nprocs)`` into equal-size groups (the rows or
+        the columns of a ``Pr x Pc`` factorization).  Then ``x`` has shape
+        (G * C, ...) with G the group size: block j goes to the j-th
+        member of my group, and the result's block j came from it.
         """
+
+    def tiled_all_to_all_start(self, x: torch.Tensor,
+                               groups: Sequence[Sequence[int]] | None = None):
+        """Start :meth:`tiled_all_to_all`; :meth:`tiled_all_to_all_wait`
+        on the returned handle gives its result.  Default: synchronous."""
+        return self.tiled_all_to_all(x, groups)
+
+    def tiled_all_to_all_wait(self, handle) -> torch.Tensor:
+        """Complete a :meth:`tiled_all_to_all_start`."""
+        return handle
 
     @abc.abstractmethod
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +120,8 @@ class SerialBackend(Backend):
         return 0
 
     def tiled_all_to_all(self, x, groups=None):
-        _no_groups(groups)
+        if groups is not None:
+            _partition(groups, 1)        # single-member groups: the identity
         return x
 
     def all_gather(self, x):
@@ -128,6 +151,8 @@ class ProcessGroupBackend(Backend):
         self.group = group
         self._nprocs = dist.get_world_size(group)
         self._rank = dist.get_rank(group)
+        #: sub-axis process group of this rank, per partition (see _subgroup)
+        self._subgroups: dict[tuple, object] = {}
 
     def nprocs(self) -> int:
         return self._nprocs
@@ -135,17 +160,49 @@ class ProcessGroupBackend(Backend):
     def rank(self) -> int:
         return self._rank
 
-    def tiled_all_to_all(self, x, groups=None):
-        _no_groups(groups)
-        if self._nprocs == 1:
-            return x
-        if x.shape[0] % self._nprocs:
+    def _subgroup(self, groups):
+        """This rank's process group of the partition ``groups``.
+
+        ``new_group`` is collective over the whole group: every rank
+        creates every subgroup of a partition, in the same order, the
+        first time any collective uses that partition (ranks run the
+        same program, so they reach it together); later calls reuse it.
+        """
+        part = _partition(groups, self._nprocs)
+        if len(part[0]) == 1:
+            return None, 1               # single-member groups: the identity
+        sub = self._subgroups.get(part)
+        if sub is None:
+            for g in part:
+                ranks = [r if self.group is None else dist.get_global_rank(self.group, r)
+                         for r in g]
+                handle = dist.new_group(ranks)
+                if self._rank in g:
+                    sub = handle
+            self._subgroups[part] = sub
+        return sub, len(part[0])
+
+    def tiled_all_to_all_start(self, x, groups=None):
+        group, size = ((self.group, self._nprocs) if groups is None
+                       else self._subgroup(groups))
+        if size == 1:
+            return None, x
+        if x.shape[0] % size:
             raise ValueError(f"tiled all-to-all: {x.shape[0]} rows do not "
-                             f"split over {self._nprocs} ranks")
+                             f"split over {size} ranks")
         x = x.contiguous()
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
+        work = dist.all_to_all_single(out, x, group=group, async_op=True)
+        return work, out
+
+    def tiled_all_to_all_wait(self, handle):
+        work, out = handle
+        if work is not None:
+            work.wait()
         return out
+
+    def tiled_all_to_all(self, x, groups=None):
+        return self.tiled_all_to_all_wait(self.tiled_all_to_all_start(x, groups))
 
     def all_gather(self, x):
         x = x.contiguous()

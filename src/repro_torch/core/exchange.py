@@ -19,9 +19,15 @@ concatenate rounds to an effective capacity ``R*C_f``; residual overflow
 is dropped and counted (``"drop"``), raised on (``"raise-in-test"``), or
 handed back for re-injection (``"carry"``).
 
-Not ported yet (each raises ``NotImplementedError``): ``Promise.FINE``
-plans, ``commit_async``, ``dead_ranks``, ``integrity`` and non-dense
-transports, all ROADMAP.md Queue 1 item 7.
+The extensions, as in the JAX package: ``transport=`` picks the physical
+layer (dense or the hierarchical two-stage one); ``dead_ranks=`` masks
+traffic to ranks known to be down at admission (degraded commits);
+``integrity=True`` appends a checksum flow, one word per (dest, round,
+flow) window, and the owner invalidates every window whose checksum
+fails (``lost``); ``commit_async`` starts the wire and
+``PendingPlan.finish`` completes it, bit-identical to ``commit``; a plan
+under ``Promise.FINE`` lowers to one sub-plan per flow, the sequential
+oracle.
 """
 
 from __future__ import annotations
@@ -34,9 +40,9 @@ import torch
 from repro_torch.core import costs
 from repro_torch.core.backend import Backend
 from repro_torch.core.promises import Promise, fine_grained, validate
-from repro_torch.core.transport import (FlowWire, RequestArgs, Transport,
-                                        _DenseCtx, make_transport)
-from repro_torch.core.u32 import i32, to_i32
+from repro_torch.core.transport import (FlowWire, RequestArgs, Transport, _DenseCtx,
+                                        make_transport)
+from repro_torch.core.u32 import M32, as_u64, i32, to_i32
 from repro_torch.kernels import ops as kops
 
 _I32 = torch.int32
@@ -46,10 +52,12 @@ _I64 = torch.int64
 _VALID_BIT = i32(1 << 31)
 _POS_MASK = (1 << 31) - 1
 
+#: salt added to every wire checksum word, so an intact empty window
+#: (SALT + 0) differs from a zeroed segment (0, its meta lane zeroed too)
+_CK_SALT = 0x9E3779B9
+
 #: legal ``overflow=`` policies
 OVERFLOW_POLICIES = ("drop", "raise-in-test", "carry")
-
-_LATER = "is not ported yet, ROADMAP.md Queue 1 item 7"
 
 
 class ExchangeOverflowError(RuntimeError):
@@ -68,7 +76,9 @@ class RouteResult(NamedTuple):
     send_item (P*C,) i32   — requester-local: batch index this rank placed
                              in each of its send slots (sentinel N if empty)
     send_occ  (P*C,) bool  — requester-local send-slot occupancy
-    lost      () i32       — always 0 here (integrity checks not ported)
+    lost      () i32       — items shipped but not surviving arrival
+                             (global): windows whose checksum failed;
+                             always 0 unless committed with integrity=True
     """
 
     payload: torch.Tensor
@@ -124,13 +134,13 @@ class ExchangePlan:
 
     Each flow is charged the exact bytes of its own ragged wire segment
     under its ``op_name``; the physical collective and its round once,
-    under ``name`` (default: the first flow's op).
+    under ``name`` (default: the first flow's op).  A plan under
+    ``promise=Promise.FINE`` lowers to one single-flow plan per flow, in
+    order: the sequential oracle of the fused schedule.
     """
 
     def __init__(self, promise: Promise = Promise.NONE, name: str | None = None):
         validate(promise)
-        if fine_grained(promise):
-            raise NotImplementedError(f"Promise.FINE on an ExchangePlan {_LATER}")
         self.promise = promise
         self.name = name
         self._flows: list[_Flow] = []
@@ -181,7 +191,51 @@ class ExchangePlan:
                overflow: str = "drop", transport: Transport | str | None = None,
                dead_ranks: tuple[int, ...] | None = None,
                integrity: bool = False) -> "CommittedPlan":
-        """Issue the request round: one fused all-to-all per retry round."""
+        """Issue the request round: one fused all-to-all per retry round.
+
+        ``transport``: ``None``/``"dense"``, ``"hier"`` or a Transport.
+        ``dead_ranks``: ranks known to be down; traffic to them is masked
+        at admission and stays in :meth:`CommittedPlan.leftover` and
+        :meth:`CommittedPlan.unreachable`, with ``unreachable`` and
+        ``lost_bytes`` recorded in the cost log.  ``integrity=True``: a
+        checksum word per (dest, round, flow) window rides the same
+        launches; a window that fails verification is invalidated whole
+        and counted in the views' ``lost``.
+        """
+        dead, transport = self._precommit(backend, max_rounds, overflow, dead_ranks,
+                                          transport)
+        if fine_grained(self.promise):
+            return self._commit_fine(backend, impl, int(max_rounds), overflow, transport,
+                                     dead, integrity)
+        st = self._stage_fused(backend, impl, int(max_rounds), overflow, dead, integrity)
+        segments, extra_drop, tctx = transport.request(backend, st.args)
+        return self._finalize_fused(backend, st, segments, extra_drop, tctx, transport)
+
+    def commit_async(self, backend: Backend, impl: str = "auto", max_rounds: int = 1,
+                     overflow: str = "drop", transport: Transport | str | None = None,
+                     dead_ranks: tuple[int, ...] | None = None,
+                     integrity: bool = False) -> "PendingPlan":
+        """Split-phase :meth:`commit`: start the wire, defer completion.
+
+        The transport's ``request_start`` issues the request's
+        collectives; :meth:`PendingPlan.finish` waits for them and yields
+        the :class:`CommittedPlan` a synchronous commit gives, bit for
+        bit.  The launches record their collectives, hops and bytes once,
+        at the wait; ``finish`` adds ``overlap_launches`` under the plan
+        op.  Under ``Promise.FINE`` the plan commits eagerly and the
+        returned PendingPlan is already complete.
+        """
+        dead, transport = self._precommit(backend, max_rounds, overflow, dead_ranks,
+                                          transport)
+        if fine_grained(self.promise):
+            return PendingPlan(self, committed=self._commit_fine(
+                backend, impl, int(max_rounds), overflow, transport, dead, integrity))
+        st = self._stage_fused(backend, impl, int(max_rounds), overflow, dead, integrity)
+        handle = transport.request_start(backend, st.args)
+        return PendingPlan(self, staged=st, handle=handle, transport=transport)
+
+    def _precommit(self, backend: Backend, max_rounds, overflow, dead_ranks, transport):
+        """Shared commit/commit_async validation + one-shot latch."""
         if not self._flows:
             raise ValueError("commit() on an empty ExchangePlan")
         if self._committed:
@@ -191,19 +245,39 @@ class ExchangePlan:
         if overflow not in OVERFLOW_POLICIES:
             raise ValueError(
                 f"overflow must be one of {OVERFLOW_POLICIES}, got {overflow!r}")
-        if dead_ranks:
-            raise NotImplementedError(f"dead_ranks (degraded commits) {_LATER}")
-        if integrity:
-            raise NotImplementedError(f"integrity (wire checksums) {_LATER}")
-        transport = make_transport(transport)
+        dead = tuple(sorted({int(d) for d in (dead_ranks or ())}))
+        for d in dead:
+            if not 0 <= d < backend.nprocs():
+                raise ValueError(f"dead_ranks names rank {d}, outside the "
+                                 f"{backend.nprocs()}-rank axis")
         self._committed = True
-        return self._commit_fused(backend, impl, int(max_rounds), overflow, transport)
+        return dead, make_transport(transport)
 
-    def commit_async(self, *args, **kwargs):
-        raise NotImplementedError(f"commit_async (split-phase commits) {_LATER}")
+    def _commit_fine(self, backend: Backend, impl: str, max_rounds: int, overflow: str,
+                     transport: Transport, dead: tuple[int, ...],
+                     integrity: bool) -> "CommittedPlan":
+        # sequential oracle: one single-flow plan per flow, in registration
+        # order, over the same transport; the sub-plans carry the replies
+        subs = []
+        for f in self._flows:
+            p = ExchangePlan(name=f.op_name)
+            p.add(f.payload, f.dest, f.capacity, reply_lanes=f.reply_lanes,
+                  valid=f.valid, op_name=f.op_name)
+            subs.append(p.commit(backend, impl=impl,
+                                 max_rounds=_flow_rounds(f, max_rounds),
+                                 overflow=overflow, transport=transport,
+                                 dead_ranks=dead, integrity=integrity))
+        return CommittedPlan(self, [c.view(0) for c in subs], sequential=True,
+                             subplans=subs, dead_ranks=dead)
 
-    def _commit_fused(self, backend: Backend, impl: str, rounds: int,
-                      overflow: str, transport: Transport) -> "CommittedPlan":
+    # -- fused lowering ---------------------------------------------------
+
+    def _stage_fused(self, backend: Backend, impl: str, rounds: int, overflow: str,
+                     dead_ranks: tuple[int, ...], integrity: bool) -> "_StagedCommit":
+        """Everything BEFORE the wire moves: the one binning pass,
+        admission, wire bodies, send maps, and the RequestArgs the
+        transport ships.  The synchronous and the split-phase commit
+        share it, which keeps them bit-identical."""
         flows = self._flows
         nprocs = backend.nprocs()
         nflows = len(flows)
@@ -216,6 +290,11 @@ class ExchangePlan:
         valid_all = torch.cat([f.valid for f in flows])
         flow_id = torch.cat([torch.full((f.n,), fi, dtype=_I32, device=dev)
                              for fi, f in enumerate(flows)])
+
+        # degraded commit: traffic toward dead ranks is masked BEFORE
+        # admission, so it never takes a send slot and stays a leftover
+        for d in dead_ranks:
+            valid_all = valid_all & (dest_all != d)
 
         # ONE binning pass for every flow and every retry round
         costs.record("exchange.bin", costs.Cost(local=int(dest_all.shape[0])))
@@ -249,13 +328,97 @@ class ExchangePlan:
         plan_op = self.name or flows[0].op_name
         specs = [FlowWire(caps[fi], rounds_f[fi], roww[fi], flows[fi].reply_lanes,
                           flows[fi].n, flows[fi].op_name) for fi in range(nflows)]
-        args = RequestArgs(specs, bodies, dest_all, flow_id, offsets, valid_all,
-                           plan_op, impl)
-        segments, extra_drop, tctx = transport.request(backend, args)
+        if dead_ranks:
+            # static degraded-commit observables: the masked destinations
+            # and the worst-case wire bytes their buckets would have carried
+            lb = sum(len(dead_ranks) * rounds_f[fi] * caps[fi] * roww[fi] * 4
+                     for fi in range(nflows))
+            costs.record(plan_op, costs.Cost(unreachable=len(dead_ranks), lost_bytes=lb))
+
+        send_dest, send_flow, send_off, send_valid = dest_all, flow_id, offsets, valid_all
+        ck_rmax = 0
+        if integrity:
+            # the checksum flow: one word (+ meta lane) per (dest, round,
+            # flow) window, riding the same launches.  Row d*R*F + r*F + f
+            # has the analytic bucket rank r*F + f at capacity F, so it
+            # needs no binning; the word is SALT + the u32 sum of the
+            # window's row hashes, which the owner recomputes on arrival
+            ck_rmax = max(rounds_f)
+            ck_vals = []
+            row0 = 0
+            for fi, f in enumerate(flows):
+                h = as_u64(kops.mix_rows(bodies[fi], impl=impl))
+                rf, cf = rounds_f[fi], caps[fi]
+                okf = ok[row0:row0 + f.n]
+                seg = torch.where(okf, f.dest.to(_I64) * rf
+                                  + offsets[row0:row0 + f.n].to(_I64) // cf, nprocs * rf)
+                # exact integer sums (int64), wrapped to u32 after
+                sums = torch.zeros(nprocs * rf + 1, dtype=_I64, device=dev) \
+                    .index_add_(0, seg, h)[:-1].reshape(nprocs, rf) & M32
+                if rf < ck_rmax:
+                    sums = torch.nn.functional.pad(sums, (0, ck_rmax - rf))
+                ck_vals.append(sums)
+                row0 += f.n
+            ck_lane = to_i32(_CK_SALT + torch.stack(ck_vals, dim=2).reshape(-1))
+            n_ck = nprocs * ck_rmax * nflows
+            ar = torch.arange(n_ck, dtype=_I32, device=dev)
+            bodies.append(torch.stack([ck_lane, ar | _VALID_BIT], dim=1))
+            specs.append(FlowWire(nflows, ck_rmax, 2, 0, n_ck, "exchange.integrity"))
+            send_dest = torch.cat([dest_all, ar // (ck_rmax * nflows)])
+            send_flow = torch.cat([flow_id, torch.full((n_ck,), nflows, dtype=_I32,
+                                                       device=dev)])
+            send_off = torch.cat([offsets, ar % (ck_rmax * nflows)])
+            send_valid = torch.cat([valid_all, torch.ones(n_ck, dtype=torch.bool,
+                                                          device=dev)])
+
+        return _StagedCommit(
+            args=RequestArgs(specs, bodies, send_dest, send_flow, send_off, send_valid,
+                             plan_op, impl),
+            rounds_f=rounds_f, counts=counts, eff_arr=eff_arr, ok=ok,
+            send_items=send_items, send_occs=send_occs, overflow=overflow,
+            dead_ranks=dead_ranks, integrity=integrity, ck_rmax=ck_rmax)
+
+    def _finalize_fused(self, backend: Backend, st: "_StagedCommit", segments,
+                        extra_drop, tctx, transport: Transport) -> "CommittedPlan":
+        """Everything AFTER the wire lands: integrity verification,
+        overflow accounting, owner views."""
+        flows = self._flows
+        nprocs = backend.nprocs()
+        nflows = len(flows)
+        dev = flows[0].payload.device
+        rounds_f, ok, impl, ck_rmax = st.rounds_f, st.ok, st.args.impl, st.ck_rmax
 
         # only rank >= R_f*C_f is a drop; one psum covers every flow
-        over = (counts - eff_arr[None, :]).clamp(min=0).sum(dim=0)
-        dropped = backend.psum(over).to(_I32)
+        over = (st.counts - st.eff_arr[None, :]).clamp(min=0).sum(dim=0, dtype=_I32)
+        lost = None
+        good_by_flow = []
+        if st.integrity:
+            # owner-side verification: recompute each (src, round) window's
+            # hash sum from the arrival segment; a failed window (corrupt
+            # word, zeroed segment) invalidates ALL its arrivals.  lost is
+            # the global sent-minus-survived count, in the same psum
+            ck_seg = segments[nflows]
+            ck_ok3 = (ck_seg[:, 1] < 0).reshape(nprocs, ck_rmax, nflows)
+            ck_val3 = as_u64(ck_seg[:, 0]).reshape(nprocs, ck_rmax, nflows)
+            sent, surv = [], []
+            row0 = 0
+            for fi, f in enumerate(flows):
+                rf, cf = rounds_f[fi], f.capacity
+                comp = as_u64(kops.mix_rows(segments[fi], impl=impl)) \
+                    .reshape(nprocs, rf, cf).sum(dim=2)
+                good = ck_ok3[:, :rf, fi] & (ck_val3[:, :rf, fi] == ((_CK_SALT + comp) & M32))
+                good_rows = good.reshape(-1).repeat_interleave(cf)
+                good_by_flow.append(good_rows)
+                sent.append(ok[row0:row0 + f.n].sum(dtype=_I32))
+                alive = (segments[fi][:, f.lanes] < 0) & good_rows
+                surv.append(alive.sum(dtype=_I32))
+                row0 += f.n
+            red = backend.psum(torch.cat([over, torch.stack(sent),
+                                          torch.stack(surv)])).to(_I32)
+            dropped = red[:nflows]
+            lost = (red[nflows:2 * nflows] - red[2 * nflows:]).clamp(min=0)
+        else:
+            dropped = backend.psum(over).to(_I32)
         if extra_drop is not None:
             dropped = dropped + extra_drop[:nflows]
 
@@ -265,25 +428,54 @@ class ExchangePlan:
             cap_e = rounds_f[fi] * f.capacity
             segment = segments[fi]
             meta_r = segment[:, f.lanes]
+            out_valid = meta_r < 0                       # bit 31
+            if st.integrity:
+                out_valid = out_valid & good_by_flow[fi]
             src_rank = torch.arange(nprocs, dtype=_I32, device=dev).repeat_interleave(cap_e)
-            views.append(RouteResult(segment[:, :f.lanes], meta_r < 0, src_rank,
+            views.append(RouteResult(segment[:, :f.lanes], out_valid, src_rank,
                                      meta_r & _POS_MASK, dropped[fi], cap_e,
-                                     send_items[fi], send_occs[fi], zero))
+                                     st.send_items[fi], st.send_occs[fi],
+                                     zero if lost is None else lost[fi]))
 
-        if overflow == "raise-in-test":
+        if st.overflow == "raise-in-test":
             _raise_on_drops(flows, dropped)
-        return CommittedPlan(self, views, transport, tctx)
+        return CommittedPlan(self, views, transport=transport, tctx=tctx,
+                             dead_ranks=st.dead_ranks)
+
+
+@dataclasses.dataclass
+class _StagedCommit:
+    """Pre-wire state of a fused commit (shared by the sync and async
+    paths): ``args`` is what the transport ships, the rest is what
+    ``_finalize_fused`` needs once the owner segments land."""
+
+    args: RequestArgs
+    rounds_f: list[int]
+    counts: torch.Tensor
+    eff_arr: torch.Tensor
+    ok: torch.Tensor
+    send_items: list[torch.Tensor]
+    send_occs: list[torch.Tensor]
+    overflow: str
+    dead_ranks: tuple[int, ...]
+    integrity: bool
+    ck_rmax: int
 
 
 class CommittedPlan:
     """Request round issued; owner-side views available, replies pending."""
 
     def __init__(self, plan: ExchangePlan, views: list[RouteResult],
-                 transport: Transport, tctx):
+                 sequential: bool = False, transport: Transport | None = None,
+                 tctx=None, subplans: list["CommittedPlan"] | None = None,
+                 dead_ranks: tuple[int, ...] = ()):
         self._plan = plan
         self._views = views
-        self._transport = transport
-        self._tctx = tctx
+        self._sequential = sequential
+        self._transport = transport        # physical layer (fused path)
+        self._tctx = tctx                  # transport's reply context
+        self._subplans = subplans or []    # FINE: one sub-plan per flow
+        self._dead_ranks = tuple(dead_ranks)
         self._replies: dict[int, torch.Tensor] = {}
         self._finished = False
 
@@ -300,6 +492,16 @@ class CommittedPlan:
         in the flow's original batch coordinates (``overflow="carry"``)."""
         f = self._plan._flows[handle]
         return f.payload, carry_mask(self._views[handle], f.valid)
+
+    def unreachable(self, handle: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(payload, mask)`` of the valid rows addressed to a dead rank
+        (``commit(dead_ranks=...)``), in the flow's original batch
+        coordinates; every such row is also in :meth:`leftover`."""
+        f = self._plan._flows[handle]
+        mask = torch.zeros_like(f.valid)
+        for d in self._dead_ranks:
+            mask = mask | (f.dest == d)
+        return f.payload, f.valid & mask
 
     def set_reply(self, handle: int, rows: torch.Tensor) -> None:
         """Stage per-request replies ``(P*C_f, reply_lanes)`` for one flow."""
@@ -332,10 +534,66 @@ class CommittedPlan:
         self._finished = True
         if not replying:
             return {}
+        if self._sequential:
+            # FINE oracle: each flow's reply is its own sub-plan's finish
+            outs = {}
+            for fi in replying:
+                sub = self._subplans[fi]
+                sub.set_reply(0, self._replies[fi])
+                outs[fi] = sub.finish(backend)[0]
+            return outs
         staged = {fi: torch.where(self._views[fi].valid[:, None], self._replies[fi], 0)
                   for fi in replying}
         slots = self._transport.reply(backend, self._tctx, staged)
         return {fi: _land(self._views[fi], slots[fi], flows[fi].n) for fi in replying}
+
+
+class PendingPlan:
+    """Future returned by :meth:`ExchangePlan.commit_async`: the request's
+    collectives are started; ``finish(backend)`` waits for them and
+    returns the :class:`CommittedPlan`, bit-identical to ``commit``."""
+
+    def __init__(self, plan: ExchangePlan, committed: CommittedPlan | None = None,
+                 staged: _StagedCommit | None = None, handle=None,
+                 transport: Transport | None = None):
+        self._plan = plan
+        self._committed = committed        # FINE oracle: already complete
+        self._staged = staged
+        self._handle = handle
+        self._transport = transport
+        self._done = False
+
+    def finish(self, backend: Backend) -> CommittedPlan:
+        """Complete the wire; one-shot."""
+        if self._done:
+            raise ValueError("PendingPlan already finished")
+        self._done = True
+        if self._committed is not None:
+            return self._committed
+        st = self._staged
+        # the deferred launches record their collectives/hops/bytes once,
+        # inside request_wait; the start adds only how many ran split-phase
+        costs.record(st.args.plan_op, costs.Cost(overlap_launches=self._handle.launched))
+        segments, extra_drop, tctx = self._transport.request_wait(backend, self._handle)
+        return self._plan._finalize_fused(backend, st, segments, extra_drop, tctx,
+                                          self._transport)
+
+
+class PendingResult:
+    """Future of a container op issued split-phase (``async_=True``):
+    ``finish()`` runs the owner-side work and the reply round and returns
+    exactly what the synchronous op returns.  One-shot."""
+
+    def __init__(self, complete):
+        self._complete = complete
+        self._done = False
+
+    def finish(self):
+        if self._done:
+            raise ValueError("PendingResult already finished")
+        self._done = True
+        out, self._complete = self._complete, None
+        return out()
 
 
 def _land(view: RouteResult, back: torch.Tensor, n: int):
@@ -376,7 +634,8 @@ def route(backend: Backend, payload: torch.Tensor, dest: torch.Tensor,
           integrity: bool = False) -> RouteResult:
     """Send each row of ``payload`` to rank ``dest[i]``; return the owner view.
 
-    A single-flow :class:`ExchangePlan`, committed immediately.
+    A single-flow :class:`ExchangePlan`, committed immediately (the
+    extension knobs as in :meth:`ExchangePlan.commit`).
     """
     plan = ExchangePlan(name=op_name)
     h = plan.add(payload, dest, capacity, valid=valid, op_name=op_name)
@@ -396,7 +655,9 @@ def reply(backend: Backend, req: RouteResult, reply_payload: torch.Tensor,
     tr = make_transport(transport)
     if tr.name != "dense":
         raise ValueError(f"reply({op_name!r}): the standalone reply is the dense "
-                         f"inverse permutation")
+                         f"inverse permutation; a flow routed over transport "
+                         f"{tr.name!r} must declare reply_lanes and reply through "
+                         f"CommittedPlan.finish")
     if reply_payload.ndim == 1:
         reply_payload = reply_payload[:, None]
     lanes = reply_payload.shape[1]

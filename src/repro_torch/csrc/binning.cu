@@ -1,5 +1,5 @@
 // Exchange wire kernels for Hopper (sm_90a): bin_offsets, pack_rows,
-// place_rows.  Plain C entry points, bound with ctypes by
+// place_rows, ragged_slots, row_mix, histogram.  Plain C entry points, bound with ctypes by
 // repro_torch/kernels/binning.py; every entry point launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
 // All u32 words travel as 32-bit ints; only bit patterns matter.
@@ -40,6 +40,30 @@
 // (_place_rows_kernel): a copy of dst with fixed-width rows written at
 // explicit word slots; a word at or past the end drops.  A copy kernel
 // then one thread per (row, lane) word.  Bound: bytes.
+//
+// ragged_slots replaces src/repro/kernels/binning.py::ragged_slots
+// (_ragged_slots_kernel): the word slot alone, without the scatter.
+// pack_rows and ragged_slots call the same __device__ ragged_slot, so
+// the two cannot drift apart.  One thread per item; an item that does
+// not ship this round gets the sentinel.  Bound: bytes -- 13 bytes read
+// and 4 written per item.
+//
+// row_mix replaces src/repro/kernels/binning.py::row_mix
+// (_row_mix_kernel): the wire checksum hash of each row, the lanes
+// weighted by 0x9E3779B1 * (2l + 1), summed and finished with fmix32,
+// all in native unsigned arithmetic (the u32 wrap comes free).  One
+// thread per row; rows come at a row stride, so a strided segment view
+// is read in place.  An all-zero row hashes to 0.  Bound: bytes -- the
+// rows read once, one word written per row.
+//
+// histogram replaces src/repro/kernels/binning.py::histogram
+// (_hist_kernel): per-bin counts of the valid items.  The TPU kernel
+// sums one-hot rows on the MXU in float32; here the counts are exact
+// integers: each block counts in shared memory, the lanes of a warp
+// that hold the same bin merged by __match_any_sync into one atomicAdd,
+// and flushes once per bin to global memory.  Bins outside [0, nbins)
+// are not counted.  Above kMaxSharedBins bins the counts go straight to
+// global atomics.  Bound: bytes -- 5 bytes read per item.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +75,7 @@ constexpr int kSegItems = 1024;    // items per warp segment (bin_offsets)
 constexpr int kWarpsPerCta = 8;
 constexpr int kMaxBins = 1024;     // including the invalid bin
 constexpr int kThreads = 256;
+constexpr int kMaxSharedBins = 12288;   // 48 KB of shared counters
 
 __device__ __forceinline__ int bucket_of(int bin, unsigned char valid, int nb) {
   // nb includes the invalid bin (nb - 1)
@@ -130,6 +155,27 @@ __global__ void bo_rank(const int* __restrict__ bins,
   }
 }
 
+// Word slot of item i's row in retry round rnd of the ragged wire;
+// false when the item does not ship in that round.
+__device__ __forceinline__ bool ragged_slot(long long i, const int* __restrict__ bins,
+                                            const int* __restrict__ flow,
+                                            const int* __restrict__ off,
+                                            const unsigned char* __restrict__ valid,
+                                            const int* __restrict__ woff,
+                                            const int* __restrict__ roww,
+                                            const int* __restrict__ caps,
+                                            const int* __restrict__ rounds, int nflows,
+                                            int rnd, long long wtot, long long* slot) {
+  if (!valid[i]) return false;
+  const int f = flow[i];
+  if (f < 0 || f >= nflows || rounds[f] <= rnd) return false;
+  const long long cap = caps[f];
+  const long long off_r = (long long)off[i] - (long long)rnd * cap;
+  if (off_r < 0 || off_r >= cap) return false;
+  *slot = (long long)bins[i] * wtot + woff[f] + off_r * roww[f];
+  return true;
+}
+
 __global__ void pack_rows_kernel(const int* __restrict__ rows, int wmax,
                                  const int* __restrict__ bins,
                                  const int* __restrict__ flow,
@@ -145,14 +191,83 @@ __global__ void pack_rows_kernel(const int* __restrict__ rows, int wmax,
        t += stride) {
     const long long i = t / wmax;
     const int lane = (int)(t - i * wmax);
-    if (!valid[i]) continue;
-    const int f = flow[i];
-    if (f < 0 || f >= nflows || rounds[f] <= rnd || lane >= roww[f]) continue;
-    const long long cap = caps[f];
-    const long long off_r = (long long)off[i] - (long long)rnd * cap;
-    if (off_r < 0 || off_r >= cap) continue;
-    const long long w = (long long)bins[i] * wtot + woff[f] + off_r * roww[f] + lane;
+    long long slot;
+    if (!ragged_slot(i, bins, flow, off, valid, woff, roww, caps, rounds, nflows, rnd,
+                     wtot, &slot) || lane >= roww[flow[i]])
+      continue;
+    const long long w = slot + lane;
     if (w >= 0 && w < total) out[w] = rows[t];
+  }
+}
+
+__global__ void ragged_slots_kernel(const int* __restrict__ bins,
+                                    const int* __restrict__ flow,
+                                    const int* __restrict__ off,
+                                    const unsigned char* __restrict__ valid, long long n,
+                                    const int* __restrict__ woff,
+                                    const int* __restrict__ roww,
+                                    const int* __restrict__ caps,
+                                    const int* __restrict__ rounds, int nflows, int rnd,
+                                    long long wtot, long long sentinel,
+                                    int* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    long long slot;
+    const bool ship = ragged_slot(i, bins, flow, off, valid, woff, roww, caps, rounds,
+                                  nflows, rnd, wtot, &slot);
+    out[i] = (int)(ship ? slot : sentinel);   // low 32 bits, as the plain version
+  }
+}
+
+__device__ __forceinline__ unsigned fmix32(unsigned h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__global__ void row_mix_kernel(const unsigned* __restrict__ rows, long long m,
+                               long long row_stride, int lanes, unsigned* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += stride) {
+    const unsigned* r = rows + i * row_stride;
+    unsigned h = 0u;
+    for (int l = 0; l < lanes; ++l) h += r[l] * (0x9E3779B1u * (2u * (unsigned)l + 1u));
+    out[i] = fmix32(h);
+  }
+}
+
+template <bool kShared>
+__global__ void histogram_kernel(const int* __restrict__ bins,
+                                 const unsigned char* __restrict__ valid, long long n,
+                                 int nbins, int* __restrict__ counts) {
+  extern __shared__ int sh[];
+  int* cnt = kShared ? sh : counts;
+  if (kShared) {
+    for (int b = threadIdx.x; b < nbins; b += blockDim.x) sh[b] = 0;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x % kWarp;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the loop bound is warp-uniform: every lane of a warp takes part in
+  // each __match_any_sync
+  for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x - lane; base < n;
+       base += stride) {
+    const long long i = base + lane;
+    int b = -1;
+    if (i < n && valid[i]) {
+      const int v = bins[i];
+      if (v >= 0 && v < nbins) b = v;
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    if (b >= 0 && lane == __ffs(peers) - 1) atomicAdd(&cnt[b], __popc(peers));
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int b = threadIdx.x; b < nbins; b += blockDim.x)
+      if (sh[b]) atomicAdd(&counts[b], sh[b]);
   }
 }
 
@@ -248,6 +363,53 @@ int place_rows_launch(const void* dst, long long total, const void* slots,
   if (err != cudaSuccess || m * w == 0) return (int)err;
   place_rows_kernel<<<grid_for(m * w), kThreads, 0, s>>>(
       (const int*)slots, (const int*)rows, m, w, total, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// bins/flow/off (n,) i32; valid (n,) u8; per-flow tables (nflows,) i32;
+// out (n,) i32.
+int ragged_slots_launch(const void* bins, const void* flow, const void* off,
+                        const void* valid, long long n, const void* woff,
+                        const void* roww, const void* caps, const void* rounds,
+                        int nflows, int rnd, long long wtot, long long sentinel,
+                        void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 0) return (int)cudaGetLastError();
+  ragged_slots_kernel<<<grid_for(n), kThreads, 0, s>>>(
+      (const int*)bins, (const int*)flow, (const int*)off, (const unsigned char*)valid, n,
+      (const int*)woff, (const int*)roww, (const int*)caps, (const int*)rounds, nflows,
+      rnd, wtot, sentinel, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// rows: m rows of `lanes` u32 words, row i at word i * row_stride;
+// out (m,) u32.
+int row_mix_launch(const void* rows, long long m, long long row_stride, int lanes,
+                   void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m == 0) return (int)cudaGetLastError();
+  row_mix_kernel<<<grid_for(m), kThreads, 0, s>>>((const unsigned*)rows, m, row_stride,
+                                                  lanes, (unsigned*)out);
+  return (int)cudaGetLastError();
+}
+
+// bins (n,) i32; valid (n,) u8; out counts (nbins,) i32 (zeroed here).
+int histogram_launch(const void* bins, const void* valid, long long n, int nbins,
+                     void* counts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nbins < 1) return (int)cudaErrorInvalidValue;
+  cudaMemsetAsync(counts, 0, sizeof(int) * nbins, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n == 0) return (int)err;
+  const long long cap = 132LL * 8;          // a few blocks per SM: one flush each
+  long long blocks = (n + kThreads - 1) / kThreads;
+  const int grid = (int)(blocks < cap ? blocks : cap);
+  if (nbins <= kMaxSharedBins)
+    histogram_kernel<true><<<grid, kThreads, sizeof(int) * nbins, s>>>(
+        (const int*)bins, (const unsigned char*)valid, n, nbins, (int*)counts);
+  else
+    histogram_kernel<false><<<grid, kThreads, 0, s>>>(
+        (const int*)bins, (const unsigned char*)valid, n, nbins, (int*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Kernels of the port, one hand-written CUDA kernel per TPU kernel.
 
-  binning      bin_offsets, pack_rows, place_rows  (csrc/binning.cu)
+  binning      bin_offsets, pack_rows, place_rows, (csrc/binning.cu)
+               ragged_slots, row_mix, histogram
   hash_probe   insert_arrivals, find_arrivals,     (csrc/hash_probe.cu)
                insert, find
   bloom_kernel hash_words, membership              (csrc/bloom.cu)

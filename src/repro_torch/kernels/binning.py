@@ -1,4 +1,5 @@
-"""Exchange wire kernels: ``bin_offsets``, ``pack_rows``, ``place_rows``.
+"""Exchange wire kernels: ``bin_offsets``, ``pack_rows``, ``place_rows``,
+``ragged_slots``, ``row_mix`` and ``histogram``.
 
 Each wrapper launches its hand-written CUDA kernel
 (``csrc/binning.cu``) on a CUDA tensor and takes its plain PyTorch
@@ -14,7 +15,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core.hashing import fmix32
 from repro_torch.core.object_container import scatter_rows
+from repro_torch.core.u32 import M32, as_u64, mul32, to_i32
 from repro_torch.kernels.build import Kernel, register
 
 _I32 = torch.int32
@@ -31,6 +34,16 @@ _PACK_ROWS = register("pack_rows", Kernel(
     [_P, _INT, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _INT, _INT, _LL, _LL, _P]))
 _PLACE_ROWS = register("place_rows", Kernel(
     "binning", "place_rows_launch", [_P, _LL, _P, _P, _LL, _INT, _P]))
+_RAGGED_SLOTS = register("ragged_slots", Kernel(
+    "binning", "ragged_slots_launch",
+    [_P, _P, _P, _P, _LL, _P, _P, _P, _P, _INT, _INT, _LL, _LL, _P]))
+_ROW_MIX = register("row_mix", Kernel(
+    "binning", "row_mix_launch", [_P, _LL, _LL, _INT, _P]))
+_HISTOGRAM = register("histogram", Kernel(
+    "binning", "histogram_launch", [_P, _P, _LL, _INT, _P]))
+
+#: the per-lane weight of the wire checksum hash is ``_MIX * (2l + 1)``
+_MIX = 0x9E3779B1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -117,6 +130,34 @@ def ragged_slots_plain(bins, flow, offsets, valid, rnd: int, word_off, row_words
     return torch.where(in_r, slot, sentinel).to(_I32)
 
 
+def _check_slot_args(bins, flow, offsets, valid, word_off, row_words, caps, rounds,
+                     name: str, n: int, dev) -> None:
+    for t, what in ((bins, "bins"), (flow, "flow"), (offsets, "offsets")):
+        require(t, f"{name} {what}", _I32, (n,), dev)
+    require(valid, f"{name} valid", torch.bool, (n,), dev)
+    nflows = word_off.shape[0]
+    for t, what in ((word_off, "word_off"), (row_words, "row_words"),
+                    (caps, "caps"), (rounds, "rounds")):
+        require(t, f"{name} {what}", _I32, (nflows,), dev)
+
+
+def ragged_slots(bins, flow, offsets, valid, rnd: int, word_off, row_words, caps,
+                 rounds, wtot: int, sentinel: int) -> torch.Tensor:
+    """Ragged fused-wire word slot of each item for retry round ``rnd``
+    (:func:`ragged_slots_plain`); the CUDA kernel shares its slot
+    computation with ``pack_rows``."""
+    if not bins.is_cuda:
+        return ragged_slots_plain(bins, flow, offsets, valid, rnd, word_off, row_words,
+                                  caps, rounds, wtot, sentinel)
+    n = bins.shape[0]
+    _check_slot_args(bins, flow, offsets, valid, word_off, row_words, caps, rounds,
+                     "ragged_slots", n, bins.device)
+    out = torch.empty(n, dtype=_I32, device=bins.device)
+    _RAGGED_SLOTS(bins, flow, offsets, valid, n, word_off, row_words, caps, rounds,
+                  word_off.shape[0], rnd, wtot, sentinel, out)
+    return out
+
+
 def pack_rows_plain(rows, bins, flow, offsets, valid, rnd: int, word_off,
                     row_words, caps, rounds, wtot: int, total: int) -> torch.Tensor:
     """Slots, then a row scatter into a zeroed ``(total,)`` buffer (``ops.py:406-410``)."""
@@ -140,12 +181,8 @@ def pack_rows(rows, bins, flow, offsets, valid, rnd: int, word_off, row_words,
     nflows = word_off.shape[0]
     dev = rows.device
     require(rows, "pack_rows rows", _I32, (n, wmax), dev)
-    for t, name in ((bins, "bins"), (flow, "flow"), (offsets, "offsets")):
-        require(t, f"pack_rows {name}", _I32, (n,), dev)
-    require(valid, "pack_rows valid", torch.bool, (n,), dev)
-    for t, name in ((word_off, "word_off"), (row_words, "row_words"),
-                    (caps, "caps"), (rounds, "rounds")):
-        require(t, f"pack_rows {name}", _I32, (nflows,), dev)
+    _check_slot_args(bins, flow, offsets, valid, word_off, row_words, caps, rounds,
+                     "pack_rows", n, dev)
     if total >= 1 << 31:
         raise ValueError(f"pack_rows: {total} words exceed int32 slots")
     out = torch.empty(total, dtype=_I32, device=dev)
@@ -181,4 +218,71 @@ def place_rows(dst: torch.Tensor, slots: torch.Tensor,
     require(rows, "place_rows rows", _I32, (m, w), dst.device)
     out = torch.empty_like(dst)
     _PLACE_ROWS(dst, total, slots, rows, m, w, out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# row_mix: the wire checksum hash
+# --------------------------------------------------------------------------
+
+def row_mix_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Per-row u32 hash of an (N, L) word matrix (``ops.py:433-457``).
+
+    Lane ``l`` is weighted by ``0x9E3779B1 * (2l + 1)`` mod 2**32, the
+    weighted sum (mod 2**32) is finished with fmix32; an all-zero row
+    hashes to 0.  Returns (N,) int32 words.
+    """
+    h = torch.zeros(rows.shape[0], dtype=torch.int64, device=rows.device)
+    for lane in range(rows.shape[1]):
+        h = h + mul32(as_u64(rows[:, lane]), (_MIX * (2 * lane + 1)) & M32)
+    return fmix32(to_i32(h))
+
+
+def row_mix(rows: torch.Tensor) -> torch.Tensor:
+    """The wire checksum hash of each row (:func:`row_mix_plain`).
+
+    CUDA: one thread per row; the rows may sit at any row stride (lanes
+    contiguous), so a segment view is hashed in place.
+    """
+    if not rows.is_cuda:
+        return row_mix_plain(rows)
+    m, lanes = rows.shape
+    if rows.dtype != _I32 or (m and lanes > 1 and rows.stride(1) != 1) \
+            or (m > 1 and rows.stride(0) < lanes):
+        raise ValueError(f"row_mix: want an int32 (N, L) tensor with contiguous lanes, "
+                         f"got {rows.dtype} of shape {tuple(rows.shape)} and strides "
+                         f"{rows.stride()}")
+    out = torch.empty(m, dtype=_I32, device=rows.device)
+    _ROW_MIX(rows, m, rows.stride(0) if m > 1 else lanes, lanes, out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# histogram
+# --------------------------------------------------------------------------
+
+def histogram_plain(bins: torch.Tensor, nbins: int, valid: torch.Tensor) -> torch.Tensor:
+    """Per-bin counts of the valid items; bins outside ``[0, nbins)`` are
+    not counted.  Returns (nbins,) int32."""
+    b = bins.to(torch.int64)
+    keep = valid & (b >= 0) & (b < nbins)
+    return torch.bincount(torch.where(keep, b, nbins),
+                          minlength=nbins + 1)[:nbins].to(_I32)
+
+
+def histogram(bins: torch.Tensor, nbins: int, valid: torch.Tensor) -> torch.Tensor:
+    """Per-bin valid counts (:func:`histogram_plain`), exact integers.
+
+    CUDA: per-block counts in shared memory with warp-aggregated atomics,
+    one flush per block to global memory.
+    """
+    if not bins.is_cuda:
+        return histogram_plain(bins, nbins, valid)
+    n = bins.shape[0]
+    require(bins, "histogram bins", _I32, (n,), bins.device)
+    require(valid, "histogram valid", torch.bool, (n,), bins.device)
+    if nbins < 1:
+        raise ValueError(f"histogram: {nbins} bins")
+    out = torch.empty(nbins, dtype=_I32, device=bins.device)
+    _HISTOGRAM(bins, valid, n, nbins, out)
     return out

@@ -77,12 +77,43 @@ def multi_bin_offsets(bins, flow, nbins: int, nflows: int, valid=None,
     return counts.reshape(nbins, nflows), offs
 
 
+def bin_histogram(bins, nbins: int, valid=None, impl: str = "auto"):
+    """Per-bin valid counts, (nbins,) int32; bins outside ``[0, nbins)``
+    are not counted."""
+    if valid is None:
+        valid = torch.ones(bins.shape[0], dtype=torch.bool, device=bins.device)
+    if resolve(impl, bins) == "torch":
+        return binning.histogram_plain(bins, nbins, valid)
+    return binning.histogram(_w(bins), nbins, _b(valid))
+
+
 def ragged_slots(bins, flow, offsets, valid, rnd: int, word_off, row_words,
-                 caps, rounds, wtot: int, sentinel: int) -> torch.Tensor:
-    """Ragged fused-wire word slots for retry round ``rnd`` (plain only:
-    the transports use :func:`pack_rows`, which fuses it)."""
-    return binning.ragged_slots_plain(bins, flow, offsets, valid, rnd, word_off,
-                                      row_words, caps, rounds, wtot, sentinel)
+                 caps, rounds, wtot: int, sentinel: int, impl: str = "auto"):
+    """Ragged fused-wire word slots for retry round ``rnd``.
+
+    Item i of flow f starts at ``bins[i]*wtot + word_off[f] + (offsets[i]
+    - rnd*caps[f]) * row_words[f]`` iff its rank falls in the round's
+    window ``[rnd*C_f, (rnd+1)*C_f)`` and ``rounds[f] > rnd``; every other
+    item gets ``sentinel``.  The transports use :func:`pack_rows`, which
+    fuses this with the row scatter.
+    """
+    if resolve(impl, bins) == "torch":
+        return binning.ragged_slots_plain(bins, flow, offsets, valid, rnd, word_off,
+                                          row_words, caps, rounds, wtot, sentinel)
+    return binning.ragged_slots(_w(bins), _w(flow), _w(offsets), _b(valid), rnd,
+                                _w(word_off), _w(row_words), _w(caps), _w(rounds),
+                                wtot, sentinel)
+
+
+def stage_slots(bins, flow, offsets, valid, word_off, row_words, caps, live,
+                wtot: int, sentinel: int, impl: str = "auto"):
+    """Per-hop ragged word slots (the hierarchical transport's stage form):
+    :func:`ragged_slots` at round 0 with the per-flow live mask as the
+    rounds, so item i of flow f gets ``bins[i]*wtot + word_off[f] +
+    offsets[i]*row_words[f]`` iff it is valid, its stage rank is below
+    ``caps[f]`` and ``live[f]``; every other item gets ``sentinel``."""
+    return ragged_slots(bins, flow, offsets, valid, 0, word_off, row_words, caps, live,
+                        wtot, sentinel, impl=impl)
 
 
 def pack_rows(rows, bins, flow, offsets, valid, rnd: int, word_off, row_words,
@@ -104,6 +135,31 @@ def place_rows(dst, slots, rows, impl: str = "auto"):
     if resolve(impl, dst) == "torch":
         return binning.place_rows_plain(dst, slots, rows)
     return binning.place_rows(_w(dst), _w(slots), _w(rows))
+
+
+# --------------------------------------------------------------------------
+# wire integrity: per-row mixing hash
+# --------------------------------------------------------------------------
+
+def mix_rows(rows, impl: str = "auto") -> torch.Tensor:
+    """Per-row u32 mixing hash of an (N, L) word matrix (wire checksums).
+
+    Lane ``l`` is weighted by ``0x9E3779B1 * (2l + 1)`` (mod 2**32); the
+    weighted sum is finished with fmix32, all in wrapping u32 arithmetic,
+    so sender and owner agree bit for bit.  An all-zero row hashes to 0,
+    so summing hashes over a wire window skips empty slots.  Returns (N,)
+    int32 words.
+    """
+    if rows.ndim == 1:
+        rows = rows[:, None]
+    if rows.dtype == torch.uint32:
+        rows = rows.view(_I32)
+    if resolve(impl, rows) == "torch":
+        return binning.row_mix_plain(rows)
+    rows = rows.to(_I32)
+    if rows.shape[1] > 1 and rows.stride(1) != 1:
+        rows = rows.contiguous()
+    return binning.row_mix(rows)
 
 
 # --------------------------------------------------------------------------

@@ -116,6 +116,18 @@ def bloom_find_ref(filter_words, qblock, qwords, qvalid):
     return ((cur & qwords) == qwords).all(dim=1) & qvalid
 
 
+def bin_histogram_ref(bins: torch.Tensor, nbins: int, valid=None) -> torch.Tensor:
+    """Per-bin counts of the valid items, one item at a time (bins outside
+    ``[0, nbins)`` are not counted)."""
+    n = bins.shape[0]
+    valid = [True] * n if valid is None else valid.tolist()
+    counts = [0] * nbins
+    for b, v in zip(bins.tolist(), valid):
+        if v and 0 <= b < nbins:
+            counts[b] += 1
+    return torch.tensor(counts, dtype=torch.int32, device=bins.device)
+
+
 def bin_offsets_ref(bins: torch.Tensor, nbins: int, valid=None):
     """Sequential oracle for exchange send-buffer construction.
 

@@ -350,15 +350,24 @@ def test_scenarios_exercise_the_edges(ring0):
 
 
 def test_async_raises_naming_the_roadmap():
+    """The split-phase container ops are ported: each ``async_=True`` op
+    returns a one-shot future that finishes to the synchronous result."""
     X = _pkg(port=True)
     spec, st = X.queue(8)
-    v = torch.zeros((2, 2), dtype=torch.int32)
+    v = torch.arange(4, dtype=torch.int32).reshape(2, 2)
     dst = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tq.push_pop(X.bk, spec, st, v, dst, 2, 1, 0, async_=True)
+    pend = tq.push_pop(X.bk, spec, st, v, dst, 2, 1, 0, async_=True)
+    got = pend.finish()
+    want = tq.push_pop(X.bk, spec, st, v, dst, 2, 1, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    with pytest.raises(ValueError, match="already finished"):
+        pend.finish()
     hspec, hst = _buffer(X)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        thb.flush(X.bk, hspec, hst, 4, async_=True)
+    hst, _ = thb.insert(hspec, hst, v[:, 0], v[:, 1])
+    a, b = thb.flush(X.bk, hspec, hst, 4, async_=True).finish(), thb.flush(X.bk, hspec, hst, 4)
+    assert torch.equal(a[0].map.tkeys, b[0].map.tkeys) and int(a[1]) == int(b[1])
     bspec, bst = X.bloom(64, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tbl.insert_find(X.bk, bspec, bst, v, v, 2, 2, async_=True)
+    items = {"hi": v[:, 0], "lo": v[:, 1]}
+    a = tbl.insert_find(X.bk, bspec, bst, items, items, 2, 2, async_=True).finish()
+    b = tbl.insert_find(X.bk, bspec, bst, items, items, 2, 2)
+    assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))

@@ -6,7 +6,10 @@ result is integer and must match bit for bit (tolerance 0).
 """
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -181,8 +184,9 @@ def test_serial_backend_and_pointers():
     assert bk.all_gather(x).shape == (1, 6)
     off, tot = bk.exclusive_rank_offsets(torch.tensor(5))
     assert (int(off), int(tot)) == (0, 5)
-    with pytest.raises(NotImplementedError):
-        bk.tiled_all_to_all(x, groups=[[0]])
+    # single-member sub-axis groups are the identity, as in the JAX package
+    assert torch.equal(bk.tiled_all_to_all(x, groups=[[0]]), x)
+    assert torch.equal(bk.tiled_all_to_all_wait(bk.tiled_all_to_all_start(x)), x)
     p = from_global_index(torch.tensor([0, 9, 17]), 8)
     assert p.rank.tolist() == [0, 1, 2] and p.offset.tolist() == [0, 1, 1]
     assert global_index(p + 1, 8).tolist() == [1, 10, 18]
@@ -209,3 +213,23 @@ def test_port_imports_neither_jax_nor_repro(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_leave_jax_and_repro_unloaded():
+    """Importing every module of the port (and chip_smoke.py's imports) in a
+    fresh interpreter loads neither JAX nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

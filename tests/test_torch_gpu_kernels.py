@@ -187,3 +187,44 @@ def test_membership_kernel(dev, m):
     _eq(got, bloom_kernel.membership_plain(*args))
     if m > 10:
         assert bool(got.any()) and not bool(got.all())
+
+
+@pytest.mark.parametrize("m,lanes", [(0, 3), (1, 1), (37, 4), (5000, 2), (100003, 4)])
+def test_row_mix_kernel(dev, m, lanes):
+    rng = np.random.default_rng(m + lanes)
+    wide = _i32(rng, (m, lanes + 2))
+    wide[::5] = 0                                    # all-zero rows hash to 0
+    wide = wide.to(dev)
+    view = wide[:, :lanes]                           # rows at a row stride
+    got = binning.row_mix(view)
+    _eq(got, binning.row_mix_plain(view))
+    _eq(binning.row_mix(view.contiguous()), got)
+    assert not bool(got[::5].any())
+
+
+@pytest.mark.parametrize("n,rnd", [(0, 0), (37, 0), (4096, 1), (50001, 2)])
+def test_ragged_slots_kernel(dev, n, rnd):
+    rng = np.random.default_rng(n + rnd + 1)
+    nprocs, caps, roww = 3, [5, 9], [2, 4]
+    flow = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    bins = _i32(rng, (n,), 0, nprocs)
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    offs = binning.bin_offsets_plain(bins * 2 + flow, nprocs * 2, valid)[1]
+    wtot = sum(c * w for c, w in zip(caps, roww))
+    tables = [torch.tensor(t, dtype=torch.int32) for t in
+              ([0, caps[0] * roww[0]], roww, caps, [3, 2])]
+    args = [t.to(dev) for t in (bins, flow, offs, valid)]
+    tabs = [t.to(dev) for t in tables]
+    got = binning.ragged_slots(*args, rnd, *tabs, wtot, nprocs * wtot)
+    _eq(got, binning.ragged_slots_plain(*args, rnd, *tabs, wtot, nprocs * wtot))
+
+
+@pytest.mark.parametrize("n,nbins", [(0, 3), (1, 1), (1000, 5), (70001, 1023),
+                                     (50000, 20000), (3 << 20, 2)])
+def test_histogram_kernel(dev, n, nbins):
+    rng = np.random.default_rng(n + nbins)
+    bins = _i32(rng, (n,), -2, nbins + 2).to(dev)     # out-of-range bins are not counted
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    got = binning.histogram(bins, nbins, valid)
+    _eq(got, binning.histogram_plain(bins, nbins, valid))
+    assert int(got.sum()) == int((valid & (bins >= 0) & (bins < nbins)).sum())

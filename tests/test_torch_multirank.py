@@ -1,11 +1,14 @@
-"""The port's hash map, Bloom filter and HashMapBuffer on 4 gloo ranks
-against the JAX package at P=4.
+"""The port's hash map, Bloom filter, HashMapBuffer and exchange extensions
+on 4 gloo ranks against the JAX package at P=4.
 
 ``tests/torch_multirank_run.py`` runs the same op sequence (insert with
 two attempts, speculative and sequential find, find_insert, a
 small-capacity insert with retry rounds and drops, count_ready, a
 dropping ``route``, a Bloom insert + find and two HashMapBuffer
-flushes, one of them dropping on the wire) once under JAX ``shard_map`` over 4 fake CPU
+flushes, one of them dropping on the wire; a 2 x 2 hierarchical insert and
+find, a corrupt + kill fault spec under integrity and its heal, a
+degraded insert with rank 3 dead, a split-phase find_insert) once under
+JAX ``shard_map`` over 4 fake CPU
 devices (``impl="jnp"``) and once on 4 gloo ranks of the port; each run
 is a subprocess with its own timeout.  Every rank's table shard and
 results must be bit-identical to the JAX rank's, and each rank's cost
@@ -68,9 +71,12 @@ RESULTS = ["ok", "vals", "found", "vals2", "found2", "fvals", "ffound", "fok", "
 ROUTE = ["r_payload", "r_valid", "r_src_pos", "r_dropped", "r_send_item", "r_send_occ"]
 BLOOM_BUFFER = ["b_words", "b_seen", "b_present", "h_tkeys", "h_tvals", "h_status",
                 "h_qdata", "h_head", "h_tail", "h_over", "h_dropped", "h_dropped2"]
+EXTENSIONS = ["x_tkeys", "x_status", "x_ok", "x_vals", "x_found", "x_ok1", "x_ok2",
+              "x_tkeys2", "x_tvals2", "x_ok3", "x_status3", "x_tkeys4", "x_fvals",
+              "x_ffound", "x_fok"]
 
 
-@pytest.mark.parametrize("field", TABLE + RESULTS + ROUTE + BLOOM_BUFFER)
+@pytest.mark.parametrize("field", TABLE + RESULTS + ROUTE + BLOOM_BUFFER + EXTENSIONS)
 def test_ranks_bit_identical_to_shard_map(runs, field):
     ref, ranks = runs
     for r, got in enumerate(ranks):
@@ -100,3 +106,8 @@ def test_multirank_run_exercised_the_exchange(runs):
     assert ref["found"].size == NPROCS * NLOC
     assert ref["b_seen"].any() and not ref["b_seen"].all()
     assert ref["h_dropped"][0] > 0 and (ref["h_status"] & 3 == 2).any()
+    # extensions: the faults cost acks, the heal restores every one, the
+    # dead rank's keys never land, and the hier ops did real work
+    assert ref["x_ok"].all() and 0 < ref["x_found"].sum() < ref["x_found"].size
+    assert (~ref["x_ok1"]).any() and (ref["x_ok1"] | ref["x_ok2"]).all()
+    assert (~ref["x_ok3"]).any() and ref["x_ok3"].any() and ref["x_fok"].all()

@@ -1,5 +1,5 @@
-"""Four-rank hash-map, Bloom filter and HashMapBuffer run for
-tests/test_torch_multirank.py.
+"""Four-rank hash-map, Bloom filter, HashMapBuffer and exchange-extension
+run for tests/test_torch_multirank.py.
 
     python tests/torch_multirank_run.py jax OUT.npz
         the JAX package under shard_map over 4 fake CPU devices, with the
@@ -91,6 +91,32 @@ def scenario_bloom_buffer(bl, hm, hb, bk, kspec, vspec, d, kw) -> dict:
             "h_dropped2": dropped2.reshape(1)}
 
 
+def scenario_ext(hm, core, bk, table, d) -> dict:
+    """The exchange extensions: a 2 x 2 hierarchical insert and find, a
+    corrupt + kill fault spec under integrity and its heal, a degraded
+    insert with rank 3 dead, and a split-phase find_insert, written once
+    for either package (``core`` its core module, ``table()`` a fresh map)."""
+    spec, st = table()
+    hier = core.HierarchicalTransport(2, 2)
+    st, ok = hm.insert(bk, spec, st, d["keys"], d["vals"], capacity=NLOC, transport=hier)
+    st, v, f = hm.find(bk, spec, st, d["q"], capacity=NLOC, transport=hier)
+    spec2, st2 = table()
+    faulty = core.FaultInjectingTransport(core.make_transport("dense"), core.FaultSpec(
+        seed=11, corrupt=((0, 1, 2),), kill_ranks=(3,), kill_from_launch=1))
+    st2, ok1 = hm.insert(bk, spec2, st2, d["keys"], d["vals"], capacity=NLOC // 4,
+                         max_rounds=4, attempts=1, transport=faulty, integrity=True)
+    st2, ok2 = hm.insert(bk, spec2, st2, d["keys"], d["vals"], capacity=NLOC // 4,
+                         max_rounds=4, valid=~ok1, attempts=1, integrity=True)
+    st3, ok3 = hm.insert(bk, spec2, st2, d["ik"], d["iv"], capacity=NLOC, attempts=1,
+                         dead_ranks=(3,))
+    st4, fv, ff, fok = hm.find_insert(bk, spec, st, d["fk"], d["ik"], d["iv"],
+                                      capacity=NLOC, transport=hier, async_=True).finish()
+    return {"x_tkeys": st.tkeys, "x_status": st.status, "x_ok": ok, "x_vals": v,
+            "x_found": f, "x_ok1": ok1, "x_ok2": ok2, "x_tkeys2": st2.tkeys,
+            "x_tvals2": st2.tvals, "x_ok3": ok3, "x_status3": st3.status,
+            "x_tkeys4": st4.tkeys, "x_fvals": fv, "x_ffound": ff, "x_fok": fok}
+
+
 def cost_summary(log) -> dict:
     return {name: log.by_op(name).__dict__ for name in sorted({n for n, _ in log.entries})}
 
@@ -106,6 +132,7 @@ def run_jax(out_path: str) -> None:
     from repro.containers import bloom as bl
     from repro.containers import hashmap as hm
     from repro.containers import hashmap_buffer as hb
+    import repro.core as core
     from repro.core import costs, exchange as ex
     from repro.core.backend import get_backend
 
@@ -121,6 +148,9 @@ def run_jax(out_path: str) -> None:
         out = scenario(hm, ex, bk, spec, st, dd)
         out.update(scenario_bloom_buffer(bl, hm, hb, bk, SDS((2,), jnp.uint32),
                                          SDS((), jnp.uint32), dd, {"impl": "jnp"}))
+        out.update(scenario_ext(hm, core, bk, lambda: hm.hashmap_create(
+            bk, CAP, SDS((), jnp.uint32), SDS((), jnp.uint32), block_size=BLOCK,
+            impl="jnp"), dd))
         return tuple(out[k] for k in sorted(out)), sorted(out)
 
     keys_out = []
@@ -147,6 +177,7 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
     from repro_torch.containers import bloom as bl
     from repro_torch.containers import hashmap as hm
     from repro_torch.containers import hashmap_buffer as hb
+    import repro_torch.core as core
     from repro_torch.core import costs, exchange as ex
     from repro_torch.core.backend import ProcessGroupBackend
     from repro_torch.core.object_container import Spec
@@ -165,6 +196,9 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
             out.update(scenario_bloom_buffer(bl, hm, hb, bk, Spec((2,), torch.uint32),
                                              Spec((), torch.uint32), d,
                                              {"impl": "torch", "device": "cpu"}))
+            out.update(scenario_ext(hm, core, bk, lambda: hm.hashmap_create(
+                bk, CAP, Spec((), torch.uint32), Spec((), torch.uint32), block_size=BLOCK,
+                impl="torch", device="cpu"), d))
         res = {k: v.numpy() for k, v in out.items()}
         res["costs"] = np.asarray(json.dumps(cost_summary(log)))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
