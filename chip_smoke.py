@@ -6,8 +6,8 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build the twelve CUDA kernels from src/repro_torch/csrc, one nvcc
-     per source, all at once (ptxas report);
+  2. build the thirteen CUDA kernels from the four sources in
+     src/repro_torch/csrc, one nvcc per source, all at once (ptxas report);
   3. kernel phase: a short probe of the paths records each kernel's
      largest call (ragged_slots takes the inputs of the extensions path's
      first pack_rows call, histogram the bins of its largest
@@ -15,7 +15,12 @@ Phases, each fatal on failure:
      package); each kernel is held against its plain PyTorch version
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
-     PyTorch call computing the same function;
+     PyTorch call computing the same function; flash_attention is held
+     against its plain version on five cases (the serving path's
+     prefill call, D=320 with a window, Tq=1 < Tk, non-causal with a
+     ragged key tile, float32) elementwise (bf16 within one ulp of each
+     element, float32 at 3e-5; attention_close), timed on the first
+     beside scaled_dot_product_attention;
   4. hash-map path: a 2**26-bucket hash map (block 64, u32 keys and
      values) takes 4 insert waves of 2**23 keys (one wave with ~1%
      duplicates), a speculative find of 2**23 keys (half absent) and a
@@ -34,19 +39,34 @@ Phases, each fatal on failure:
      with rank 0 dead, the same inserts and a speculative find of 2**23
      keys over the hierarchical and the dense transport, and a
      split-phase find_insert of 2**22 + 2**22 over the hierarchical
-     transport against the synchronous one.
-Each path runs through the port's entry points on a SerialBackend, with
-the kernels (launch counts reset just before, read just after) and with
-the plain versions; the two runs must be bit-identical and pass the
-path's oracle, computed on the card.
+     transport against the synchronous one;
+  7. serving path: qwen3-4b at full width and depth (36 layers, 4.02 B
+     parameters in bf16 from the port's seeded init_params) serves 16
+     requests of 2048-token prompts in slots of 8, 32 greedy tokens each,
+     through repro_torch.launch.serve.serve: prefill attention runs the
+     flash_attention kernel (36 launches a wave), decode the plain
+     matmuls; the first layer's attention output on wave 0's prompts
+     (lm.forward of the model cut to one layer) is held kernel vs plain
+     at LAYER_REL_L2, and two faults planted around the kernel's wrapper
+     must each break that check.
+Each path runs through the port's entry points (the containers on a
+SerialBackend), with the kernels (launch counts reset just before, read
+just after) and with the plain versions; the two runs must pass the
+path's oracle, computed on the card, and agree: bit for bit on the
+integer paths; on the serving path the plain run is teacher-forced with
+the kernel run's tokens and every prefill's and decode step's logits
+agree within a relative L2 error of SERVE_REL_L2.
 The last line is {"ok": true, "device": {...}}; the line before it the
 nvidia-smi name and power limit; before that the kernels' JSON line.
 Without a CUDA device (and without --cpu-rehearsal) it exits 1.
+Float32 matmuls run in full float32 (TF32 off for matmuls and cuDNN), and
+bf16 matmuls reduce in float32 (no reduced-precision split-K reduction).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,7 +76,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 # the port; a lone copy of this script fails here
 from repro_torch.containers import bloom as bl  # noqa: E402
@@ -71,11 +93,16 @@ from repro_torch.core.object_container import Spec  # noqa: E402
 from repro_torch.core.promises import ConProm  # noqa: E402
 from repro_torch.core.u32 import as_u64, to_i32  # noqa: E402
 from repro_torch.data import genomics as gen  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import binning, bloom_kernel, build, hash_probe  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.ops import MODE_ADD  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (float32)
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 
 FULL = dict(capacity=1 << 26, block=64, wave=1 << 23, waves=4, find=1 << 23,
             fi=1 << 22, reps=10)
@@ -94,6 +121,39 @@ X_FULL = dict(capacity=1 << 26, block=64, n=1 << 23, cap=1 << 20, rounds=8,
               wave=1 << 19, fi=1 << 22)
 X_REHEARSAL = dict(capacity=1 << 14, block=64, n=1 << 12, cap=1 << 9, rounds=8,
                    wave=1 << 8, fi=1 << 10)
+# serving path: serve.py's loop and flags at a chat-sized prompt
+V_FULL = dict(arch="qwen3-4b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32)
+V_REHEARSAL = dict(arch="qwen3-4b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4)
+#: relative L2 error allowed between two bf16 runs' logits.  Two bf16
+#: computations of the 36-layer model that differ in any rounding drift
+#: apart to ~2.3e-2 (kernel vs plain prefill with identical GEMMs, the
+#: plain decode vs the plain prefill), so this check sees only large faults
+SERVE_REL_L2 = 5e-2
+#: largest per-position relative L2 gap allowed between the first layer's
+#: attention outputs through the kernel and through the plain version:
+#: there they differ only by the kernel's rounding, before the drift above
+LAYER_REL_L2 = 5e-3
+#: attention in bf16: both versions accumulate in float32 and round once,
+#: so an element differs by at most one bf16 ulp of its own size (2**-7
+#: of it) plus float32 summation noise (~1e-6)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+# flash_attention's kernel-phase cases: (b, hq, hkv, tq, tk, d, causal, window, dtype);
+# the first is the serving path's prefill call, the one its JSON row reports
+BF16, F32 = torch.bfloat16, torch.float32
+FLASH_FULL = {
+    "serving_prefill": (8, 32, 8, 2048, 2048, 128, True, 0, BF16),
+    "d320_window": (2, 8, 4, 2048, 2048, 320, True, 1024, BF16),
+    "suffix_tq1": (8, 32, 8, 1, 2048, 128, True, 0, BF16),
+    "noncausal_ragged": (2, 8, 8, 1000, 1000, 128, False, 0, BF16),
+    "f32": (2, 16, 4, 777, 777, 128, True, 0, F32),
+}
+FLASH_REHEARSAL = {
+    "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
+    "d320_window": (1, 2, 1, 70, 70, 320, True, 24, BF16),
+    "suffix_tq1": (2, 4, 2, 1, 40, 16, True, 0, BF16),
+    "noncausal_ragged": (1, 2, 2, 40, 40, 16, False, 0, BF16),
+    "f32": (1, 4, 2, 37, 37, 16, True, 0, F32),
+}
 
 # name -> (module, wrapper, plain, source, TPU kernel it replaces)
 KERNELS = {
@@ -123,14 +183,20 @@ KERNELS = {
                      "src/repro_torch/csrc/binning.cu", "src/repro/kernels/binning.py:139"),
     "histogram": (binning, "histogram", "histogram_plain", "src/repro_torch/csrc/binning.cu",
                   "src/repro/kernels/binning.py:368"),
+    "flash_attention": (fa, "flash_attention", "flash_attention_plain",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
 }
 #: the kernels each path runs
 HASHMAP_KERNELS = ("bin_offsets", "pack_rows", "place_rows", "insert_arrivals",
                    "find_arrivals")
 GENOMICS_KERNELS = HASHMAP_KERNELS + ("insert", "find", "membership", "hash_words")
 EXT_KERNELS = HASHMAP_KERNELS + ("row_mix",)
+SERVING_KERNELS = ("flash_attention",)
 #: kernels no path reaches (the kernel phase derives their inputs)
 OFF_PATH = ("ragged_slots", "histogram")
+#: the float kernels: held at a tolerance on the cases above, not on captured calls
+FLOAT_KERNELS = ("flash_attention",)
 
 
 def check(cond: bool, what: str) -> None:
@@ -648,7 +714,7 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     probe = [""]
     originals = []
     for name, (mod, wrapper, plain, *_rest) in KERNELS.items():
-        if name in OFF_PATH:
+        if name in OFF_PATH or name in FLOAT_KERNELS:
             continue
         for attr in (wrapper, plain):
             fn = getattr(mod, attr)
@@ -673,7 +739,7 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
-    check(set(seen) == set(KERNELS) - set(OFF_PATH),
+    check(set(seen) == set(KERNELS) - set(OFF_PATH) - set(FLOAT_KERNELS),
           f"probe reached every kernel of the paths: {sorted(seen)}")
     calls = {name: args for name, (_, args) in seen.items()}
     rows, *slot_args, total = ext["pack_rows"][1]
@@ -786,6 +852,8 @@ def library_call(name: str, args: tuple):
 def kernel_phase(calls: dict, reps: int, dev) -> dict:
     rows = {}
     for name, (mod, wrapper, plain, _src, _rep) in KERNELS.items():
+        if name in FLOAT_KERNELS:
+            continue
         args = calls[name]
         got = getattr(mod, wrapper)(*args)
         want = getattr(mod, plain)(*args)
@@ -810,10 +878,264 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
     return rows
 
 
+def attention_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: the work these inputs need."""
+    pairs = 0
+    for i in range(tq):
+        qpos = i + tk - tq
+        hi = min(tk - 1, qpos) if causal else tk - 1
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
+                    per_element: bool = True) -> tuple[float, str]:
+    """Fail unless ``got`` is within the attention tolerance of ``want``:
+    float32 at atol = rtol = 3e-5 elementwise (the online softmax sums in
+    another order); bf16 elementwise at rtol BF16_RTOL, atol BF16_ATOL.
+    ``per_element=False`` holds bf16 only at one ulp of the output's
+    scale, 1e-2 * max|want|: for the library call, which rounds the
+    probabilities to bf16 before multiplying by V.
+    Returns (max |got - want|, the tolerance)."""
+    g, w = got.float(), want.float()
+    check(got.shape == want.shape and got.dtype == want.dtype and bool(torch.isfinite(g).all()),
+          f"{what}: finite outputs of the plain version's shape and type")
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if got.dtype == torch.float32:
+        tol = "atol=rtol=3e-5"
+        ok = bool((diff <= 3e-5 + 3e-5 * w.abs()).all())
+    elif per_element:
+        tol = f"atol={BF16_ATOL:g} rtol=2**-7"
+        ok = bool((diff <= BF16_ATOL + BF16_RTOL * w.abs()).all())
+    else:
+        scale = 1e-2 * float(w.abs().max())
+        tol, ok = f"atol={scale:.4g}", err <= scale
+    check(ok, f"{what}: max |difference| {err}, tolerance {tol}")
+    return err, tol
+
+
+def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
+    """flash_attention against its plain version on each case; kernel,
+    plain and (first case) scaled_dot_product_attention times; the bound
+    from the pairs the mask keeps (4 D flops each) at the type's peak and
+    from the bytes (q, k, v read once, the output written once)."""
+    rows = {}
+    for i, (case, (b, hq, hkv, tq, tk, d, causal, window, dtype)) in enumerate(cases.items()):
+        g = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        got, want = kern(), plain()
+        sync(dev)
+        err, tol = attention_close(got, want, f"flash_attention {case}: kernel vs plain")
+        flops = 4 * b * hq * d * attention_pairs(tq, tk, causal, window)
+        ops_ms = flops / (BF16_OPS_PER_S if dtype == BF16 else OPS_PER_S) * 1e3
+        bytes_ms = _nbytes(q, k, v, got) / HBM_BYTES_PER_S * 1e3
+        library_ms = None
+        if i == 0:
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+            attention_close(library(), want, f"flash_attention {case}: the library call",
+                            per_element=False)
+            library_ms = time_ms(library, reps, dev)
+        rows[case] = dict(
+            max_abs_err=err, tol=tol, ms=time_ms(kern, reps, dev),
+            plain_ms=time_ms(plain, max(1, reps // 5), dev),
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms,
+            shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], causal=causal, window=window,
+                       dtype=str(dtype)))
+        print(f"kernel flash_attention {case}: " + json.dumps(rows[case]), flush=True)
+        del q, k, v, got, want
+    return rows
+
+
+# --------------------------------------------------------------------------
+# the serving path: qwen3-4b through the port's serve loop
+# --------------------------------------------------------------------------
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def serving_setup(vz: dict, dev, seed: int) -> dict:
+    """The model (seeded init_params on the card) and serve.py's prompts."""
+    cfg = get_config(vz["arch"])
+    if vz["reduced"]:
+        cfg = reduced(cfg)
+    sync(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                   (vz["requests"], vz["prompt_len"]),
+                                                   dtype=np.int32)
+    n_params = _numel(params)
+    print(f"serving model: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({cfg.dtype}), init {init_s:.2f}s", flush=True)
+    return dict(cfg=cfg, params=params, n_params=n_params,
+                prompts=torch.from_numpy(prompts).to(dev))
+
+
+def serving_path(impl: str, vz: dict, sv: dict, forced=None) -> dict:
+    """``serve`` over every request; each wave's prefill and decode logits kept."""
+    logits, timings = {}, {}
+    tokens = serve(sv["params"], sv["cfg"], sv["prompts"], vz["batch"], vz["gen"], impl,
+                   forced=forced, on_logits=lambda w, st, lg: logits.__setitem__((w, st), lg),
+                   timings=timings)
+    return dict(tokens=tokens, logits=logits, timings=timings, impl=impl)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def check_serving(r: dict, vz: dict, sv: dict) -> None:
+    """Finite logits, gen in-vocab tokens per request, and prefill/decode
+    consistency on wave 0: decode step n's logits equal the last-position
+    logits of a prefill of prompt + tokens[:n] (n = 1 and gen)."""
+    cfg, vocab = sv["cfg"], sv["cfg"].vocab
+    n_waves = -(-vz["requests"] // vz["batch"])
+    check(sorted(r["logits"]) == [(w, s) for w in range(n_waves) for s in range(vz["gen"] + 1)],
+          "serving: one prefill and gen decode steps of logits per wave")
+    for key, lg in r["logits"].items():
+        check(bool(torch.isfinite(lg).all()), f"serving: finite logits at (wave, step) {key}")
+    toks = r["tokens"]
+    check(len(toks) == vz["requests"] and all(
+        len(t) == vz["gen"] and all(0 <= x < vocab for x in t) for t in toks.values()),
+        "serving: gen in-vocab tokens per request")
+    rows = list(range(min(vz["batch"], vz["requests"])))
+    gen_toks = torch.tensor([toks[i] for i in rows], device=sv["prompts"].device)
+    r["consistency"] = {}
+    for n in (1, vz["gen"]):
+        seq = torch.cat([sv["prompts"][rows], gen_toks[:, :n].to(sv["prompts"].dtype)], dim=1)
+        _, last = lm.prefill(sv["params"], cfg, {"tokens": seq}, cache_len=seq.shape[1],
+                             impl=r["impl"])
+        r["consistency"][n] = rel_l2(r["logits"][0, n][rows, :vocab], last[:, :vocab])
+    print(f"serving path ({r['impl']}): decode step n vs prefill of prompt + n tokens, "
+          f"relative L2 {r['consistency']}", flush=True)
+    for n, err in r["consistency"].items():
+        check(err <= SERVE_REL_L2, f"serving: decode step {n} vs prefill of prompt + "
+                                   f"{n} tokens, relative L2 {err} <= {SERVE_REL_L2}")
+
+
+def first_attention(sv: dict, tokens: torch.Tensor, impl: str) -> torch.Tensor:
+    """The first layer's attention output (B, T, d_model), tapped where
+    ``lm.forward`` of the model cut to that layer calls the attention."""
+    cfg = dataclasses.replace(sv["cfg"], n_layers=1)
+    params = dict(sv["params"], layers=sv["params"]["layers"][:1])
+    real, seen = lm.attn_mod.attention, []
+
+    def tap(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out[0])
+        return out
+    lm.attn_mod.attention = tap
+    try:
+        lm.forward(params, cfg, tokens, impl=impl)
+    finally:
+        lm.attn_mod.attention = real
+    return seen[0].float()
+
+
+def first_layer_gap(sv: dict, tokens: torch.Tensor) -> float:
+    """Largest per-position relative L2 gap between the first layer's
+    attention outputs through the kernel and through the plain version."""
+    a, b = first_attention(sv, tokens, "auto"), first_attention(sv, tokens, "torch")
+    return float((torch.linalg.vector_norm(a - b, dim=-1)
+                  / torch.linalg.vector_norm(b, dim=-1)).max())
+
+
+def _lose_oldest_tile(real):
+    def fault(q, k, v, causal=True, window=0):
+        return real(q, k, v, causal=causal, window=window or max(1, k.shape[2] - 64))
+    return fault
+
+
+def _see_next_key(real):
+    def fault(q, k, v, causal=True, window=0):
+        return real(q, torch.cat([k, k[:, :, -1:]], 2), torch.cat([v, v[:, :, -1:]], 2),
+                    causal=causal, window=window)
+    return fault
+
+
+#: faults planted around the kernel's wrapper: what the serving checks see
+PLANTED_FAULTS = {"the last 64 rows lose up to one 64-key tile": _lose_oldest_tile,
+                  "causal off by one (each row sees the next key)": _see_next_key}
+
+
+def planted_faults(sv: dict, tokens: torch.Tensor, plain_logits: torch.Tensor) -> None:
+    """Each planted fault must break the first-layer check; the gap of
+    the 36-layer prefill logits to the plain run's is printed beside
+    SERVE_REL_L2."""
+    real, vocab = fa.flash_attention, sv["cfg"].vocab
+    for name, plant in PLANTED_FAULTS.items():
+        fa.flash_attention = plant(real)
+        try:
+            gap = first_layer_gap(sv, tokens)
+            _, lg = lm.prefill(sv["params"], sv["cfg"], {"tokens": tokens},
+                               cache_len=tokens.shape[1])
+        finally:
+            fa.flash_attention = real
+        err = rel_l2(lg[:, :vocab], plain_logits[:, :vocab])
+        print(f"serving path: planted fault '{name}': first-layer gap {gap:.6f} "
+              f"(limit {LAYER_REL_L2}); prefill logits relative L2 {err:.6f} "
+              f"({'above' if err > SERVE_REL_L2 else 'within'} {SERVE_REL_L2})", flush=True)
+        check(gap > LAYER_REL_L2, f"serving: the first-layer check catches '{name}'")
+
+
+def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
+    """The plain run, teacher-forced with the kernel run's tokens: every
+    step's logits within SERVE_REL_L2 of the kernel run's; on wave 0's
+    prompts the first layer's attention outputs within LAYER_REL_L2, and on
+    the card each planted fault breaks that first-layer check."""
+    vocab, batch, gen = sv["cfg"].vocab, vz["batch"], vz["gen"]
+    errs = {key: rel_l2(b["logits"][key][:, :vocab], a["logits"][key][:, :vocab])
+            for key in a["logits"]}
+    worst = max(errs, key=errs.get)
+    prefill = [round(e, 6) for (_, st), e in sorted(errs.items()) if st == 0]
+    # the plain run's own greedy pick where the kernel run's token was fed
+    agree = sum(int(b["logits"][w, st][j].argmax()) == a["tokens"][w * batch + j][st]
+                for (w, st) in b["logits"] if st < gen
+                for j in range(batch) if w * batch + j in a["tokens"])
+    total = sum(len(t) for t in a["tokens"].values())
+    print(f"serving path: kernel vs plain logits, relative L2: max {errs[worst]:.6f} at "
+          f"(wave, step) {worst}, prefill waves {prefill}, mean "
+          f"{sum(errs.values()) / len(errs):.6f}; plain greedy picks equal to the kernel "
+          f"run's tokens {agree}/{total}", flush=True)
+    check(errs[worst] <= SERVE_REL_L2,
+          f"serving: kernel and plain logits within relative L2 {SERVE_REL_L2}")
+    tokens = sv["prompts"][:batch]
+    gap = first_layer_gap(sv, tokens)
+    print(f"serving path: first layer, kernel vs plain attention output, largest relative "
+          f"L2 over positions {gap:.6f} (limit {LAYER_REL_L2})", flush=True)
+    check(gap <= LAYER_REL_L2,
+          f"serving: first-layer attention outputs within relative L2 {LAYER_REL_L2}")
+    if tokens.is_cuda:
+        planted_faults(sv, tokens, b["logits"][0, 0])
+    else:
+        print("serving path: planted faults not run (the CPU has only the plain version)",
+              flush=True)
+
+
 # --------------------------------------------------------------------------
 
 def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
-           smi: str) -> None:
+           vz: dict, smi: str) -> None:
     """One JSON line of a path's end-to-end numbers, with the card."""
     label = "kernels" if impl == "auto" else "plain"
     if path == "hash-map path":
@@ -842,6 +1164,22 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
             sync_find_insert_ops_per_s=2 * fi / t["sync_find_insert_s"],
             fault_launches=r["launches_faulty"], seconds=t, total_s=r["total_s"],
             peak_mem_bytes=r["peak_bytes"], launches=r["launches"])
+    elif path == "serving path":
+        t = r["timings"]
+        n_tok = vz["requests"] * vz["gen"]
+        dec = sorted(t["decode_s"])
+        print(f"served {vz['requests']} requests, {n_tok} tokens in {r['total_s']:.2f}s "
+              f"({n_tok / r['total_s']:.1f} tok/s)", flush=True)
+        line = dict(
+            card=smi, arch=vz["arch"], requests=vz["requests"], slots=vz["batch"],
+            prompt_len=vz["prompt_len"], gen=vz["gen"],
+            prefill_tokens_per_s=[vz["batch"] * vz["prompt_len"] / x for x in t["prefill_s"]],
+            ttft_s=t["prefill_s"], decode_ms_per_step_mean=1e3 * sum(dec) / len(dec),
+            decode_ms_per_step_median=1e3 * dec[len(dec) // 2],
+            decode_tokens_per_s=vz["batch"] * len(dec) / sum(dec),
+            served_tokens_per_s=n_tok / r["total_s"], total_s=r["total_s"],
+            prefill_decode_rel_l2=r["consistency"], peak_mem_bytes=r["peak_bytes"],
+            launches={k: n for k, n in r["launches"].items() if n})
     else:
         t = r["times"]
         line = dict(
@@ -875,6 +1213,10 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cpu" if rehearsal else "cuda")
     sz = REHEARSAL if rehearsal else FULL
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs reduce their split-K partial sums in float32, whatever the shape
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 1. the card
     smi = "" if rehearsal else nvidia_smi()
@@ -906,47 +1248,75 @@ def main(argv=None) -> int:
     calls = capture_calls(sz, data, gz, gdata, xz, xdata, dev)
     krows = kernel_phase(calls, sz["reps"], dev)
     del calls
+    frows = flash_phase(FLASH_REHEARSAL if rehearsal else FLASH_FULL, sz["reps"], dev,
+                        args.seed)
+    krows["flash_attention"] = frows["serving_prefill"]
 
-    # 4./5. each path: kernels, then plain versions
-    paths = {
-        "hash-map path": (lambda impl: main_path(impl, sz, data, dev),
-                          lambda r: check_oracle(r, data, sz), same_results,
-                          HASHMAP_KERNELS),
-        "genomics path": (lambda impl: genomics_path(impl, gz, gdata, dev),
-                          lambda r: check_genomics(r, gdata, gz), same_genomics,
-                          GENOMICS_KERNELS),
-        "extensions path": (lambda impl: ext_path(impl, xz, xdata, dev),
-                            lambda r: check_ext(r, xdata, xz), same_ext, EXT_KERNELS),
-    }
-    runs = {}
-    for path, (drive, oracle, same, used) in paths.items():
+    # 4.-7. each path: kernels, then plain versions
+    vz = V_REHEARSAL if rehearsal else V_FULL
+    launched = {}
+
+    def run_path(path, drive, oracle, same, used):
+        runs = {}
         for impl in ("auto", "torch"):
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
             build.reset_launches()
             t0 = time.perf_counter()
-            r = drive(impl)
+            r = drive(impl, runs)
+            sync(dev)
             r["total_s"] = time.perf_counter() - t0
             r["launches"] = build.launch_counts()
             r["peak_bytes"] = (torch.cuda.max_memory_allocated()
                                if dev.type == "cuda" else None)
-            oracle(r)
-            runs[path, impl] = r
-        same(runs[path, "auto"], runs[path, "torch"])
-        if not rehearsal:
-            launched = runs[path, "auto"]["launches"]
-            check(all(launched[name] > 0 for name in used),
-                  f"every kernel of the {path} ran: {launched}")
-        check(all(n == 0 for n in runs[path, "torch"]["launches"].values()),
-              f"the plain run of the {path} launched no kernel: "
-              f"{runs[path, 'torch']['launches']}")
+            runs[impl] = r
+            launched[path, impl] = r["launches"]
         for impl in ("auto", "torch"):
-            report(path, impl, runs[path, impl], sz, gz, gdata, xz, smi)
+            oracle(runs[impl])
+        same(runs["auto"], runs["torch"])
+        if not rehearsal:
+            counts = runs["auto"]["launches"]
+            check(all(counts[name] > 0 for name in used),
+                  f"every kernel of the {path} ran: {counts}")
+        check(all(n == 0 for n in runs["torch"]["launches"].values()),
+              f"the plain run of the {path} launched no kernel: {runs['torch']['launches']}")
+        for impl in ("auto", "torch"):
+            report(path, impl, runs[impl], sz, gz, gdata, xz, vz, smi)
+
+    run_path("hash-map path", lambda impl, _: main_path(impl, sz, data, dev),
+             lambda r: check_oracle(r, data, sz), same_results, HASHMAP_KERNELS)
+    run_path("genomics path", lambda impl, _: genomics_path(impl, gz, gdata, dev),
+             lambda r: check_genomics(r, gdata, gz), same_genomics, GENOMICS_KERNELS)
+    run_path("extensions path", lambda impl, _: ext_path(impl, xz, xdata, dev),
+             lambda r: check_ext(r, xdata, xz), same_ext, EXT_KERNELS)
+    del data, xdata
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 7. the serving path: the plain run is fed the kernel run's tokens
+    sv = serving_setup(vz, dev, args.seed)
+
+    def forced(runs):
+        toks = runs["auto"]["tokens"]
+        return torch.tensor([toks[i] for i in range(len(toks))], device=dev)
+    run_path("serving path",
+             lambda impl, runs: serving_path(impl, vz, sv,
+                                             None if impl == "auto" else forced(runs)),
+             lambda r: check_serving(r, vz, sv), lambda a, b: same_serving(a, b, vz, sv),
+             SERVING_KERNELS)
+    n_waves = -(-vz["requests"] // vz["batch"])
+    if not rehearsal:
+        counts = launched["serving path", "auto"]
+        check(counts["flash_attention"] == sv["cfg"].n_layers * n_waves
+              and all(n == 0 for name, n in counts.items() if name not in SERVING_KERNELS),
+              f"serving path: flash_attention once per layer and wave, no other kernel: "
+              f"{counts}")
 
     # launches: the paths' kernel runs (each path's counts are printed above)
+    paths = sorted({p for p, _ in launched})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=sum(runs[p, "auto"]["launches"][name] for p in paths),
-                    **{k: v for k, v in krows[name].items() if k != "shape"})
+                    launches=sum(launched[p, "auto"][name] for p in paths),
+                    **{k: v for k, v in krows[name].items() if k not in ("shape", "tol")})
                for name, (_m, _w, _p, src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

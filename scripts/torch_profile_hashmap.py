@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the port's paths goes, on one card.
 
-    python3 scripts/torch_profile_hashmap.py [--path hashmap|genomics|ext] [--out build/profile]
+    python3 scripts/torch_profile_hashmap.py [--path hashmap|genomics|ext|serving] \
+        [--out build/profile]
 
 Runs one of chip_smoke.py's paths (same sizes, seed and data: the
 hash-map path by default, the genomics path, or the extensions path:
 integrity under a corrupted wire, heal, degraded probe, hierarchical vs
 dense transport, split-phase find_insert) once with the kernels
-to warm up, then once more under ``torch.profiler`` and prints:
+to warm up, then once more under ``torch.profiler``.  ``--path serving``
+profiles two windows of the serving path's qwen3-4b instead, after a
+warm-up: one prefill of a wave (8 x 2048 tokens, to its greedy pick)
+and 8 decode steps of that wave.  For each run it prints:
   * wall time of the profiled run and the device's busy share (the sum
     of kernel and memcpy/memset times over the wall time; one stream,
     so they do not overlap);
@@ -37,12 +41,73 @@ import chip_smoke  # noqa: E402
 PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "pack_rows_kernel", "copy_words",
                 "place_rows_kernel", "insert_arrivals_kernel", "find_arrivals_kernel",
                 "insert_kernel", "find_kernel", "membership_kernel", "hash_words_kernel",
-                "row_mix_kernel", "ragged_slots_kernel", "histogram_kernel")
+                "row_mix_kernel", "ragged_slots_kernel", "histogram_kernel",
+                "flash_fwd_kernel")
+
+
+def serving_windows(dev, rehearsal: bool) -> list:
+    """(name, set-up, profiled drive) of the serving path's two windows."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    vz = chip_smoke.V_REHEARSAL if rehearsal else chip_smoke.V_FULL
+    sv = chip_smoke.serving_setup(vz, dev, 0)
+    cfg, params = sv["cfg"], sv["params"]
+    prompts = sv["prompts"][:vz["batch"]]
+    prefill = make_prefill_step(cfg, cache_len=vz["prompt_len"] + vz["gen"])
+    decode = make_serve_step(cfg)
+    state = {}
+
+    def run_prefill():
+        state["cache"], logits = prefill(params, {"tokens": prompts})
+        state["tok"] = logits.argmax(-1)[:, None]
+        chip_smoke.sync(dev)
+
+    def run_decode():
+        for _ in range(8):
+            logits, state["cache"] = decode(params, state["cache"], state["tok"])
+            state["tok"] = logits.argmax(-1)[:, None]
+        chip_smoke.sync(dev)
+
+    return [("serving prefill", lambda: None, run_prefill),
+            ("serving decode x8", run_prefill, run_decode)]
+
+
+def profile_window(name: str, drive, dev, out: Path):
+    """Profile one run of ``drive``; print its busy share and top kernels."""
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r = drive()
+        wall = time.perf_counter() - t0
+
+    # device activities only (kernels, memcpy, memset): the aten ops that
+    # launch them carry the same device time and would count it twice
+    device = dev.type == "cuda"
+    want = DeviceType.CUDA if device else DeviceType.CPU
+    rows = []
+    for ev in prof.key_averages():
+        t = ev.self_device_time_total if device else ev.self_cpu_time_total
+        if t > 0 and ev.device_type == want:
+            rows.append((t / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(t for t, _, _ in rows) if device else float("nan")
+    ours = sum(t for t, _, k in rows if any(p in k for p in PORT_KERNELS))
+    print(f"profiled {name}: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / (wall * 1e3):.1f}%), port kernels {ours:.1f} ms", flush=True)
+    print(f"{'ms':>10} {'calls':>7}  name", flush=True)
+    for t, n, k in rows[:25]:
+        print(f"{t:10.3f} {n:7d}  {k[:100]}", flush=True)
+    tag = name.replace(" ", "_")
+    with open(out / f"{tag}_by_op.txt", "w") as f:
+        for t, n, k in rows:
+            f.write(f"{t:.4f}\t{n}\t{k}\n")
+    prof.export_chrome_trace(str(out / f"{tag}_trace.json"))
+    return r
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("hashmap", "genomics", "ext"), default="hashmap")
+    ap.add_argument("--path", choices=("hashmap", "genomics", "ext", "serving"),
+                    default="hashmap")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     ap.add_argument("--cpu-rehearsal", action="store_true")
     args = ap.parse_args(argv)
@@ -56,6 +121,13 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         print(chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.build.build()
+    if args.path == "serving":
+        for name, setup, drive in serving_windows(dev, args.cpu_rehearsal):
+            setup()
+            drive()                                     # warm-up
+            setup()
+            profile_window(name, drive, dev, out)
+        return 0
     if args.path == "hashmap":
         data = chip_smoke.workload(sz, dev, 0)
         drive = lambda: chip_smoke.main_path("auto", sz, data, dev)  # noqa: E731
@@ -71,38 +143,11 @@ def main(argv=None) -> int:
         drive = lambda: chip_smoke.genomics_path("auto", gz, data, dev)  # noqa: E731
         oracle = lambda r: chip_smoke.check_genomics(r, data, gz)  # noqa: E731
     drive()                                             # warm-up
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        r = drive()
-        wall = time.perf_counter() - t0
+    r = profile_window(f"{args.path} path", drive, dev, out)
     oracle(r)
-
-    # device activities only (kernels, memcpy, memset): the aten ops that
-    # launch them carry the same device time and would count it twice
-    device = dev.type == "cuda"
-    want = DeviceType.CUDA if device else DeviceType.CPU
-    rows = []
-    for ev in prof.key_averages():
-        t = ev.self_device_time_total if device else ev.self_cpu_time_total
-        if t > 0 and ev.device_type == want:
-            rows.append((t / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(t for t, _, _ in rows) if device else float("nan")
-    ours = sum(t for t, _, k in rows if any(p in k for p in PORT_KERNELS))
-    print(f"profiled {args.path} path: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / (wall * 1e3):.1f}%), port kernels {ours:.1f} ms", flush=True)
-    print(f"{'ms':>10} {'calls':>7}  name", flush=True)
-    for t, n, k in rows[:25]:
-        print(f"{t:10.3f} {n:7d}  {k[:100]}", flush=True)
     if args.path != "hashmap":
         print("phase seconds: " + " ".join(f"{k}={v:.4f}" for k, v in r["times"].items()),
               flush=True)
-    with open(out / f"{args.path}_by_op.txt", "w") as f:
-        for t, n, k in rows:
-            f.write(f"{t:.4f}\t{n}\t{k}\n")
-    prof.export_chrome_trace(str(out / f"{args.path}_trace.json"))
     return 0
 
 

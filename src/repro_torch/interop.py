@@ -11,6 +11,12 @@ across": both packages can start from the same populated containers.
   queue     ``repro.containers.queue.export_state``   -> {data, head, tail,
                                                           tail_ready, head_ready}
   Bloom     ``BloomState._asdict()``                  -> {words}
+
+And the LM's parameters: ``lm_params_from_numpy`` takes the JAX
+package's ``lm.init_params`` pytree (``np.asarray`` on each leaf) and
+unstacks its scanned units into the port's per-layer list;
+``lm_params_to_numpy`` goes back (bf16 leaves come back as float32
+arrays of the same values: numpy has no bfloat16 of its own).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.containers.bloom import BloomState
 from repro_torch.containers.hashmap import HashMapState
 from repro_torch.containers.queue import QueueState
@@ -62,3 +69,75 @@ def bloom_state_from_numpy(exported: dict, device="cuda") -> BloomState:
 def bloom_state_to_numpy(state: BloomState) -> dict:
     """Port state -> ``{words}`` (nb, 2) u32 numpy."""
     return {"words": state.words.cpu().numpy().view(np.uint32)}
+
+
+# --------------------------------------------------------------------------
+# LM parameters
+# --------------------------------------------------------------------------
+
+def _layout(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(n_prefix, n_units, n_rem) of the JAX package's layer stack."""
+    prefix = cfg.moe.first_k_dense if cfg.moe else 0
+    u = len(cfg.layer_pattern)
+    rest = cfg.n_layers - prefix
+    return prefix, rest // u, rest % u
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(params_np: dict, cfg: ArchConfig, device="cuda") -> dict:
+    """The JAX LM pytree -> the port's parameters on ``device``: the layers
+    in order (``prefix_i``, then each unit's ``p0..p{u-1}`` from
+    ``stack``, then ``rem_i``)."""
+    prefix, n_units, n_rem = _layout(cfg)
+    pat = len(cfg.layer_pattern)
+    layers = [_tree(lambda a: _tensor(a, device), params_np[f"prefix_{i}"])
+              for i in range(prefix)]
+    for u in range(n_units):
+        for i in range(pat):
+            layers.append(_tree(lambda a: _tensor(np.asarray(a)[u], device),
+                                params_np["stack"][f"p{i}"]))
+    layers += [_tree(lambda a: _tensor(a, device), params_np[f"rem_{i}"])
+               for i in range(n_rem)]
+    out = {k: _tensor(params_np[k], device) for k in ("embed", "final_norm", "lm_head")
+           if k in params_np}
+    out["layers"] = layers
+    return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
+    """The port's parameters -> the JAX LM pytree layout of numpy arrays."""
+    prefix, n_units, n_rem = _layout(cfg)
+    pat = len(cfg.layer_pattern)
+    layers = [_tree(_array, bp) for bp in params["layers"]]
+    out = {k: _array(params[k]) for k in ("embed", "final_norm", "lm_head") if k in params}
+    for i in range(prefix):
+        out[f"prefix_{i}"] = layers[i]
+    if n_units:
+        units = [[layers[prefix + u * pat + i] for u in range(n_units)] for i in range(pat)]
+
+        def stack(blocks):
+            if isinstance(blocks[0], dict):
+                return {k: stack([b[k] for b in blocks]) for k in blocks[0]}
+            return np.stack(blocks)
+        out["stack"] = {f"p{i}": stack(units[i]) for i in range(pat)}
+    for i in range(n_rem):
+        out[f"rem_{i}"] = layers[prefix + n_units * pat + i]
+    return out

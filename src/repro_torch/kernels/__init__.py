@@ -5,6 +5,7 @@
   hash_probe   insert_arrivals, find_arrivals,     (csrc/hash_probe.cu)
                insert, find
   bloom_kernel hash_words, membership              (csrc/bloom.cu)
+  flash_attention flash_attention                  (csrc/flash_attention.cu)
 
 Each module keeps a plain PyTorch version beside every kernel; ``ops``
 dispatches between them, ``build`` compiles and binds the CUDA sources

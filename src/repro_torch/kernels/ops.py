@@ -3,12 +3,14 @@
 Every op of the slice comes in two implementations:
 
   impl="torch"  the plain PyTorch version: the counterpart of the JAX
-                package's ``jnp`` path, bit for bit, on any device
+                package's ``jnp`` path, on any device (bit for bit for
+                the integer ops; attention within a float tolerance)
   impl="cuda"   the hand-written CUDA kernel (CUDA tensors only)
 
 ``impl="auto"`` picks the kernel for CUDA tensors and the plain version
-for CPU tensors.  Containers call through this module only.  Integer
-arguments are normalised to the int32 words the kernels take.
+for CPU tensors.  Containers and the model call through this module
+only.  Integer arguments are normalised to the int32 words the kernels
+take.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import binning, bloom_kernel, hash_probe
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.ref import (FREE, READY, STATE_MASK, bucket_state,  # noqa: F401
                                      MODE_SET, MODE_ADD, MODE_KEEP, bloom_find_ref)
 
@@ -290,3 +293,15 @@ def bloom_find(filter_words, qblock, qwords, qvalid, impl: str = "auto"):
     the JAX package has no kernel for it (``ops.py:269-270``)."""
     resolve(impl, filter_words)
     return bloom_find_ref(filter_words, _w(qblock), _w(qwords), _b(qvalid))
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0, impl: str = "auto"):
+    """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) -> (B,Hq,Tq,D): suffix-aligned
+    causal / sliding-window GQA attention (see ``kernels/flash_attention``)."""
+    if resolve(impl, q) == "torch":
+        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)

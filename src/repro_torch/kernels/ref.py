@@ -144,3 +144,38 @@ def bin_offsets_ref(bins: torch.Tensor, nbins: int, valid=None):
         counts[b] += int(v)
     return (torch.tensor(counts, dtype=torch.int32, device=bins.device),
             torch.tensor(offs, dtype=torch.int32, device=bins.device))
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
+    """Plain softmax attention oracle (``repro.kernels.ref.flash_attention_ref``).
+
+    q: (B, Hq, Tq, D), k/v: (B, Hkv, Tk, D); GQA by head repetition.
+    Queries are suffix-aligned to the keys (query i sits at position
+    ``i + Tk - Tq``); ``window`` > 0 limits attention to the last
+    ``window`` keys (sliding).  Logits and softmax are float32 (the JAX
+    oracle takes its logits in ``q.dtype``; the TPU kernel and
+    ``blockwise_attention`` upcast, and the port follows those two); the
+    probabilities are cast to ``q.dtype`` before the value product, as
+    in the JAX oracle.  A row with no key to see is NaN.
+    """
+    _, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    rep = hq // hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
+    qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)

@@ -1,0 +1,123 @@
+"""Batched serving: prefill + decode with slot-based batching.
+
+The port of ``repro/launch/serve.py``: a fixed decode batch of
+``--batch`` slots; each wave of queued requests is prefilled into the
+slots (the last wave padded with zero prompts) and decoded greedily for
+``--gen`` tokens.  It runs on the card unless ``--cpu`` is given, and
+without a card it exits non-zero.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --reduced --cpu \\
+      --requests 16 --batch 4 --prompt-len 32 --gen 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import lm
+
+
+def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = "auto", *,
+          forced: torch.Tensor | None = None, on_logits=None,
+          timings: dict | None = None) -> dict[int, list[int]]:
+    """Serve every prompt of ``prompts`` (R, P) greedily; returns each
+    request's ``gen`` tokens by request index.
+
+    ``forced`` (R, gen), if given, is fed in place of the greedy picks
+    (teacher forcing: a second run sees the first run's tokens).
+    ``on_logits(wave, step, logits)`` sees each wave's prefill logits
+    (step 0) and decode step n's logits (step n).  ``timings``, if given,
+    gets ``prefill_s`` (per wave, prompt in to first token on the host)
+    and ``decode_s`` (per decode step, token in to next token on the host).
+    """
+    n_req, prompt_len = prompts.shape
+    dev = prompts.device
+    prefill_step = make_prefill_step(cfg, cache_len=prompt_len + gen, impl=impl)
+    decode = make_serve_step(cfg, impl=impl)
+    if timings is not None:
+        timings.setdefault("prefill_s", [])
+        timings.setdefault("decode_s", [])
+
+    def pick(logits, rows, step):
+        tok = logits.argmax(dim=-1)[:, None]
+        if forced is not None and step < gen:
+            tok[:rows.stop - rows.start, 0] = forced[rows, step].to(tok.dtype)
+        return tok
+
+    queue = list(range(n_req))
+    outputs: dict[int, list[int]] = {i: [] for i in range(n_req)}
+    wave = 0
+    while queue:
+        active, queue = queue[:batch], queue[batch:]
+        rows = slice(active[0], active[0] + len(active))    # the queue is in order
+        wave_prompts = prompts[rows]
+        if len(active) < batch:   # pad the last wave
+            pad = torch.zeros((batch - len(active), prompt_len), dtype=prompts.dtype, device=dev)
+            wave_prompts = torch.cat([wave_prompts, pad])
+        t0 = time.perf_counter()
+        cache, logits = prefill_step(params, {"tokens": wave_prompts})
+        tok = pick(logits, rows, 0)
+        picks = tok[:, 0].tolist()
+        if timings is not None:
+            timings["prefill_s"].append(time.perf_counter() - t0)
+        if on_logits is not None:
+            on_logits(wave, 0, logits)
+        for step in range(gen):
+            for j, rid in enumerate(active):
+                outputs[rid].append(picks[j])
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, tok)
+            tok = pick(logits, rows, step + 1)
+            picks = tok[:, 0].tolist()
+            if timings is not None:
+                timings["decode_s"].append(time.perf_counter() - t0)
+            if on_logits is not None:
+                on_logits(wave, step + 1, logits)
+        wave += 1
+    return outputs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
+    args = ap.parse_args(argv)
+    if not args.cpu and not torch.cuda.is_available():
+        print("serve: no CUDA device (pass --cpu to serve on the CPU)", file=sys.stderr)
+        return 1
+    dev = torch.device("cpu" if args.cpu else "cuda")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+
+    rng = np.random.default_rng(args.seed)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len), dtype=np.int32)
+
+    t_start = time.time()
+    outputs = serve(params, cfg, torch.from_numpy(prompts).to(dev), args.batch, args.gen)
+    dt = time.time() - t_start
+    n_decoded = sum(len(toks) for toks in outputs.values())
+    print(f"served {args.requests} requests, {n_decoded} tokens "
+          f"in {dt:.2f}s ({n_decoded / dt:.1f} tok/s)")
+    for i in range(min(3, args.requests)):
+        print(f"request {i}: {outputs[i][:10]}...")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,27 @@
+"""Step builders of the serving path (the port of ``repro/launch/steps.py:72-89``).
+
+  prefill_step(params, batch)     -> (cache, logits)
+  serve_step(params, cache, tokens) -> (logits, cache)
+
+Each closes over the config and the kernel choice ``impl``.  The train
+step and the sharding trees wait for ROADMAP Queue 1 item 10.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+
+
+def make_prefill_step(cfg: ArchConfig, cache_len: int, impl: str = "auto"):
+    def prefill_step(params, batch):
+        return lm.prefill(params, cfg, batch, cache_len=cache_len, impl=impl)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig, impl: str = "auto"):
+    def serve_step(params, cache, tokens):
+        return lm.decode_step(params, cfg, cache, tokens, impl=impl)
+
+    return serve_step

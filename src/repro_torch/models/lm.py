@@ -1,0 +1,188 @@
+"""Model assembly: the dense decoder-only LM and its serving path.
+
+The port of ``repro/models/lm.py`` for the layer kinds ``g`` (global
+attention) and ``l`` (sliding-window attention): ``init_params``,
+``cache_init``, ``forward``, ``prefill`` and ``decode_step``, with the
+JAX package's quirks kept (the ``sqrt(d_model)`` embedding scale taken in
+the model's dtype, the padded vocab rows masked to ``-1e30``, the cache's
+``pos`` bookkeeping).
+
+Parameters are a dict: ``embed`` (padded_vocab, D), ``final_norm``,
+``lm_head`` when the embeddings are untied, and ``layers``, one dict per
+layer in order (``ln1``, ``attn``, ``ln2``, ``mlp``).  The JAX package
+stacks its repeating units on a leading axis for ``scan``;
+``repro_torch.interop.lm_params_from_numpy`` unstacks them.  The layer
+loop is a Python loop (no scan, no remat).
+
+MoE, MLA, the SSM kinds, the shared-attention kind ``a``,
+encoder-decoder, frontends and MTP raise ``NotImplementedError`` naming
+ROADMAP Queue 1 item 10; ``loss_fn`` and training wait for it too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port's LM cannot run yet."""
+    waits = []
+    if cfg.moe is not None:
+        waits.append("MoE over ExchangePlan")
+    if cfg.mla is not None:
+        waits.append("MLA")
+    if cfg.ssm is not None or set(cfg.layer_pattern) - set("gl"):
+        waits.append(f"layer kinds {sorted(set(cfg.layer_pattern) - set('gl'))} (SSM, "
+                     "shared attention)")
+    if cfg.encoder_layers:
+        waits.append("encoder-decoder")
+    if cfg.frontend is not None:
+        waits.append("frontends")
+    if cfg.mtp:
+        waits.append("MTP")
+    if waits:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(waits)} wait for ROADMAP Queue 1 item 10")
+
+
+def kind_at(cfg: ArchConfig, layer_idx: int) -> str:
+    pat = cfg.layer_pattern
+    return pat[layer_idx % len(pat)]
+
+
+# ---------------------------------------------------------------------------
+# parameters and caches
+# ---------------------------------------------------------------------------
+
+def _block_init(gen, cfg, dtype, device) -> dict:
+    d = cfg.d_model
+    return {"ln1": torch.ones(d, dtype=dtype, device=device),
+            "attn": attn_mod.attn_init(gen, cfg, dtype, device),
+            "ln2": torch.ones(d, dtype=dtype, device=device),
+            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
+    """Random parameters from ``gen`` (a generator on ``device``).
+
+    The same shapes, scales and dtypes as the JAX package's
+    ``init_params``; the draws differ (carry JAX parameters across with
+    ``interop.lm_params_from_numpy``)."""
+    check_supported(cfg)
+    dtype = dtype_of(cfg)
+    d, v = cfg.d_model, cfg.padded_vocab
+    params = {"embed": L.normal(gen, (v, d), d ** -0.5, dtype, device),
+              "final_norm": torch.ones(d, dtype=dtype, device=device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.normal(gen, (v, d), d ** -0.5, dtype, device)
+    params["layers"] = [_block_init(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]
+    return params
+
+
+def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
+    """Zeroed K/V caches, one per layer; ``window_cache`` caps an ``l``
+    layer's cache at the window (a ring)."""
+    check_supported(cfg)
+    dtype = dtype_of(cfg)
+    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    layers = []
+    for i in range(cfg.n_layers):
+        s_len = cache_len
+        if (cfg.window_cache and kind_at(cfg, i) == "l" and cfg.sliding_window
+                and cfg.sliding_window < cache_len):
+            s_len = cfg.sliding_window
+        layers.append({n: torch.zeros((batch, nkv, s_len, hd), dtype=dtype, device=device)
+                       for n in ("k", "v")})
+    return {"pos": 0, "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _apply_block(bp, x, cfg, kind: str, *, positions, cache=None, cache_len=None,
+                 impl="auto"):
+    """Pre-norm block. Returns (x, new_cache)."""
+    window = cfg.sliding_window if kind == "l" else 0
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    o, new_cache = attn_mod.attention(bp["attn"], h, cfg, positions=positions, causal=True,
+                                      window=window, cache=cache, cache_len=cache_len,
+                                      impl=impl)
+    x = x + o
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg.activation), new_cache
+
+
+def forward(params, cfg: ArchConfig, tokens, *, cache=None, decode: bool = False,
+            impl: str = "auto"):
+    """Returns (hidden (B,T,D), new_cache | None)."""
+    check_supported(cfg)
+    b, t = tokens.shape
+    dtype = dtype_of(cfg)
+    dev = tokens.device
+
+    x = L.embed_lookup_dense(params["embed"], tokens)
+    # the scale is rounded to the model's dtype first, as in JAX
+    x = (x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=dev)).to(dtype)
+
+    if decode:
+        positions = torch.full((b, 1), cache["pos"], dtype=torch.int32, device=dev)
+    else:
+        positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
+    cache_len = cache["pos"] if cache is not None else None
+
+    new_layers = []
+    for i, bp in enumerate(params["layers"]):
+        bc = cache["layers"][i] if cache is not None else None
+        x, nc = _apply_block(bp, x, cfg, kind_at(cfg, i), positions=positions, cache=bc,
+                             cache_len=cache_len, impl=impl)
+        new_layers.append(nc)
+
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cache is None:
+        return x, None
+    return x, {"pos": cache["pos"] + (1 if decode else t), "layers": new_layers}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def head_table(params, cfg):
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def _mask_pad_vocab(logits, cfg):
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    return logits.masked_fill(pad, -1e30)
+
+
+def prefill(params, cfg: ArchConfig, batch: dict, cache_len: int, *, impl: str = "auto"):
+    """Run the prompt, build the cache, return (cache, last_logits)."""
+    tokens = batch["tokens"]
+    if set(batch) - {"tokens"}:
+        raise NotImplementedError(
+            f"prefill inputs {sorted(set(batch) - {'tokens'})} (frontends, encoder-decoder) "
+            "wait for ROADMAP Queue 1 item 10")
+    cache = cache_init(cfg, tokens.shape[0], cache_len, tokens.device)
+    h, new_cache = forward(params, cfg, tokens, cache=cache, decode=False, impl=impl)
+    logits = h[:, -1] @ head_table(params, cfg).T
+    return new_cache, _mask_pad_vocab(logits, cfg)
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, impl: str = "auto"):
+    """One token in, one logits row out; the cache advances by one (its
+    buffers are written in place)."""
+    h, new_cache = forward(params, cfg, tokens, cache=cache, decode=True, impl=impl)
+    logits = h[:, -1] @ head_table(params, cfg).T
+    return _mask_pad_vocab(logits, cfg), new_cache

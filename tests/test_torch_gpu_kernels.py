@@ -6,7 +6,12 @@ Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
 
-Every output is integer, so the tolerance is 0: bit equality.
+Every output of the integer kernels is integer, so their tolerance is 0:
+bit equality.  Flash attention is float: float32 at ``atol = rtol = 3e-5``
+(the kernel's online softmax sums in another order than the plain
+version's whole-row softmax), bf16 within one bf16 ulp of the output's
+scale (``atol = 1e-2 * max|out|``; both versions accumulate in float32
+and round once, so an element moves by at most one ulp of its own size).
 """
 
 import numpy as np
@@ -14,6 +19,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import binning, bloom_kernel, hash_probe, ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.gpu
 
@@ -228,3 +235,73 @@ def test_histogram_kernel(dev, n, nbins):
     got = binning.histogram(bins, nbins, valid)
     _eq(got, binning.histogram_plain(bins, nbins, valid))
     assert int(got.sum()) == int((valid & (bins >= 0) & (bins < nbins)).sum())
+
+
+def _close_attention(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+    else:
+        # both accumulate in float32 and round once: one bf16 ulp of the element
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", [
+    (2, 4, 2, 64, 64, 16, True, 0),
+    (1, 8, 2, 130, 130, 64, True, 0),        # odd T: a ragged last tile
+    (2, 4, 1, 200, 200, 128, True, 0),       # MQA
+    (1, 8, 4, 150, 150, 320, True, 0),       # gemma3-4b's head dim
+    (1, 4, 2, 300, 300, 320, True, 96),      # window at D=320: skipped key tiles
+    (1, 4, 2, 257, 257, 128, True, 64),      # window, odd T
+    (2, 4, 2, 37, 201, 64, True, 0),         # suffix-aligned Tq < Tk
+    (1, 4, 2, 1, 333, 128, True, 0),         # decode-like Tq = 1
+    (1, 2, 2, 40, 40, 16, False, 0),         # non-causal, Tk % 64 != 0 (padded keys)
+    (2, 4, 2, 50, 100, 64, False, 0),        # non-causal, Tq < Tk
+    (1, 4, 2, 70, 70, 128, False, 32)])      # non-causal window
+def test_flash_attention_kernel(dev, dtype, b, hq, hkv, tq, tk, d, causal, window):
+    g = torch.Generator(device="cpu").manual_seed(b * 1000 + tq + tk + d + window)
+    q = torch.randn((b, hq, tq, d), generator=g).to(dev, dtype)
+    k = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
+    v = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
+    before = fa._FLASH.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa._FLASH.launches == before + 1
+    _close_attention(got, fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+
+
+def test_flash_attention_kernel_strided_views(dev):
+    """The model's head-split projections pass as views (no copy); the
+    output is a (B, Hq, T, D) view of a (B, T, Hq, D) buffer."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    b, t, hq, hkv, d = 2, 96, 8, 2, 128
+    x = torch.randn((b, t, (hq + 2 * hkv) * d), generator=g).to(dev, torch.bfloat16)
+    q = x[..., :hq * d].reshape(b, t, hq, d).transpose(1, 2)
+    k = x[..., hq * d:(hq + hkv) * d].reshape(b, t, hkv, d).transpose(1, 2)
+    v = x[..., (hq + hkv) * d:].reshape(b, t, hkv, d).transpose(1, 2)
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    _close_attention(got, fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), causal=True))
+
+
+def test_flash_attention_kernel_refuses(dev):
+    """Shapes the kernel does not take raise; nothing falls back."""
+    q = torch.zeros((1, 4, 8, 16), device=dev)
+    k = torch.zeros((1, 2, 8, 16), device=dev)
+    bad = [((q, k.bfloat16(), k), "want a 4-D"),
+           ((q, k.cpu(), k), "want a 4-D"),
+           ((q, k[:, :, :4], k[:, :, :4]), "see no key"),                 # causal Tq > Tk
+           ((torch.zeros((1, 4, 8, 336), device=dev),) + (torch.zeros((1, 2, 8, 336),
+                                                                      device=dev),) * 2,
+            "head dim"),
+           ((q, torch.zeros((1, 3, 8, 16), device=dev), torch.zeros((1, 3, 8, 16), device=dev)),
+            "kv heads"),
+           ((q.half(), k.half(), k.half()), "dtype"),
+           ((q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3)), "contiguous")]
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            ops.flash_attention(*args, impl="cuda")
