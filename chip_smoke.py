@@ -6,8 +6,10 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build the thirteen CUDA kernels from the four sources in
-     src/repro_torch/csrc, one nvcc per source, all at once (ptxas report);
+  2. build the kernels from the four sources in src/repro_torch/csrc, one
+     nvcc per source, all at once (ptxas registers and spills of every
+     kernel; registers, local bytes and shared memory of each instance of
+     the bf16 flash_attention kernel as the card reports them);
   3. kernel phase: a short probe of the paths records each kernel's
      largest call (ragged_slots takes the inputs of the extensions path's
      first pack_rows call, histogram the bins of its largest
@@ -16,11 +18,12 @@ Phases, each fatal on failure:
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function; flash_attention is held
-     against its plain version on five cases (the serving path's
-     prefill call, D=320 with a window, Tq=1 < Tk, non-causal with a
-     ragged key tile, float32) elementwise (bf16 within one ulp of each
+     against its plain version on six cases (the serving path's prefill
+     call, D=320 with a window, D=256, Tq=1 < Tk, non-causal with a
+     ragged key tile: the bf16 tensor-core route; float32: the CUDA-core
+     route, flash_attention_f32) elementwise (bf16 within one ulp of each
      element, float32 at 3e-5; attention_close), timed on the first
-     beside scaled_dot_product_attention;
+     beside scaled_dot_product_attention (their ratio printed);
   4. hash-map path: a 2**26-bucket hash map (block 64, u32 keys and
      values) takes 4 insert waves of 2**23 keys (one wave with ~1%
      duplicates), a speculative find of 2**23 keys (half absent) and a
@@ -44,7 +47,8 @@ Phases, each fatal on failure:
      parameters in bf16 from the port's seeded init_params) serves 16
      requests of 2048-token prompts in slots of 8, 32 greedy tokens each,
      through repro_torch.launch.serve.serve: prefill attention runs the
-     flash_attention kernel (36 launches a wave), decode the plain
+     bf16 flash_attention kernel (36 launches a wave, none of the float32
+     route), decode the plain
      matmuls; the first layer's attention output on wave 0's prompts
      (lm.forward of the model cut to one layer) is held kernel vs plain
      at LAYER_REL_L2, and two faults planted around the kernel's wrapper
@@ -143,6 +147,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 FLASH_FULL = {
     "serving_prefill": (8, 32, 8, 2048, 2048, 128, True, 0, BF16),
     "d320_window": (2, 8, 4, 2048, 2048, 320, True, 1024, BF16),
+    "d256": (4, 16, 8, 2048, 2048, 256, True, 0, BF16),
     "suffix_tq1": (8, 32, 8, 1, 2048, 128, True, 0, BF16),
     "noncausal_ragged": (2, 8, 8, 1000, 1000, 128, False, 0, BF16),
     "f32": (2, 16, 4, 777, 777, 128, True, 0, F32),
@@ -150,6 +155,7 @@ FLASH_FULL = {
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
     "d320_window": (1, 2, 1, 70, 70, 320, True, 24, BF16),
+    "d256": (1, 2, 1, 70, 70, 256, True, 0, BF16),
     "suffix_tq1": (2, 4, 2, 1, 40, 16, True, 0, BF16),
     "noncausal_ragged": (1, 2, 2, 40, 40, 16, False, 0, BF16),
     "f32": (1, 4, 2, 37, 37, 16, True, 0, F32),
@@ -183,9 +189,13 @@ KERNELS = {
                      "src/repro_torch/csrc/binning.cu", "src/repro/kernels/binning.py:139"),
     "histogram": (binning, "histogram", "histogram_plain", "src/repro_torch/csrc/binning.cu",
                   "src/repro/kernels/binning.py:368"),
+    # one TPU kernel, two routes by dtype: bf16 on the tensor cores, float32 on the CUDA cores
     "flash_attention": (fa, "flash_attention", "flash_attention_plain",
                         "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
+    "flash_attention_f32": (fa, "flash_attention", "flash_attention_plain",
+                            "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:82"),
 }
 #: the kernels each path runs
 HASHMAP_KERNELS = ("bin_offsets", "pack_rows", "place_rows", "insert_arrivals",
@@ -196,7 +206,9 @@ SERVING_KERNELS = ("flash_attention",)
 #: kernels no path reaches (the kernel phase derives their inputs)
 OFF_PATH = ("ragged_slots", "histogram")
 #: the float kernels: held at a tolerance on the cases above, not on captured calls
-FLOAT_KERNELS = ("flash_attention",)
+FLOAT_KERNELS = ("flash_attention", "flash_attention_f32")
+#: the flash_attention case each float kernel's JSON row reports
+FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -748,6 +760,21 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     return calls
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas -v`` log,
+    by (mangled) entry function name; ptxas's remarks on wgmma and
+    setmaxnreg (C75xx: injected waits, serialised wgmma) under "remarks"."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "(C75" in line:
+            out["remarks"] = (out.get("remarks", "") + " | " + line.strip()).strip(" |")
+        elif "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and ("spill" in line or "registers" in line):
+            out[fn] = (out.get(fn, "") + " " + line.replace("ptxas info    :", "").strip()).strip()
+    return out
+
+
 def time_ms(fn, reps: int, dev) -> float:
     fn()
     sync(dev)
@@ -894,33 +921,35 @@ def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
     """Fail unless ``got`` is within the attention tolerance of ``want``:
     float32 at atol = rtol = 3e-5 elementwise (the online softmax sums in
     another order); bf16 elementwise at rtol BF16_RTOL, atol BF16_ATOL.
-    ``per_element=False`` holds bf16 only at one ulp of the output's
-    scale, 1e-2 * max|want|: for the library call, which rounds the
-    probabilities to bf16 before multiplying by V.
+    ``per_element=False`` holds the output only at one bf16 ulp of its
+    scale, 1e-2 * max|want|: for the library call, a yardstick that
+    rounds the probabilities to bf16 before multiplying by V (and may
+    take float32 through TF32).
     Returns (max |got - want|, the tolerance)."""
     g, w = got.float(), want.float()
     check(got.shape == want.shape and got.dtype == want.dtype and bool(torch.isfinite(g).all()),
           f"{what}: finite outputs of the plain version's shape and type")
     diff = (g - w).abs()
     err = float(diff.max())
-    if got.dtype == torch.float32:
-        tol = "atol=rtol=3e-5"
-        ok = bool((diff <= 3e-5 + 3e-5 * w.abs()).all())
-    elif per_element:
-        tol = f"atol={BF16_ATOL:g} rtol=2**-7"
-        ok = bool((diff <= BF16_ATOL + BF16_RTOL * w.abs()).all())
-    else:
+    if not per_element:
         scale = 1e-2 * float(w.abs().max())
         tol, ok = f"atol={scale:.4g}", err <= scale
+    elif got.dtype == torch.float32:
+        tol = "atol=rtol=3e-5"
+        ok = bool((diff <= 3e-5 + 3e-5 * w.abs()).all())
+    else:
+        tol = f"atol={BF16_ATOL:g} rtol=2**-7"
+        ok = bool((diff <= BF16_ATOL + BF16_RTOL * w.abs()).all())
     check(ok, f"{what}: max |difference| {err}, tolerance {tol}")
     return err, tol
 
 
 def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
     """flash_attention against its plain version on each case; kernel,
-    plain and (first case) scaled_dot_product_attention times; the bound
-    from the pairs the mask keeps (4 D flops each) at the type's peak and
-    from the bytes (q, k, v read once, the output written once)."""
+    plain and (the cases the JSON rows report) scaled_dot_product_attention
+    times; the bound from the pairs the mask keeps (4 D flops each) at
+    the type's peak and from the bytes (q, k, v read once, the output
+    written once)."""
     rows = {}
     for i, (case, (b, hq, hkv, tq, tk, d, causal, window, dtype)) in enumerate(cases.items()):
         g = torch.Generator(device=dev).manual_seed(seed + 100 + i)
@@ -932,28 +961,35 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
 
         def plain():
             return fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        before = build.launch_counts()
         got, want = kern(), plain()
         sync(dev)
+        if dev.type == "cuda":
+            route = "flash_attention" if dtype == BF16 else "flash_attention_f32"
+            ran = {n: c - before[n] for n, c in build.launch_counts().items() if c != before[n]}
+            check(ran == {route: 1}, f"flash_attention {case}: one launch of {route}, {ran}")
         err, tol = attention_close(got, want, f"flash_attention {case}: kernel vs plain")
         flops = 4 * b * hq * d * attention_pairs(tq, tk, causal, window)
         ops_ms = flops / (BF16_OPS_PER_S if dtype == BF16 else OPS_PER_S) * 1e3
         bytes_ms = _nbytes(q, k, v, got) / HBM_BYTES_PER_S * 1e3
         library_ms = None
-        if i == 0:
+        if case in FLASH_ROWS.values():
             def library():
                 return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                       enable_gqa=True)
             attention_close(library(), want, f"flash_attention {case}: the library call",
                             per_element=False)
             library_ms = time_ms(library, reps, dev)
-        rows[case] = dict(
+        rows[case] = row = dict(
             max_abs_err=err, tol=tol, ms=time_ms(kern, reps, dev),
             plain_ms=time_ms(plain, max(1, reps // 5), dev),
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms,
             shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], causal=causal, window=window,
                        dtype=str(dtype)))
-        print(f"kernel flash_attention {case}: " + json.dumps(rows[case]), flush=True)
+        if library_ms is not None:
+            row["sdpa_ratio"] = row["ms"] / library_ms    # kernel / the library call
+        print(f"kernel flash_attention {case}: " + json.dumps(row), flush=True)
         del q, k, v, got, want
     return rows
 
@@ -1232,9 +1268,10 @@ def main(argv=None) -> int:
         print(f"build: {time.perf_counter() - t0:.1f}s total, per source "
               + json.dumps({k: round(v, 2) for k, v in took.items()}), flush=True)
         for src, log in build.BUILD_LOGS.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {src}: {line.strip()}", flush=True)
+            for fn, info in ptxas_report(log).items():
+                print(f"ptxas {src} {fn}: {info}", flush=True)
+        for inst in fa.bf16_instances():
+            print("flash_attention bf16 instance: " + json.dumps(inst), flush=True)
 
     # 3. kernel phase at the paths' shapes
     gz = G_REHEARSAL if rehearsal else G_FULL
@@ -1250,7 +1287,8 @@ def main(argv=None) -> int:
     del calls
     frows = flash_phase(FLASH_REHEARSAL if rehearsal else FLASH_FULL, sz["reps"], dev,
                         args.seed)
-    krows["flash_attention"] = frows["serving_prefill"]
+    for name, case in FLASH_ROWS.items():
+        krows[name] = frows[case]
 
     # 4.-7. each path: kernels, then plain versions
     vz = V_REHEARSAL if rehearsal else V_FULL
@@ -1309,14 +1347,15 @@ def main(argv=None) -> int:
         counts = launched["serving path", "auto"]
         check(counts["flash_attention"] == sv["cfg"].n_layers * n_waves
               and all(n == 0 for name, n in counts.items() if name not in SERVING_KERNELS),
-              f"serving path: flash_attention once per layer and wave, no other kernel: "
-              f"{counts}")
+              f"serving path: the bf16 flash_attention route once per layer and wave, "
+              f"no other kernel (flash_attention_f32 included): {counts}")
 
     # launches: the paths' kernel runs (each path's counts are printed above)
     paths = sorted({p for p, _ in launched})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(launched[p, "auto"][name] for p in paths),
-                    **{k: v for k, v in krows[name].items() if k not in ("shape", "tol")})
+                    **{k: v for k, v in krows[name].items()
+                       if k not in ("shape", "tol", "sdpa_ratio")})
                for name, (_m, _w, _p, src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

@@ -42,7 +42,7 @@ PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "pack_rows_kernel", "copy_word
                 "place_rows_kernel", "insert_arrivals_kernel", "find_arrivals_kernel",
                 "insert_kernel", "find_kernel", "membership_kernel", "hash_words_kernel",
                 "row_mix_kernel", "ragged_slots_kernel", "histogram_kernel",
-                "flash_fwd_kernel")
+                "flash_fwd_kernel", "flash_fwd_wgmma")
 
 
 def serving_windows(dev, rehearsal: bool) -> list:

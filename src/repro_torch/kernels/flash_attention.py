@@ -1,11 +1,15 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention forward: the hand-written CUDA kernels and their plain version.
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors
 and takes its plain PyTorch version, ``flash_attention_plain``, only for
-CPU tensors.  Both compute what the JAX package's Pallas kernel
-(``repro/kernels/flash_attention.py:82``) and its XLA twin
-``blockwise_attention`` (``repro/models/attention.py:32``) compute:
-softmax attention with float32 logits, probabilities and accumulation,
+CPU tensors.  On the card the dtype picks the route: bf16 runs the
+tensor-core kernel (``flash_fwd_wgmma``: wgmma fed by a TMA ring, counted
+by the ``flash_attention`` kernel), float32 the CUDA-core kernel
+(``flash_fwd_kernel``, counted by ``flash_attention_f32``; TF32 tensor
+cores would not keep float32 accuracy).  All of them compute what the
+JAX package's Pallas kernel (``repro/kernels/flash_attention.py:82``)
+and its XLA twin ``blockwise_attention`` (``repro/models/attention.py:32``)
+compute: softmax attention with float32 logits, probabilities and accumulation,
 suffix-aligned queries (query i at key position ``i + Tk - Tq``), a
 causal mask, a sliding window of the last ``window`` keys, and GQA (query
 head h reads kv head ``h // (Hq // Hkv)``).  Keys at ``kpos >= Tk`` never
@@ -20,13 +24,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import Kernel, register
+from repro_torch.kernels.build import Kernel, library, register
 
 _P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 _FLASH = register("flash_attention", Kernel(
-    "flash_attention", "flash_attention_launch",
+    "flash_attention", "flash_attention_bf16_launch",
     [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 9))
+_FLASH_F32 = register("flash_attention_f32", Kernel(
+    "flash_attention", "flash_attention_f32_launch",
+    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 8))
 
 #: the widest head the kernel takes (gemma3-4b: 2560 / 8)
 MAX_HEAD_DIM = 320
@@ -91,22 +98,75 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"flash_attention: batch {b} x heads {hq} exceed the grid")
 
 
+def _tma_operand(t: torch.Tensor, dt: int) -> torch.Tensor:
+    """``t`` itself where TMA can read it as it is (head dim ``dt``, a
+    16-byte aligned base and 16-byte multiple strides), else a contiguous
+    copy with the head dim zero-padded to ``dt``."""
+    if (t.shape[-1] == dt and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])):
+        return t
+    out = t.new_zeros((*t.shape[:3], dt))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _head_merged(b: int, tq: int, hq: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """A (B, Hq, Tq, D) view of a new contiguous (B, Tq, Hq, D) buffer."""
+    return torch.empty((b, tq, hq, d), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention forward; CUDA: one CTA per (batch, head, 64-query tile).
+    """Attention forward on the card; the plain version for CPU tensors.
 
-    Any strides with a contiguous head dim (the model's head-split
-    projections pass as views).  The output is a (B, Hq, Tq, D) view of a
-    contiguous (B, Tq, Hq, D) buffer, so merging the heads back after it
-    copies nothing.
+    Dispatch by dtype: bf16 runs the tensor-core kernel (one CTA per
+    batch, head and 128-query tile, 64 at D > 256), float32 the CUDA-core
+    kernel (64-query tiles).  Any strides with a contiguous head dim (the
+    model's head-split projections pass as views).  The bf16 kernel reads
+    q, k and v through TMA, which wants a 16-byte aligned base and strides:
+    an operand without them, or with a head dim that is not a multiple of
+    8, is first copied once into a contiguous buffer whose head dim is
+    padded with zeros to a multiple of 8 (a layout step of the same
+    kernel route; no model of the repo needs it).  The output is a
+    (B, Hq, Tq, D) view of a contiguous (B, Tq, Hq, D) buffer, so merging
+    the heads back after it copies nothing.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v, causal)
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    out = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    flags = (int(causal), max(int(window), 0))
+    if q.dtype == torch.float32:
+        out = _head_merged(b, tq, hq, d, q)
+        _FLASH_F32(q, k, v, out, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   *out.stride()[:3], b, hq, hkv, tq, tk, d, *flags)
+        return out
+    dt = -(-d // 8) * 8
+    q, k, v = (_tma_operand(t, dt) for t in (q, k, v))
+    out = _head_merged(b, tq, hq, dt, q)
     _FLASH(q, k, v, out, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *out.stride()[:3], b, hq, hkv, tq, tk, d, int(causal), max(int(window), 0),
-           int(q.dtype == torch.bfloat16))
+           *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags)
+    if dt != d:
+        out = _head_merged(b, tq, hq, d, q).copy_(out[..., :d])
     return out
+
+
+def bf16_instances() -> list[dict]:
+    """The bf16 kernel's template instances as the card reports them: the
+    widest head dim each takes, registers a thread at launch, local
+    (spill) bytes and dynamic shared memory."""
+    lib = library(_FLASH.source)
+    fn = lib.flash_attention_bf16_instance
+    fn.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 4
+    fn.restype = _INT
+    rows = []
+    for i in range(-(-MAX_HEAD_DIM // 64)):      # one instance per 64 columns of head dim
+        vals = [_INT() for _ in range(4)]
+        rc = fn(i, *(ctypes.byref(x) for x in vals))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_bf16_instance({i}): CUDA error {rc} "
+                               f"({lib.kernel_error_string(rc).decode()})")
+        rows.append(dict(zip(("max_d", "registers", "local_bytes", "smem_bytes"),
+                             (x.value for x in vals))))
+    return rows

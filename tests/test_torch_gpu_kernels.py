@@ -9,9 +9,9 @@ Run on a machine with a card:
 Every output of the integer kernels is integer, so their tolerance is 0:
 bit equality.  Flash attention is float: float32 at ``atol = rtol = 3e-5``
 (the kernel's online softmax sums in another order than the plain
-version's whole-row softmax), bf16 within one bf16 ulp of the output's
-scale (``atol = 1e-2 * max|out|``; both versions accumulate in float32
-and round once, so an element moves by at most one ulp of its own size).
+version's whole-row softmax), bf16 within one bf16 ulp of each element
+(``atol = 1e-4``, ``rtol = 2**-7``: both versions accumulate in float32 and
+round once, so an element moves by at most one ulp of its own size).
 """
 
 import numpy as np
@@ -249,6 +249,16 @@ def _close_attention(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=2.0 ** -7)
 
 
+def _launched(dtype, call):
+    """Run ``call``; assert it launched the dtype's route once and the other never."""
+    route, other = ((fa._FLASH, fa._FLASH_F32) if dtype == torch.bfloat16
+                    else (fa._FLASH_F32, fa._FLASH))
+    before, before_other = route.launches, other.launches
+    out = call()
+    assert route.launches == before + 1 and other.launches == before_other
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", [
     (2, 4, 2, 64, 64, 16, True, 0),
@@ -261,15 +271,20 @@ def _close_attention(got, want):
     (1, 4, 2, 1, 333, 128, True, 0),         # decode-like Tq = 1
     (1, 2, 2, 40, 40, 16, False, 0),         # non-causal, Tk % 64 != 0 (padded keys)
     (2, 4, 2, 50, 100, 64, False, 0),        # non-causal, Tq < Tk
-    (1, 4, 2, 70, 70, 128, False, 32)])      # non-causal window
+    (1, 4, 2, 70, 70, 128, False, 32),       # non-causal window
+    (1, 4, 4, 200, 200, 8, True, 0),         # D = 8: one box, mostly zero-filled
+    (2, 8, 1, 333, 333, 72, True, 0),        # D = 72: two boxes, Hq/Hkv = 8
+    (1, 8, 2, 190, 190, 256, True, 0),       # D = 256: 64-key tiles
+    (1, 4, 1, 300, 300, 256, True, 100),     # window across a 64-key tile edge
+    (1, 4, 4, 400, 400, 128, True, 200),     # window across a 128-key tile edge
+    (1, 8, 2, 129, 385, 64, False, 0),       # non-causal, ragged Tq and Tk
+    (1, 4, 2, 1, 1, 64, True, 0)])           # one query, one key
 def test_flash_attention_kernel(dev, dtype, b, hq, hkv, tq, tk, d, causal, window):
     g = torch.Generator(device="cpu").manual_seed(b * 1000 + tq + tk + d + window)
     q = torch.randn((b, hq, tq, d), generator=g).to(dev, dtype)
     k = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
     v = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
-    before = fa._FLASH.launches
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
-    assert fa._FLASH.launches == before + 1
+    got = _launched(dtype, lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
     _close_attention(got, fa.flash_attention_plain(q, k, v, causal=causal, window=window))
 
 
@@ -282,10 +297,25 @@ def test_flash_attention_kernel_strided_views(dev):
     q = x[..., :hq * d].reshape(b, t, hq, d).transpose(1, 2)
     k = x[..., hq * d:(hq + hkv) * d].reshape(b, t, hkv, d).transpose(1, 2)
     v = x[..., (hq + hkv) * d:].reshape(b, t, hkv, d).transpose(1, 2)
-    got = fa.flash_attention(q, k, v, causal=True)
+    got = _launched(torch.bfloat16, lambda: fa.flash_attention(q, k, v, causal=True))
     assert got.transpose(1, 2).is_contiguous()
     _close_attention(got, fa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                                    v.contiguous(), causal=True))
+
+
+@pytest.mark.parametrize("d", [72, 20])
+def test_flash_attention_kernel_unaligned(dev, d):
+    """Operands TMA cannot read as they are (a base 8 bytes off 16, or a
+    head dim that is not a multiple of 8) go through the wrapper's padded
+    copy; the output keeps the head-merged layout."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    b, t, hq, hkv = 1, 150, 4, 2
+    x = torch.randn((b, hq + 2 * hkv, t, d + 4), generator=g).to(dev, torch.bfloat16)
+    q, k, v = x[:, :hq, :, 4:], x[:, hq:hq + hkv, :, 4:], x[:, hq + hkv:, :, 4:]
+    assert q.data_ptr() % 16 == 8
+    got = _launched(torch.bfloat16, lambda: fa.flash_attention(q, k, v, causal=True, window=50))
+    assert got.shape == (b, hq, t, d) and got.transpose(1, 2).is_contiguous()
+    _close_attention(got, fa.flash_attention_plain(q, k, v, causal=True, window=50))
 
 
 def test_flash_attention_kernel_refuses(dev):
