@@ -23,7 +23,14 @@ Phases, each fatal on failure:
      ragged key tile: the bf16 tensor-core route; float32: the CUDA-core
      route, flash_attention_f32) elementwise (bf16 within one ulp of each
      element, float32 at 3e-5; attention_close), timed on the first
-     beside scaled_dot_product_attention (their ratio printed);
+     beside scaled_dot_product_attention (their ratio printed); a fixed
+     large-bin bin_offsets case (2**24 items into 2**20 bins, past one
+     launch of its kernel: the bin_csr route) held bit for bit; and each
+     hash probe's time split on the card (torch.profiler device time by
+     role: the CSR, the probe kernel, copies, the rest), with its CSR
+     timed beside the bincount + argsort it replaced; find_arrivals' two
+     routes (block-major, one warp per query) timed at 1/8 to 8 queries
+     a block, on either side of the density that picks between them;
   4. hash-map path: a 2**26-bucket hash map (block 64, u32 keys and
      values) takes 4 insert waves of 2**23 keys (one wave with ~1%
      duplicates), a speculative find of 2**23 keys (half absent) and a
@@ -109,9 +116,9 @@ OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (flo
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 
 FULL = dict(capacity=1 << 26, block=64, wave=1 << 23, waves=4, find=1 << 23,
-            fi=1 << 22, reps=10)
+            fi=1 << 22, reps=10, large_bins=(1 << 24, 1 << 20))
 REHEARSAL = dict(capacity=1 << 12, block=64, wave=1 << 9, waves=4, find=1 << 9,
-                 fi=1 << 8, reps=2)
+                 fi=1 << 8, reps=2, large_bins=(1 << 12, 1 << 11))
 # genomics path: benchmarks/kmer.py's K, coverage and error rate;
 # meraculous.py's two build arms and its walk
 G_FULL = dict(genome_len=1 << 21, k=21, bloom_bits=1 << 28, bloom_k=4, table=1 << 25,
@@ -165,6 +172,10 @@ FLASH_REHEARSAL = {
 KERNELS = {
     "bin_offsets": (binning, "bin_offsets", "bin_offsets_plain",
                     "src/repro_torch/csrc/binning.cu", "src/repro/kernels/binning.py:72"),
+    # the probes' CSR, and bin_offsets past one launch's bins: a stable
+    # counting sort by digits of the bin
+    "bin_csr": (binning, "bin_csr", "bin_csr_plain", "src/repro_torch/csrc/binning.cu",
+                "src/repro/kernels/binning.py:72"),
     "pack_rows": (binning, "pack_rows", "pack_rows_plain",
                   "src/repro_torch/csrc/binning.cu", "src/repro/kernels/binning.py:229"),
     "place_rows": (binning, "place_rows", "place_rows_plain",
@@ -198,7 +209,7 @@ KERNELS = {
                             "src/repro/kernels/flash_attention.py:82"),
 }
 #: the kernels each path runs
-HASHMAP_KERNELS = ("bin_offsets", "pack_rows", "place_rows", "insert_arrivals",
+HASHMAP_KERNELS = ("bin_offsets", "bin_csr", "pack_rows", "place_rows", "insert_arrivals",
                    "find_arrivals")
 GENOMICS_KERNELS = HASHMAP_KERNELS + ("insert", "find", "membership", "hash_words")
 EXT_KERNELS = HASHMAP_KERNELS + ("row_mix",)
@@ -696,7 +707,7 @@ _VALID_ARG = {"insert_arrivals": 4, "find_arrivals": 4, "insert": 6, "find": 5}
 
 def _work(name: str, args: tuple) -> int:
     """Size of one call, to keep the largest a path makes."""
-    if name == "bin_offsets":
+    if name in ("bin_offsets", "bin_csr"):
         return int(args[2].sum())
     if name == "pack_rows":
         return int(args[4].sum())
@@ -751,6 +762,11 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
+    if dev.type != "cuda" and "bin_csr" not in seen:
+        # the plain probes build no CSR: take the one the card's largest
+        # find_arrivals call builds
+        tk, _tv, _st, seg, valid = seen["find_arrivals"][1]
+        seen["bin_csr"] = (0, (seg[:, 0], tk.shape[0], valid))
     check(set(seen) == set(KERNELS) - set(OFF_PATH) - set(FLOAT_KERNELS),
           f"probe reached every kernel of the paths: {sorted(seen)}")
     calls = {name: args for name, (_, args) in seen.items()}
@@ -824,6 +840,9 @@ def bound_ops(name: str, args: tuple) -> int:
     floor: compares, masks and address arithmetic per word or slot)."""
     if name == "bin_offsets":
         return 24 * args[0].numel()            # count, scan, ordered rank passes
+    if name == "bin_csr":                     # per digit pass: digit, count, recount,
+        passes = len(binning.digit_widths(args[1]))   # ordered rank, two places
+        return 16 * passes * args[0].numel()
     if name == "pack_rows":
         return 12 * args[0].numel()            # window test + slot per word
     if name == "place_rows":
@@ -903,6 +922,139 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
             shape=[list(a.shape) for a in args if isinstance(a, torch.Tensor)])
         print(f"kernel {name}: " + json.dumps(rows[name]), flush=True)
     return rows
+
+
+#: device kernels of the probes by role, as the profiler names them (the
+#: first names are the earlier warp-per-block walk and warp-per-query
+#: find, so a run against an older checkout splits its time too)
+PROBE_ROLES = (
+    ("probe", ("insert_arrivals_kernel", "find_arrivals_kernel", "insert_kernel",
+               "find_kernel", "probe_insert_blocks", "probe_find_blocks",
+               "probe_find_queries")),
+    ("csr", ("bd_count", "bo_scan", "bd_starts", "bd_place", "csr_finish")),
+    ("clone", ("Memcpy DtoD",)),
+    ("memset", ("Memset",)),
+)
+
+
+def csr_argsort(qblock: torch.Tensor, valid: torch.Tensor, nb: int):
+    """The probes' CSR as the earlier wrapper built it, kept as a yardstick:
+    a bincount, a cumsum and a stable int64 argsort of every arrival."""
+    b = torch.where(valid, qblock.to(torch.int64), nb)
+    counts = torch.bincount(b, minlength=nb + 1)
+    start = torch.zeros(nb + 1, dtype=torch.int64, device=qblock.device)
+    start[1:] = torch.cumsum(counts[:nb], 0)
+    return torch.argsort(b, stable=True).to(torch.int32), start.to(torch.int32)
+
+
+def large_bins_case(sz: dict, dev, seed: int) -> dict:
+    """bin_offsets past one kernel pass's bins: 2**24 items (every tenth
+    invalid) into 2**20 bins, held bit for bit against the plain version
+    (counts, and every offset: invalid items rank among the invalid ones),
+    timed beside it."""
+    n, nbins = sz["large_bins"]
+    g = torch.Generator(device="cpu").manual_seed(seed + 3)
+    bins = torch.randint(0, nbins, (n,), generator=g, dtype=torch.int32).to(dev)
+    valid = (torch.rand(n, generator=g) >= 0.1).to(dev)
+    got = binning.bin_offsets(bins, nbins, valid)
+    want = binning.bin_offsets_plain(bins, nbins, valid)
+    sync(dev)
+    err = max_abs_err(got, want)
+    check(err == 0, "bin_offsets large_bins: kernel equals its plain version bit for bit")
+    bytes_ms = bound_bytes("bin_offsets", (bins, nbins, valid), got) / HBM_BYTES_PER_S * 1e3
+    ops_ms = bound_ops("bin_offsets", (bins, nbins, valid)) / OPS_PER_S * 1e3
+    row = dict(max_abs_err=err, ms=time_ms(lambda: binning.bin_offsets(bins, nbins, valid),
+                                           sz["reps"], dev),
+               plain_ms=time_ms(lambda: binning.bin_offsets_plain(bins, nbins, valid),
+                                max(1, sz["reps"] // 5), dev),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               shape=dict(items=n, bins=nbins))
+    print("kernel bin_offsets large_bins: " + json.dumps(row), flush=True)
+    return row
+
+
+def find_routes(sz: dict, dev, seed: int) -> dict:
+    """find_arrivals' two CUDA routes timed at densities on either side of
+    ``hash_probe.DENSE_QUERIES`` (the route is forced through that
+    threshold), each held against the plain version: random blocks over
+    the hash-map path's table shape, half the queries stored keys."""
+    if dev.type != "cuda":
+        return {}
+    nb, bsz = sz["capacity"] // sz["block"], sz["block"]
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    tk = torch.randint(-2**31, 2**31 - 1, (nb, bsz, 1), generator=g, device=dev,
+                       dtype=torch.int32)
+    tv = torch.randint(-2**31, 2**31 - 1, (nb, bsz, 1), generator=g, device=dev,
+                       dtype=torch.int32)
+    st = torch.where(torch.rand((nb, bsz), generator=g, device=dev) < 0.5, 2, 0).to(torch.int32)
+    real, rows = hash_probe.DENSE_QUERIES, {}
+    try:
+        for per_block in (0.125, 0.5, 2, 8):
+            m = int(per_block * nb)
+            blk = torch.randint(0, nb, (m,), generator=g, device=dev, dtype=torch.int32)
+            slot = torch.randint(0, bsz, (m,), generator=g, device=dev)
+            key = torch.where(torch.arange(m, device=dev) % 2 == 0, tk[blk.long(), slot, 0],
+                              torch.randint(-2**31, 2**31 - 1, (m,), generator=g, device=dev,
+                                            dtype=torch.int32))
+            seg = torch.stack([blk, key], 1)
+            valid = torch.ones(m, dtype=torch.bool, device=dev)
+            want = hash_probe.find_arrivals_plain(tk, tv, st, seg, valid)
+            row = {}
+            for route, threshold in (("block_major", 0), ("per_query", float("inf"))):
+                hash_probe.DENSE_QUERIES = threshold
+                got = hash_probe.find_arrivals(tk, tv, st, seg, valid)
+                check(max_abs_err(got, want) == 0, f"find_arrivals {route} route at "
+                      f"{per_block} queries a block: equal to the plain version")
+                row[route + "_ms"] = time_ms(
+                    lambda: hash_probe.find_arrivals(tk, tv, st, seg, valid), sz["reps"], dev)
+            hash_probe.DENSE_QUERIES = real
+            row["taken"] = "block_major" if m >= real * nb else "per_query"
+            rows[per_block] = row
+            print(f"find routes at {per_block} queries a block ({m} over {nb} blocks of "
+                  f"{bsz}): " + json.dumps(row), flush=True)
+    finally:
+        hash_probe.DENSE_QUERIES = real
+    return rows
+
+
+def probe_split(calls: dict, reps: int, dev) -> dict:
+    """Where each probe's time goes at its kernel-phase call: the wrapper's
+    time (CUDA events), its device time by role under torch.profiler
+    (the probe kernel, the CSR's kernels, table copies, memsets, and the
+    rest: PyTorch glue), and the CSR built both ways
+    (``hash_probe.bin_queries`` and the bincount + argsort yardstick)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name in ("insert_arrivals", "find_arrivals", "insert", "find"):
+        args = calls[name]
+        fn = getattr(hash_probe, name)
+        row = dict(ms=time_ms(lambda: fn(*args), reps, dev))
+        if dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn(*args)
+                sync(dev)
+            roles: dict[str, float] = {}
+            kernels: dict[str, float] = {}
+            for ev in prof.key_averages():
+                if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+                    continue
+                ms = ev.self_device_time_total / 1e3 / reps
+                role = next((r for r, keys in PROBE_ROLES if any(k in ev.key for k in keys)),
+                            "glue")
+                roles[role] = roles.get(role, 0.0) + ms
+                kernels[ev.key[:60]] = ms
+            row.update(device_ms_by_role=roles, device_ms_by_kernel=dict(
+                sorted(kernels.items(), key=lambda kv: -kv[1])[:8]))
+        nb, valid = args[0].shape[0], args[_VALID_ARG[name]]
+        qblock = args[3] if name in ("insert", "find") else args[3][:, 0]
+        row["csr_ms"] = time_ms(lambda: hash_probe.bin_queries(qblock, valid, nb), reps, dev)
+        row["csr_argsort_ms"] = time_ms(lambda: csr_argsort(qblock, valid, nb), reps, dev)
+        out[name] = row
+        print(f"probe split {name}: " + json.dumps(row), flush=True)
+    return out
 
 
 def attention_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
@@ -1284,6 +1436,9 @@ def main(argv=None) -> int:
     xdata = ext_workload(xz, dev, args.seed)
     calls = capture_calls(sz, data, gz, gdata, xz, xdata, dev)
     krows = kernel_phase(calls, sz["reps"], dev)
+    large_bins_case(sz, dev, args.seed)
+    probe_split(calls, sz["reps"], dev)
+    find_routes(sz, dev, args.seed)
     del calls
     frows = flash_phase(FLASH_REHEARSAL if rehearsal else FLASH_FULL, sz["reps"], dev,
                         args.seed)

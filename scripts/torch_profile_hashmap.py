@@ -38,11 +38,12 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 
 #: name fragments of the port's kernels as the profiler lists them
-PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "pack_rows_kernel", "copy_words",
-                "place_rows_kernel", "insert_arrivals_kernel", "find_arrivals_kernel",
-                "insert_kernel", "find_kernel", "membership_kernel", "hash_words_kernel",
-                "row_mix_kernel", "ragged_slots_kernel", "histogram_kernel",
-                "flash_fwd_kernel", "flash_fwd_wgmma")
+PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "bd_count", "bd_starts", "bd_place",
+                "csr_finish", "pack_rows_kernel", "copy_words", "place_rows_kernel",
+                "probe_insert_blocks", "probe_find_blocks", "probe_find_queries",
+                "membership_kernel", "hash_words_kernel", "row_mix_kernel",
+                "ragged_slots_kernel", "histogram_kernel", "flash_fwd_kernel",
+                "flash_fwd_wgmma")
 
 
 def serving_windows(dev, rehearsal: bool) -> list:

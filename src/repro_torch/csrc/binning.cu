@@ -24,7 +24,28 @@
 // bit.  Bound: bytes -- 9 bytes read and 4 written per item, read
 // twice (passes 1 and 3); the scan touches nseg * nbins ints.
 // At most kMaxBins bins (including the invalid one): the per-warp
-// counters of pass 3 live in shared memory.
+// counters of passes 1 and 3 live in shared memory.
+//
+// bin_csr serves bin_offsets past kMaxBins bins (the same TPU kernel)
+// and builds the hash probes' CSR: the items in stable bin order (each
+// bin's valid items in batch order, the items that are not live --
+// invalid, or a bin outside [0, nbins) -- last) and where each bin's run
+// starts.  A stable counting sort by least-significant digit: each item
+// travels as a 64-bit word bin << 32 | index (a negative word when it is
+// not live; the first pass reads the bins and makes the words on the
+// fly), and each pass over a digit of at most 10 bits is a stable
+// partition of the previous pass's order.  A pass is the three steps of
+// bin_offsets over CTA segments of kDigitSegItems words: bd_count counts
+// each segment's digits, bo_scan gives each segment's base per digit
+// and the digit totals, bd_starts scans the totals; bd_place recounts
+// its segment per warp, walks each warp's kSegItems words in order, 32
+// at a time, ranking equal digits with __match_any_sync (as bo_rank),
+// sorts the segment by digit in shared memory that way, and writes it
+// out, so each digit's run of the segment goes out as consecutive
+// words.  csr_finish then takes each place's index and, by binary
+// search of the sorted bins, each bin's start.  Bound: bytes -- per
+// pass the words read twice and written once, the segment tables
+// nseg * (digits + 1) ints.
 //
 // pack_rows replaces src/repro/kernels/binning.py::pack_rows
 // (_pack_rows_kernel): the ragged word slot of each row for retry
@@ -74,6 +95,8 @@ constexpr int kWarp = 32;
 constexpr int kSegItems = 1024;    // items per warp segment (bin_offsets)
 constexpr int kWarpsPerCta = 8;
 constexpr int kMaxBins = 1024;     // including the invalid bin
+constexpr int kDigitBits = 10;     // bits of the bin one bin_csr pass sorts by
+constexpr int kDigitSegItems = kWarpsPerCta * kSegItems;   // words per bin_csr CTA
 constexpr int kThreads = 256;
 constexpr int kMaxSharedBins = 12288;   // 48 KB of shared counters
 
@@ -290,6 +313,141 @@ __global__ void place_rows_kernel(const int* __restrict__ slots,
   }
 }
 
+// The items' words: read from the previous pass, or made from the bins
+// (at row stride bstride; read only for a valid item) in the first.
+struct Words {
+  const long long* words;
+  const int* bins;
+  long long bstride;
+  const unsigned char* valid;
+  long long nbins;
+  __device__ __forceinline__ long long operator()(long long i) const {
+    if (words) return words[i];
+    const long long b = valid[i] ? (long long)bins[i * bstride] : -1;
+    return (b >= 0 && b < nbins ? b << 32 : -(1LL << 32)) | i;
+  }
+};
+
+// The digit of a word, or nd for a word that is not live (the last bin).
+__device__ __forceinline__ int digit_of(long long w, int shift, int nd) {
+  return w >= 0 ? (int)((w >> (32 + shift)) & (nd - 1)) : nd;
+}
+
+__global__ void bd_count(Words src, long long n, int shift, int nd,
+                         int* __restrict__ seg_counts) {
+  extern __shared__ int sh[];
+  const int nb = nd + 1;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) sh[b] = 0;
+  __syncthreads();
+  const long long beg = (long long)blockIdx.x * kDigitSegItems;
+  const long long end = beg + kDigitSegItems < n ? beg + kDigitSegItems : n;
+  for (long long i = beg + threadIdx.x; i < end; i += blockDim.x)
+    atomicAdd(&sh[digit_of(src(i), shift, nd)], 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += blockDim.x)
+    seg_counts[(long long)blockIdx.x * nb + b] = sh[b];
+}
+
+// out[b] = the sum of in[0:b], by one warp in chunks of 32 (in place
+// allowed).
+__device__ __forceinline__ void warp_exclusive_scan(const int* in, int* out, int nb,
+                                                    int lane) {
+  int carry = 0;
+  for (int c = 0; c < nb; c += kWarp) {
+    const int v = c + lane < nb ? in[c + lane] : 0;
+    int x = v;
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (c + lane < nb) out[c + lane] = carry + x - v;
+    carry += __shfl_sync(0xffffffffu, x, kWarp - 1);
+  }
+}
+
+// start[b] = the words of the digits below b.
+__global__ void bd_starts(const int* __restrict__ counts, int nb, int* __restrict__ start) {
+  warp_exclusive_scan(counts, start, nb, threadIdx.x);
+}
+
+// Shared memory of bd_place: the sorted segment, each warp's digit
+// counts (then bases), and per digit the segment's local and global start.
+size_t bd_place_shmem(int nb) {
+  return sizeof(long long) * kDigitSegItems + sizeof(int) * (kWarpsPerCta + 2) * nb;
+}
+
+__global__ void bd_place(Words src, long long n, int shift, int nd,
+                         const int* __restrict__ seg_base, const int* __restrict__ start,
+                         long long* __restrict__ out) {
+  extern __shared__ __align__(16) long long buf[];
+  const int nb = nd + 1;
+  int* cnt = reinterpret_cast<int*>(buf + kDigitSegItems);   // kWarpsPerCta x nb
+  int* local = cnt + kWarpsPerCta * nb;                       // nb
+  int* global = local + nb;                                   // nb
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long long seg0 = (long long)blockIdx.x * kDigitSegItems;
+  const long long beg = seg0 + (long long)warp * kSegItems;
+  const long long end = beg + kSegItems < n ? beg + kSegItems : n;
+  const long long seg_end = seg0 + kDigitSegItems < n ? seg0 + kDigitSegItems : n;
+  int* run = cnt + warp * nb;
+  for (int b = lane; b < nb; b += kWarp) run[b] = 0;
+  __syncwarp();
+  for (long long i = beg + lane; i < end; i += kWarp)
+    atomicAdd(&run[digit_of(src(i), shift, nd)], 1);
+  __syncthreads();
+  // per digit: each warp's local base, the digit's local start in the
+  // segment and its global start
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    int acc = 0;
+    for (int w = 0; w < kWarpsPerCta; ++w) {
+      const int c = cnt[w * nb + b];
+      cnt[w * nb + b] = acc;
+      acc += c;
+    }
+    local[b] = acc;                         // the digit's count, scanned below
+    global[b] = start[b] + seg_base[(long long)blockIdx.x * nb + b];
+  }
+  __syncthreads();
+  if (warp == 0) warp_exclusive_scan(local, local, nb, lane);   // each digit's local start
+  __syncthreads();
+  const unsigned lower = (1u << lane) - 1u;
+  for (long long base = beg; base < end; base += kWarp) {
+    const long long i = base + lane;
+    const bool act = i < end;
+    const long long w = act ? src(i) : 0;
+    const int d = act ? digit_of(w, shift, nd) : nb;   // nb: idle lane
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int r = __popc(peers & lower);
+    if (act) buf[local[d] + run[d] + r] = w;
+    __syncwarp();
+    if (act && r == 0) run[d] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (long long i = threadIdx.x; i < seg_end - seg0; i += blockDim.x) {
+    const long long w = buf[i];
+    const int d = digit_of(w, shift, nd);
+    out[global[d] + (i - local[d])] = w;
+  }
+}
+
+// Each place's index, and each bin's start: the first place whose bin
+// (nbins for a word that is not live) is at least the bin.
+__global__ void csr_finish(const long long* __restrict__ words, long long n, long long nbins,
+                           int* __restrict__ order, int* __restrict__ start) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) order[t] = (int)(words[t] & 0xffffffffLL);
+  if (t <= nbins) {
+    long long lo = 0, hi = n;
+    while (lo < hi) {
+      const long long mid = (lo + hi) / 2;
+      const long long w = words[mid];
+      if ((w >= 0 ? w >> 32 : nbins) < t) lo = mid + 1; else hi = mid;
+    }
+    start[t] = (int)lo;
+  }
+}
+
 int grid_for(long long work) {
   long long blocks = (work + kThreads - 1) / kThreads;
   const long long cap = 132LL * 64;         // enough CTAs to fill 132 SMs
@@ -332,6 +490,50 @@ int bin_offsets_launch(const void* bins, const void* valid, long long n, int nb,
   bo_rank<<<ctas, kWarpsPerCta * kWarp, shmem, s>>>(
       (const int*)bins, (const unsigned char*)valid, n, nb, nseg,
       (const int*)seg_base, (int*)offsets);
+  return (int)cudaGetLastError();
+}
+
+// bins (n,) i32 at row stride bstride, valid (n,) u8, nbins >= 1;
+// scratch words (2 n,) i64, seg (2 ceil(n / kDigitSegItems) (2**10 + 1),)
+// i32, digits (2 (2**10 + 1),) i32; out order (n,) i32, start (nbins + 1,) i32.
+int bin_csr_launch(const void* bins, long long bstride, const void* valid, long long n,
+                   long long nbins, void* words, void* seg, void* digits, void* order,
+                   void* start, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nbins < 1 || nbins >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  int bits = 1;
+  while ((1LL << bits) < nbins) ++bits;
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  const long long nseg = (n + kDigitSegItems - 1) / kDigitSegItems;
+  const int maxb = (1 << kDigitBits) + 1;
+  long long* wbuf[2] = {(long long*)words, (long long*)words + n};
+  int* seg_counts = (int*)seg;
+  int* seg_base = seg_counts + nseg * maxb;
+  int* counts = (int*)digits;
+  int* dstart = counts + maxb;
+  const size_t place_shmem = bd_place_shmem(maxb);
+  cudaFuncSetAttribute(bd_place, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)place_shmem);
+  Words src{nullptr, (const int*)bins, bstride, (const unsigned char*)valid, nbins};
+  int shift = 0;
+  for (int p = 0; p < passes && n > 0; ++p) {
+    const int width = bits / passes + (p < bits % passes);
+    const int nd = 1 << width, nb = nd + 1;
+    long long* out = wbuf[p % 2];
+    bd_count<<<(int)nseg, kWarpsPerCta * kWarp, sizeof(int) * nb, s>>>(src, n, shift, nd,
+                                                                        seg_counts);
+    bo_scan<<<nb, 1024, 0, s>>>(seg_counts, nseg, nb, seg_base, counts);
+    bd_starts<<<1, kWarp, 0, s>>>(counts, nb, dstart);
+    bd_place<<<(int)nseg, kWarpsPerCta * kWarp, bd_place_shmem(nb), s>>>(
+        src, n, shift, nd, seg_base, dstart, out);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = Words{out, nullptr, 0, nullptr, nbins};
+    shift += width;
+  }
+  const long long threads = (n > nbins + 1 ? n : nbins + 1);
+  csr_finish<<<(int)((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      n > 0 ? src.words : nullptr, n, nbins, (int*)order, (int*)start);
   return (int)cudaGetLastError();
 }
 

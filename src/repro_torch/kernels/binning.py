@@ -23,12 +23,18 @@ from repro_torch.kernels.build import Kernel, register
 _I32 = torch.int32
 _P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
-#: bins the CUDA bin_offsets serves (its extra invalid bin makes 1024)
-MAX_BINS = 1023
+#: bins one launch of the CUDA bin_offsets kernel serves (its extra invalid
+#: bin makes ``kMaxBins`` = 1024); more bins go through :func:`bin_csr`
+LAUNCH_BINS = 1023
+#: bits of the bin one bin_csr pass sorts by (``kDigitBits``)
+DIGIT_BITS = 10
 _SEG_ITEMS = 1024
+_DIGIT_SEG_ITEMS = 8 * _SEG_ITEMS        # words per CTA (``kDigitSegItems``)
 
 _BIN_OFFSETS = register("bin_offsets", Kernel(
     "binning", "bin_offsets_launch", [_P, _P, _LL, _INT, _P, _P, _P, _P]))
+_BIN_CSR = register("bin_csr", Kernel(
+    "binning", "bin_csr_launch", [_P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P]))
 _PACK_ROWS = register("pack_rows", Kernel(
     "binning", "pack_rows_launch",
     [_P, _INT, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _INT, _INT, _LL, _LL, _P]))
@@ -80,12 +86,79 @@ def bin_offsets_plain(bins: torch.Tensor, nbins: int, valid=None):
     return counts_full[:nbins].to(_I32), offsets
 
 
+def digit_widths(nbins: int) -> list:
+    """Bits of the bin each bin_csr pass sorts by, least significant first:
+    the bin's bits split as evenly as :data:`DIGIT_BITS` allows."""
+    bits = max(1, (nbins - 1).bit_length())
+    passes = -(-bits // DIGIT_BITS)
+    return [bits // passes + (p < bits % passes) for p in range(passes)]
+
+
+def bin_csr_plain(bins: torch.Tensor, nbins: int, valid: torch.Tensor):
+    """The items in stable bin order and each bin's start:
+    ``(order (N,) i32, start (nbins + 1,) i32)``.
+
+    ``order[start[b]:start[b+1]]`` are bin b's valid items in batch
+    order; the items that are not live (invalid, or a bin outside
+    ``[0, nbins)``) follow from ``start[nbins]`` on, in batch order.
+    A stable argsort.
+    """
+    live = valid & (bins >= 0) & (bins < nbins)
+    key = torch.where(live, bins.to(torch.int64), nbins)
+    order = torch.argsort(key, stable=True)
+    start = torch.searchsorted(key[order], torch.arange(nbins + 1, device=bins.device))
+    return order.to(_I32), start.to(_I32)
+
+
+def bin_csr(bins: torch.Tensor, nbins: int, valid: torch.Tensor):
+    """:func:`bin_csr_plain` for any ``nbins``, bit for bit.
+
+    CUDA: ``bin_csr`` in ``csrc/binning.cu``, a stable counting sort by
+    least-significant digit (:func:`digit_widths`); ``bins`` may be a
+    strided column (the exchange segment's block lane).
+    """
+    if not bins.is_cuda:
+        return bin_csr_plain(bins, nbins, valid)
+    n = bins.shape[0]
+    dev = bins.device
+    if bins.dtype != _I32 or bins.ndim != 1:
+        raise ValueError(f"bin_csr bins: want an int32 vector, got {bins.dtype} "
+                         f"{tuple(bins.shape)}")
+    require(valid, "bin_csr valid", torch.bool, (n,), dev)
+    if not 1 <= nbins < 1 << 31:
+        raise ValueError(f"bin_csr: {nbins} bins")
+    maxb = (1 << DIGIT_BITS) + 1
+    words = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    seg = torch.empty(2 * -(-n // _DIGIT_SEG_ITEMS) * maxb, dtype=_I32, device=dev)
+    digits = torch.empty(2 * maxb, dtype=_I32, device=dev)
+    order = torch.empty(n, dtype=_I32, device=dev)
+    start = torch.empty(nbins + 1, dtype=_I32, device=dev)
+    _BIN_CSR(bins, bins.stride(0) if n else 1, valid, n, nbins, words, seg, digits, order,
+             start)
+    return order, start
+
+
+def bin_offsets_lsd(bins: torch.Tensor, nbins: int, valid: torch.Tensor, csr=None):
+    """:func:`bin_offsets_plain`'s counts and ranks for any ``nbins``, read
+    off the CSR (``csr``, :func:`bin_csr` by default): a bin's count is
+    the width of its run, an item's rank its place less the run's start."""
+    order, start = (csr or bin_csr)(bins, nbins, valid)
+    start = start.to(torch.int64)
+    n = bins.shape[0]
+    place = torch.arange(n, dtype=torch.int64, device=bins.device)
+    sbin = torch.searchsorted(start[1:], place, right=True)    # each place's bin
+    offsets = torch.empty(n, dtype=_I32, device=bins.device).scatter_(
+        0, order.to(torch.int64), (place - start[sbin]).to(_I32))
+    return (start[1:] - start[:-1]).to(_I32), offsets
+
+
 def bin_offsets(bins: torch.Tensor, nbins: int, valid=None):
     """Per-bin valid counts + each item's stable rank within its bin.
 
-    CUDA: three passes of ``csrc/binning.cu`` (segment counts, scan,
-    ordered rank), equal to :func:`bin_offsets_plain` bit for bit,
-    invalid items included.  At most :data:`MAX_BINS` bins.
+    CUDA: up to :data:`LAUNCH_BINS` bins, three passes of
+    ``csrc/binning.cu`` (segment counts, scan, ordered rank); more bins
+    through :func:`bin_offsets_lsd` over :func:`bin_csr`.  Equal to
+    :func:`bin_offsets_plain` bit for bit, invalid items included.
     """
     if not bins.is_cuda:
         return bin_offsets_plain(bins, nbins, valid)
@@ -94,17 +167,17 @@ def bin_offsets(bins: torch.Tensor, nbins: int, valid=None):
         valid = torch.ones(n, dtype=torch.bool, device=bins.device)
     require(bins, "bin_offsets bins", _I32, (n,), bins.device)
     require(valid, "bin_offsets valid", torch.bool, (n,), bins.device)
-    if not 1 <= nbins <= MAX_BINS:
-        raise ValueError(f"bin_offsets: {nbins} bins; the CUDA kernel serves "
-                         f"1..{MAX_BINS}")
+    if nbins < 1:
+        raise ValueError(f"bin_offsets: {nbins} bins")
+    if nbins > LAUNCH_BINS:
+        return bin_offsets_lsd(bins, nbins, valid)
     nb = nbins + 1
     nseg = -(-n // _SEG_ITEMS)
     seg_counts = torch.empty(nseg * nb, dtype=_I32, device=bins.device)
     seg_base = torch.empty_like(seg_counts)
     counts = torch.empty(nb, dtype=_I32, device=bins.device)
     offsets = torch.empty(n, dtype=_I32, device=bins.device)
-    _BIN_OFFSETS(bins, valid, n, nb, seg_counts, seg_base,
-                 counts, offsets)
+    _BIN_OFFSETS(bins, valid, n, nb, seg_counts, seg_base, counts, offsets)
     return counts[:nbins], offsets
 
 

@@ -16,7 +16,10 @@ path of the hash map); key and value rows may be strided too.
 
 No kernel has a per-block query capacity: the JAX package's Pallas
 kernels fail (insert) or re-probe (find) items past ``q_cap``, the port
-serves every item, as the jnp path does.
+serves every item, as the jnp path does.  Each CUDA kernel stages one
+block per warp in shared memory (status, keys, for insert values, and
+lists of its slots): a block too large for 227 KB is refused with a
+CUDA invalid-argument error.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.core.u32 import as_u64, to_i32
+from repro_torch.kernels import binning
 from repro_torch.kernels.binning import require
 from repro_torch.kernels.build import Kernel, register
 from repro_torch.kernels.ref import (FREE, MODE_ADD, MODE_KEEP, MODE_SET,
@@ -41,31 +45,33 @@ MAX_LANES = 32
 
 _INSERT = register("insert_arrivals", Kernel(
     "hash_probe", "insert_arrivals_launch",
-    [_P, _P, _P, _P, _LL, _P, _P, _LL, _INT, _INT, _INT, _INT, _P]))
+    [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _INT, _INT, _INT, _INT, _P]))
 _FIND = register("find_arrivals", Kernel(
     "hash_probe", "find_arrivals_launch",
-    [_P, _P, _P, _P, _LL, _P, _LL, _LL, _INT, _INT, _INT, _P, _P]))
+    [_P, _P, _P, _P, _LL, _P, _P, _P, _LL, _LL, _INT, _INT, _INT, _P, _P]))
 _INSERT_COLS = register("insert", Kernel(
     "hash_probe", "insert_launch",
-    [_P, _P, _P, _P, _LL, _P, _LL, _P, _P, _LL, _INT, _INT, _INT, _INT, _P]))
+    [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _LL, _INT, _INT, _INT, _INT, _P]))
 _FIND_COLS = register("find", Kernel(
     "hash_probe", "find_launch",
-    [_P, _P, _P, _P, _P, _LL, _P, _LL, _LL, _INT, _INT, _INT, _P, _P]))
+    [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _LL, _INT, _INT, _INT, _P, _P]))
+
+#: queries per block from which the finds go block-major: below it the
+#: CSR and a warp per block cost more than sharing a staged block saves
+#: (``chip_smoke.py`` times both routes on either side of it)
+DENSE_QUERIES = 2
 
 
 def bin_queries(qblock: torch.Tensor, valid: torch.Tensor, nb: int):
-    """CSR of arrivals by local block: ``(order (M,), start (nb+1,))``.
+    """CSR of the items by local block: ``(order (M,), start (nb+1,))``.
 
-    ``order[start[b]:start[b+1]]`` are block b's valid arrivals in batch
-    order (a stable sort), as ``repro/kernels/hash_probe.py:49-67``
-    bins them outside its kernel.
+    ``order[start[b]:start[b+1]]`` are block b's valid items in batch
+    order (a stable grouping), as ``repro/kernels/hash_probe.py:49-67``
+    bins them outside its kernel; the items after ``start[nb]`` (invalid,
+    or a block outside ``[0, nb)``) are not probed.  :func:`binning.bin_csr`
+    (on the card its stable counting sort by digits of the block).
     """
-    b = torch.where(valid, qblock.to(_I64), nb)
-    counts = torch.bincount(b, minlength=nb + 1)
-    start = torch.zeros(nb + 1, dtype=_I64, device=qblock.device)
-    start[1:] = torch.cumsum(counts[:nb], 0)
-    order = torch.argsort(b, stable=True)
-    return order.to(_I32), start.to(_I32)
+    return binning.bin_csr(qblock, nb, valid)
 
 
 def _check_rows(t, name: str, m: int, lanes: int, dev) -> None:
@@ -217,9 +223,11 @@ def insert_arrivals_plain(tkeys, tvals, status, seg, valid, mode: int = MODE_SET
 def insert_arrivals(tkeys, tvals, status, seg, valid, mode: int = MODE_SET):
     """Insert a batch of arrivals; returns new (tkeys, tvals, status, success).
 
-    CUDA: one warp per table block walks that block's arrivals in batch
-    order, so the tables equal the sequential oracle's.  The tables are
-    copied first (the function is out of place, like the JAX one).
+    CUDA: the CSR groups the arrivals by block in batch order, then one
+    warp per table block stages the block in shared memory, resolves its
+    arrivals 32 at a time and writes the block into fresh output tables
+    (every block: the function is out of place, like the JAX one, and the
+    copy rides on the kernel's own read and write of the table).
     """
     if not tkeys.is_cuda:
         return insert_arrivals_plain(tkeys, tvals, status, seg, valid, mode)
@@ -228,10 +236,10 @@ def insert_arrivals(tkeys, tvals, status, seg, valid, mode: int = MODE_SET):
                                       + tvals.shape[2])
     _check_mode(mode, "insert_arrivals")
     order, start = bin_queries(seg[:, 0], valid, nb)
-    tk, tv, st = tkeys.clone(), tvals.clone(), status.clone()
+    tk, tv, st = (torch.empty_like(t) for t in (tkeys, tvals, status))
     ok = torch.zeros(m, dtype=torch.bool, device=tk.device)
-    _INSERT(tk, tv, st, seg, seg.stride(0), order,
-            start, nb, bsz, lk, lv, mode, ok)
+    _INSERT(tkeys, tvals, status, tk, tv, st, seg, seg.stride(0), order, start, nb, bsz,
+            lk, lv, mode, ok)
     return tk, tv, st, ok
 
 
@@ -239,8 +247,8 @@ def insert(tkeys, tvals, status, qblock, qkeys, qvals, qvalid, mode: int = MODE_
     """Insert a batch of column arrays; returns new (tkeys, tvals, status,
     success).
 
-    CUDA: the same warp-per-block walk as :func:`insert_arrivals`, reading
-    each item's key and value words from ``qkeys``/``qvals`` in place.
+    CUDA: the same kernel as :func:`insert_arrivals`, reading each item's
+    key and value words from ``qkeys``/``qvals`` in place.
     """
     if not tkeys.is_cuda:
         return insert_plain(tkeys, tvals, status, qblock, qkeys, qvals, qvalid, mode)
@@ -250,10 +258,10 @@ def insert(tkeys, tvals, status, qblock, qkeys, qvals, qvalid, mode: int = MODE_
     _check_rows(qvals, "insert qvals", m, lv, tkeys.device)
     _check_mode(mode, "insert")
     order, start = bin_queries(qblock, qvalid, nb)
-    tk, tv, st = tkeys.clone(), tvals.clone(), status.clone()
+    tk, tv, st = (torch.empty_like(t) for t in (tkeys, tvals, status))
     ok = torch.zeros(m, dtype=torch.bool, device=tk.device)
-    _INSERT_COLS(tk, tv, st, qkeys, qkeys.stride(0), qvals, qvals.stride(0), order,
-                 start, nb, bsz, lk, lv, mode, ok)
+    _INSERT_COLS(tkeys, tvals, status, tk, tv, st, qkeys, qkeys.stride(0), qvals,
+                 qvals.stride(0), order, start, nb, bsz, lk, lv, mode, ok)
     return tk, tv, st, ok
 
 
@@ -267,21 +275,30 @@ def find_plain(tkeys, tvals, status, qblock, qkeys, qvalid):
     return hash_probe_find_ref(tkeys, tvals, status, qblock, qkeys, qvalid)
 
 
+def _find_csr(qblock, valid, m: int, nb: int):
+    """The CSR of a dense batch (at least :data:`DENSE_QUERIES` queries a
+    block): the block-major route; ``(0, 0)``, null pointers, selects the
+    sparse route (one warp per query)."""
+    return bin_queries(qblock, valid, nb) if m >= DENSE_QUERIES * nb else (0, 0)
+
+
 def find(tkeys, tvals, status, qblock, qkeys, qvalid):
     """Find a batch of column arrays; returns (found (M,), values (M, Lv)).
 
-    CUDA: one warp per query; ``qblock`` is read only for valid queries,
-    invalid ones give found 0 and zero values.
+    CUDA: as :func:`find_arrivals`; ``qblock`` is read only for valid
+    queries; invalid queries and blocks outside ``[0, nb)`` give found 0
+    and zero values.
     """
     if not tkeys.is_cuda:
         return find_plain(tkeys, tvals, status, qblock, qkeys, qvalid)
     nb, bsz, lk, lv, m = _check_table(tkeys, tvals, status, qkeys, qvalid, "find",
                                       tkeys.shape[2])
     require(qblock, "find qblock", _I32, (m,), tkeys.device)
+    order, start = _find_csr(qblock, qvalid, m, nb)
     found = torch.empty(m, dtype=torch.bool, device=tkeys.device)
     vals = torch.empty((m, lv), dtype=_I32, device=tkeys.device)
-    _FIND_COLS(tkeys, tvals, status, qblock, qkeys, qkeys.stride(0), qvalid, m, nb, bsz,
-               lk, lv, found, vals)
+    _FIND_COLS(tkeys, tvals, status, qblock, qkeys, qkeys.stride(0), qvalid, order, start,
+               m, nb, bsz, lk, lv, found, vals)
     return found, vals
 
 
@@ -295,14 +312,20 @@ def find_arrivals_plain(tkeys, tvals, status, seg, valid):
 def find_arrivals(tkeys, tvals, status, seg, valid):
     """Find a batch of arrivals; returns (found (M,), values (M, Lv)).
 
-    CUDA: one warp per arrival compares its key with the block's slots.
+    CUDA: block-major for a dense batch (:data:`DENSE_QUERIES` queries a
+    block or more): the CSR groups the queries by block, then one warp
+    per touched block stages its status and keys in shared memory once
+    and answers its queries, 32 at a time, into each query's own row.  A
+    sparser batch takes one warp per query, no CSR.  Invalid queries and
+    blocks outside ``[0, nb)`` find nothing.
     """
     if not tkeys.is_cuda:
         return find_arrivals_plain(tkeys, tvals, status, seg, valid)
     nb, bsz, lk, lv, m = _check_table(tkeys, tvals, status, seg, valid,
                                       "find_arrivals", 1 + tkeys.shape[2])
+    order, start = _find_csr(seg[:, 0], valid, m, nb)
     found = torch.empty(m, dtype=torch.bool, device=tkeys.device)
     vals = torch.empty((m, lv), dtype=_I32, device=tkeys.device)
-    _FIND(tkeys, tvals, status, seg, seg.stride(0), valid,
-          m, nb, bsz, lk, lv, found, vals)
+    _FIND(tkeys, tvals, status, seg, seg.stride(0), valid, order, start, m, nb, bsz, lk, lv,
+          found, vals)
     return found, vals

@@ -48,13 +48,45 @@ def _i32(rng, shape, lo=-(1 << 31), hi=1 << 31):
 
 
 @pytest.mark.parametrize("n,nbins", [(0, 3), (1, 1), (31, 2), (1000, 5), (5000, 1023),
-                                     (70000, 2)])
+                                     (70000, 2), (9000, 1024), (50000, 4096),
+                                     (300000, 1 << 20), (0, 5000)])
 def test_bin_offsets_kernel(dev, n, nbins):
     rng = np.random.default_rng(n + nbins)
     bins = _i32(rng, (n,), 0, nbins).to(dev)
     valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    before = binning._BIN_OFFSETS.launches, binning._BIN_CSR.launches
     _eq(binning.bin_offsets(bins, nbins, valid),
         binning.bin_offsets_plain(bins, nbins, valid))
+    # past one launch's bins: the bin_csr route
+    want = (0, 1) if nbins > binning.LAUNCH_BINS else (1, 0)
+    assert (binning._BIN_OFFSETS.launches - before[0],
+            binning._BIN_CSR.launches - before[1]) == want
+
+
+@pytest.mark.parametrize("n,nbins", [(0, 4), (1, 1), (5000, 3), (70001, 1024), (200000, 5000),
+                                     (300000, 1 << 20), (9000, 1 << 24)])
+def test_bin_csr_kernel(dev, n, nbins):
+    """The stable CSR by bin, bins outside range and invalid items last; a
+    strided bins column."""
+    rng = np.random.default_rng(n + nbins)
+    wide = torch.from_numpy(rng.integers(-2, min(nbins + 2, 1 << 31), (n, 3)).astype(np.int32))
+    if nbins > 1 << 20:                              # a few crowded bins among many
+        wide[:, 0] = torch.from_numpy(rng.integers(0, 50, n) * 12345).to(torch.int32)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    col = wide.to(dev)[:, 0]
+    _eq(binning.bin_csr(col, nbins, valid), binning.bin_csr_plain(col, nbins, valid))
+
+
+def test_multi_bin_offsets_many_ranks(dev):
+    """P x F = 256 x 5 composite bins: past one launch's bins."""
+    rng = np.random.default_rng(256)
+    n, nprocs, nflows = 200000, 256, 5
+    dest = _i32(rng, (n,), 0, nprocs).to(dev)
+    flow = _i32(rng, (n,), 0, nflows).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    got = ops.multi_bin_offsets(dest, flow, nprocs, nflows, valid, impl="cuda")
+    _eq(got, ops.multi_bin_offsets(dest, flow, nprocs, nflows, valid, impl="torch"))
+    assert tuple(got[0].shape) == (nprocs, nflows)
 
 
 @pytest.mark.parametrize("n,rnd", [(0, 0), (37, 0), (4096, 1), (50001, 2)])
@@ -125,6 +157,86 @@ def test_find_arrivals_kernel(dev, nb, bsz, lk, lv, m):
     v = valid.to(dev)
     _eq(hash_probe.find_arrivals(*args, view, v),
         hash_probe.find_arrivals_plain(*args, view, v))
+
+
+# B, Lk, Lv, key range: one block takes 5000 arrivals (157 steps of 32)
+CROWDED_CASES = [(33, 1, 1, 60), (128, 2, 1, 200), (200, 1, 2, 300), (64, 32, 32, 90)]
+
+
+@pytest.mark.parametrize("front", ["arrivals", "columns"])
+@pytest.mark.parametrize("mode", [ref.MODE_SET, ref.MODE_ADD, ref.MODE_KEEP])
+@pytest.mark.parametrize("bsz,lk,lv,key_hi", CROWDED_CASES)
+def test_insert_crowded_block(dev, front, mode, bsz, lk, lv, key_hi):
+    rng = np.random.default_rng(bsz + lk + mode)
+    nb, m = 6, 6000
+    tk, tv, st = _table(rng, nb, bsz, lk, lv, 0.3)
+    tk = tk % key_hi
+    qb = _i32(rng, (m,), 0, nb)
+    qb[rng.permutation(m)[:5000]] = 2               # one block takes 5000 arrivals
+    wide = torch.cat([qb[:, None], _i32(rng, (m, lk), 0, key_hi), _i32(rng, (m, lv)),
+                      _i32(rng, (m, 1))], dim=1).to(dev)
+    valid = torch.from_numpy(rng.random(m) < 0.9).to(dev)
+    args = [t.to(dev) for t in (tk, tv, st)]
+    if front == "arrivals":
+        seg = wide[:, :1 + lk + lv]
+        got = hash_probe.insert_arrivals(*args, seg, valid, mode)
+        want = hash_probe.insert_arrivals_plain(*args, seg, valid, mode)
+    else:
+        cols = (wide[:, 0].contiguous(), wide[:, 1:1 + lk], wide[:, 1 + lk:1 + lk + lv])
+        got = hash_probe.insert(*args, *cols, valid, mode)
+        want = hash_probe.insert_plain(*args, *cols, valid, mode)
+    _eq(got, want)
+    ok = got[3].cpu()
+    assert bool(ok.any()) and not bool(ok.all())     # hits, claims and a full block
+    for old, new in zip(args, got[:3]):               # out of place: the input stays
+        assert new.data_ptr() != old.data_ptr()
+
+
+@pytest.mark.parametrize("nb,m", [(8, 4000), (4096, 1000)], ids=["dense", "sparse"])
+@pytest.mark.parametrize("front", ["arrivals", "columns"])
+def test_find_block_out_of_range(dev, front, nb, m):
+    """A valid query whose block lies outside [0, nb) finds nothing, on
+    either route."""
+    rng = np.random.default_rng(17)
+    bsz, lk, lv = 64, 2, 2
+    tk, tv, st = _table(rng, nb, bsz, lk, lv, 0.7)
+    qb = _i32(rng, (m,), 0, nb)
+    qk = tk[qb.long(), torch.from_numpy(rng.integers(0, bsz, m))]   # stored keys: hits
+    far = torch.from_numpy(rng.random(m) < 0.2)
+    qb_far = torch.where(far, torch.where(qb % 2 == 0, -1 - qb, nb + qb), qb)
+    valid = torch.from_numpy(rng.random(m) < 0.9)
+    args = [t.to(dev) for t in (tk, tv, st)]
+    qb_far, qb, qk, valid, far = (t.to(dev) for t in (qb_far, qb, qk, valid, far))
+    if front == "arrivals":
+        found, vals = hash_probe.find_arrivals(*args, torch.cat([qb_far[:, None], qk], 1),
+                                               valid)
+    else:
+        found, vals = hash_probe.find(*args, qb_far, qk, valid)
+    _eq((found, vals), hash_probe.find_plain(*args, qb, qk, valid & ~far))
+    assert bool(found.any())
+
+
+@pytest.mark.parametrize("nb,m", [(4096, 1000), (4096, 8191), (4096, 8192), (64, 5000)])
+@pytest.mark.parametrize("front", ["arrivals", "columns"])
+def test_find_routes(dev, front, nb, m):
+    """Both find routes against the plain version: one warp per query below
+    DENSE_QUERIES queries a block (no CSR), block-major from it."""
+    rng = np.random.default_rng(nb + m)
+    bsz, lk, lv = 40, 2, 2
+    tk, tv, st = _table(rng, nb, bsz, lk, lv, 0.6)
+    qb = _i32(rng, (m,), 0, nb)
+    qk = tk[qb.long(), torch.from_numpy(rng.integers(0, bsz, m))]
+    qk[::2] = _i32(rng, (m - m // 2, lk), 0, 50)       # half: keys from the table's range
+    valid = torch.from_numpy(rng.random(m) < 0.9)
+    args = [t.to(dev) for t in (tk, tv, st)]
+    qb, qk, valid = qb.to(dev), qk.to(dev), valid.to(dev)
+    before = binning._BIN_CSR.launches
+    if front == "arrivals":
+        got = hash_probe.find_arrivals(*args, torch.cat([qb[:, None], qk], 1), valid)
+    else:
+        got = hash_probe.find(*args, qb, qk, valid)
+    _eq(got, hash_probe.find_plain(*args, qb, qk, valid))
+    assert binning._BIN_CSR.launches - before == int(m >= hash_probe.DENSE_QUERIES * nb)
 
 
 # column front ends: the local-promise path of the hash map
