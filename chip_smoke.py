@@ -25,7 +25,11 @@ Phases, each fatal on failure:
      element, float32 at 3e-5; attention_close), timed on the first
      beside scaled_dot_product_attention (their ratio printed); a fixed
      large-bin bin_offsets case (2**24 items into 2**20 bins, past one
-     launch of its kernel: the bin_csr route) held bit for bit; and each
+     launch of its kernel: the bin_csr route) held bit for bit; the wire
+     split: bin_offsets and pack_rows held bit for bit and timed at their
+     kernel-phase call and at the extensions path's wave call (2**19
+     items, where most of their launches are), with the device ms and
+     launches of each kernel they run (torch.profiler); and each
      hash probe's time split on the card (torch.profiler device time by
      role: the CSR, the probe kernel, copies, the rest), with its CSR
      timed beside the bincount + argsort it replaced; find_arrivals' two
@@ -214,6 +218,8 @@ HASHMAP_KERNELS = ("bin_offsets", "bin_csr", "pack_rows", "place_rows", "insert_
 GENOMICS_KERNELS = HASHMAP_KERNELS + ("insert", "find", "membership", "hash_words")
 EXT_KERNELS = HASHMAP_KERNELS + ("row_mix",)
 SERVING_KERNELS = ("flash_attention",)
+#: the exchange wire's binning and pack (the wire split's kernels)
+WIRE_KERNELS = ("bin_offsets", "pack_rows")
 #: kernels no path reaches (the kernel phase derives their inputs)
 OFF_PATH = ("ragged_slots", "histogram")
 #: the float kernels: held at a tolerance on the cases above, not on captured calls
@@ -724,8 +730,10 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
                   dev) -> dict:
     """Run two insert waves and one find of the hash-map path, the
     genomics path with two walk steps and the extensions path's first two
-    phases, recording each kernel's largest call.  No path reaches
-    ragged_slots or histogram: they take the inputs of the extensions
+    phases, recording each kernel's largest call, then one dense insert
+    wave of the extensions path, recording its first bin_offsets and
+    pack_rows calls (under ``"wave"``: the calls most launches make).  No
+    path reaches ragged_slots or histogram: they take the inputs of the extensions
     path's first pack_rows call and the bins of its largest
     multi_bin_offsets call.
 
@@ -734,6 +742,7 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     """
     seen: dict[str, tuple] = {}
     ext: dict[str, tuple] = {}
+    wave_calls: dict[str, tuple] = {}
     probe = [""]
     originals = []
     for name, (mod, wrapper, plain, *_rest) in KERNELS.items():
@@ -752,6 +761,8 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
                         ext[_name] = (w, args)
                     if _name == "bin_offsets" and w >= ext.get(_name, (-1,))[0]:
                         ext[_name] = (w, args)
+                if probe[0] == "wave" and _name in WIRE_KERNELS and _name not in wave_calls:
+                    wave_calls[_name] = args
                 return _fn(*args)
             setattr(mod, attr, tap)
     try:
@@ -759,6 +770,14 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
         genomics_path("auto", gz, gdata, dev, steps=2)
         probe[0] = "ext"
         ext_path("auto", xz, xdata, dev, phases=(1, 2))
+        # the extensions path's typical wire call: one dense insert wave
+        probe[0] = "wave"
+        bk, wave = SerialBackend(), xz["wave"]
+        spec, st = hm.hashmap_create(bk, xz["capacity"], U32, U32, block_size=xz["block"],
+                                     impl="auto", device=dev)
+        k = xdata["keys"][:wave]
+        hm.insert(bk, spec, st, u32(k), u32(value_of(k)), capacity=wave, transport="dense")
+        del spec, st
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
@@ -773,6 +792,8 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     rows, *slot_args, total = ext["pack_rows"][1]
     calls["ragged_slots"] = (*slot_args, total)     # sentinel = the buffer's size
     calls["histogram"] = ext["bin_offsets"][1]
+    check(set(wave_calls) == set(WIRE_KERNELS), f"a wave reached {sorted(wave_calls)}")
+    calls["wave"] = wave_calls
     return calls
 
 
@@ -895,6 +916,98 @@ def library_call(name: str, args: tuple):
     return lambda: dst.index_put((idx,), vals)
 
 
+def wire_regime(name: str, args: tuple) -> dict:
+    """What sets a wire kernel's regime: its items, bins, flows, row
+    width and buffer words."""
+    if name == "bin_offsets":
+        bins, nbins, valid = args
+        return dict(items=bins.shape[0], nbins=nbins, valid=int(valid.sum()))
+    rows, _bins, _flow, _off, valid, rnd, woff, _rw, _caps, _rnds, wtot, total = args
+    return dict(items=rows.shape[0], wmax=rows.shape[1], nflows=woff.shape[0],
+                valid=int(valid.sum()), rnd=rnd, wtot=wtot, total=total)
+
+
+def device_ms(fn, reps: int) -> dict:
+    """Device ms and launches per call of each kernel ``fn`` runs, by the
+    profiler's name (memsets and copies included), under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, dict] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            row = out.setdefault(ev.key, dict(ms=0.0, launches=0.0))
+            row["ms"] += ev.self_device_time_total / 1e3 / reps
+            row["launches"] += ev.count / reps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def short_names(split: dict, top: int = 8) -> dict:
+    """The ``top`` entries of a :func:`device_ms` split, keyed by the first
+    60 characters of each name for printing (entries whose names share
+    them are added together)."""
+    out: dict[str, dict] = {}
+    for key, v in list(split.items())[:top]:
+        row = out.setdefault(key[:60], {k: 0.0 for k in v})
+        for k in v:
+            row[k] += v[k]
+    return out
+
+
+#: bin counts of the wire split's bin_offsets sweep: the paths' (one rank:
+#: one bin per flow) up to one launch's most
+WIRE_BINS = (1, 2, 3, 8, 32, 64, 128, 255, 512, 1023)
+
+
+def wire_split(calls: dict, reps: int, dev, seed: int) -> dict:
+    """bin_offsets and pack_rows at the kernel phase's call (the largest a
+    path makes) and at the extensions path's wave call (2**19 items, where
+    most launches are): each held bit for bit against its plain version,
+    the wrapper's ms (CUDA events) and, on the card, the device ms and
+    launches of each kernel it runs (torch.profiler).  Then bin_offsets
+    at both item counts over :data:`WIRE_BINS` bins (random bins, every
+    tenth item invalid, as at many ranks), held and timed the same way
+    (at the wave's count the wrapper's time is the host's: read device
+    ms there)."""
+    out = {}
+    for label, at in (("kernel phase", calls), ("wave", calls["wave"])):
+        for name in WIRE_KERNELS:
+            args = at[name]
+            fn, plain = getattr(binning, name), getattr(binning, name + "_plain")
+            got, want = fn(*args), plain(*args)
+            sync(dev)
+            check(max_abs_err(got, want) == 0,
+                  f"{name} at the {label} call: kernel equals its plain version bit for bit")
+            row = dict(regime=wire_regime(name, args), ms=time_ms(lambda: fn(*args), reps, dev))
+            if dev.type == "cuda":
+                split = device_ms(lambda: fn(*args), reps)
+                row.update(device_ms=sum(v["ms"] for v in split.values()),
+                           launches=sum(v["launches"] for v in split.values()),
+                           device_ms_by_kernel=short_names(split))
+            out[name, label] = row
+            print(f"wire split {name} {label}: " + json.dumps(row), flush=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    for n in (calls["bin_offsets"][0].shape[0], calls["wave"]["bin_offsets"][0].shape[0]):
+        valid = torch.rand(n, generator=g, device=dev) >= 0.1
+        for nbins in WIRE_BINS:
+            bins = torch.randint(0, nbins, (n,), generator=g, device=dev, dtype=torch.int32)
+            check(max_abs_err(binning.bin_offsets(bins, nbins, valid),
+                              binning.bin_offsets_plain(bins, nbins, valid)) == 0,
+                  f"bin_offsets at {n} items into {nbins} bins: equal to the plain version")
+            call = lambda: binning.bin_offsets(bins, nbins, valid)  # noqa: E731
+            row = dict(items=n, nbins=nbins, ms=time_ms(call, reps, dev))
+            if dev.type == "cuda":
+                split = device_ms(call, reps)
+                row.update(device_ms=sum(v["ms"] for v in split.values()),
+                           launches=sum(v["launches"] for v in split.values()))
+            out["bins", n, nbins] = row
+            print("wire split bin_offsets bins: " + json.dumps(row), flush=True)
+    return out
+
+
 def kernel_phase(calls: dict, reps: int, dev) -> dict:
     rows = {}
     for name, (mod, wrapper, plain, _src, _rep) in KERNELS.items():
@@ -913,6 +1026,7 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
         bytes_ms = bound_bytes(name, args, got) / HBM_BYTES_PER_S * 1e3
         ops_ms = bound_ops(name, args) / OPS_PER_S * 1e3
         rows[name] = dict(
+            **({"regime": wire_regime(name, args)} if name in WIRE_KERNELS else {}),
             max_abs_err=err,
             ms=time_ms(lambda: getattr(mod, wrapper)(*args), reps, dev),
             plain_ms=time_ms(lambda: getattr(mod, plain)(*args), max(1, reps // 5), dev),
@@ -1024,30 +1138,20 @@ def probe_split(calls: dict, reps: int, dev) -> dict:
     (the probe kernel, the CSR's kernels, table copies, memsets, and the
     rest: PyTorch glue), and the CSR built both ways
     (``hash_probe.bin_queries`` and the bincount + argsort yardstick)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     for name in ("insert_arrivals", "find_arrivals", "insert", "find"):
         args = calls[name]
         fn = getattr(hash_probe, name)
         row = dict(ms=time_ms(lambda: fn(*args), reps, dev))
         if dev.type == "cuda":
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn(*args)
-                sync(dev)
             roles: dict[str, float] = {}
-            kernels: dict[str, float] = {}
-            for ev in prof.key_averages():
-                if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
-                    continue
-                ms = ev.self_device_time_total / 1e3 / reps
-                role = next((r for r, keys in PROBE_ROLES if any(k in ev.key for k in keys)),
+            kernels = device_ms(lambda: fn(*args), reps)
+            for key, v in kernels.items():
+                role = next((r for r, keys in PROBE_ROLES if any(k in key for k in keys)),
                             "glue")
-                roles[role] = roles.get(role, 0.0) + ms
-                kernels[ev.key[:60]] = ms
-            row.update(device_ms_by_role=roles, device_ms_by_kernel=dict(
-                sorted(kernels.items(), key=lambda kv: -kv[1])[:8]))
+                roles[role] = roles.get(role, 0.0) + v["ms"]
+            row.update(device_ms_by_role=roles, device_ms_by_kernel={
+                key: v["ms"] for key, v in short_names(kernels).items()})
         nb, valid = args[0].shape[0], args[_VALID_ARG[name]]
         qblock = args[3] if name in ("insert", "find") else args[3][:, 0]
         row["csr_ms"] = time_ms(lambda: hash_probe.bin_queries(qblock, valid, nb), reps, dev)
@@ -1393,6 +1497,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--wire-split", action="store_true",
+                    help="only build, capture the paths' calls and print the wire split")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -1435,7 +1541,11 @@ def main(argv=None) -> int:
     xz = X_REHEARSAL if rehearsal else X_FULL
     xdata = ext_workload(xz, dev, args.seed)
     calls = capture_calls(sz, data, gz, gdata, xz, xdata, dev)
+    if args.wire_split:
+        wire_split(calls, sz["reps"], dev, args.seed)
+        return 0
     krows = kernel_phase(calls, sz["reps"], dev)
+    wire_split(calls, sz["reps"], dev, args.seed)
     large_bins_case(sz, dev, args.seed)
     probe_split(calls, sz["reps"], dev)
     find_routes(sz, dev, args.seed)
@@ -1510,7 +1620,7 @@ def main(argv=None) -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(launched[p, "auto"][name] for p in paths),
                     **{k: v for k, v in krows[name].items()
-                       if k not in ("shape", "tol", "sdpa_ratio")})
+                       if k not in ("shape", "tol", "sdpa_ratio", "regime")})
                for name, (_m, _w, _p, src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

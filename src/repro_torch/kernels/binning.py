@@ -28,11 +28,11 @@ _P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 LAUNCH_BINS = 1023
 #: bits of the bin one bin_csr pass sorts by (``kDigitBits``)
 DIGIT_BITS = 10
-_SEG_ITEMS = 1024
-_DIGIT_SEG_ITEMS = 8 * _SEG_ITEMS        # words per CTA (``kDigitSegItems``)
+_TILE_ITEMS = 4096                       # items per bin_offsets CTA (``kTileItems``)
+_DIGIT_SEG_ITEMS = 8 * 1024              # words per bin_csr CTA (``kDigitSegItems``)
 
 _BIN_OFFSETS = register("bin_offsets", Kernel(
-    "binning", "bin_offsets_launch", [_P, _P, _LL, _INT, _P, _P, _P, _P]))
+    "binning", "bin_offsets_launch", [_P, _P, _LL, _INT, _P, _P, _P]))
 _BIN_CSR = register("bin_csr", Kernel(
     "binning", "bin_csr_launch", [_P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P]))
 _PACK_ROWS = register("pack_rows", Kernel(
@@ -155,8 +155,9 @@ def bin_offsets_lsd(bins: torch.Tensor, nbins: int, valid: torch.Tensor, csr=Non
 def bin_offsets(bins: torch.Tensor, nbins: int, valid=None):
     """Per-bin valid counts + each item's stable rank within its bin.
 
-    CUDA: up to :data:`LAUNCH_BINS` bins, three passes of
-    ``csrc/binning.cu`` (segment counts, scan, ordered rank); more bins
+    CUDA: up to :data:`LAUNCH_BINS` bins, one pass of ``csrc/binning.cu``
+    over tiles of 4096 items, each tile's per-bin prefix from the tiles
+    before it by a decoupled look-back (one memset, one launch); more bins
     through :func:`bin_offsets_lsd` over :func:`bin_csr`.  Equal to
     :func:`bin_offsets_plain` bit for bit, invalid items included.
     """
@@ -172,12 +173,11 @@ def bin_offsets(bins: torch.Tensor, nbins: int, valid=None):
     if nbins > LAUNCH_BINS:
         return bin_offsets_lsd(bins, nbins, valid)
     nb = nbins + 1
-    nseg = -(-n // _SEG_ITEMS)
-    seg_counts = torch.empty(nseg * nb, dtype=_I32, device=bins.device)
-    seg_base = torch.empty_like(seg_counts)
+    # the tile counter, then each tile's status words
+    scratch = torch.empty(1 + -(-n // _TILE_ITEMS) * nb, dtype=torch.int64, device=bins.device)
     counts = torch.empty(nb, dtype=_I32, device=bins.device)
     offsets = torch.empty(n, dtype=_I32, device=bins.device)
-    _BIN_OFFSETS(bins, valid, n, nb, seg_counts, seg_base, counts, offsets)
+    _BIN_OFFSETS(bins, valid, n, nb, scratch, counts, offsets)
     return counts[:nbins], offsets
 
 
@@ -246,6 +246,11 @@ def pack_rows(rows, bins, flow, offsets, valid, rnd: int, word_off, row_words,
 
     ``rows`` is the (N, wmax) right-padded row matrix (flow ``f`` uses its
     first ``row_words[f]`` lanes); words nobody writes are 0.
+
+    CUDA: a memset, then one warp per 32 rows: each lane computes one
+    row's slot (the ``ragged_slot`` that ``ragged_slots`` shares) and the
+    warp copies the rows' words lane by lane, so rows at consecutive
+    slots go out as contiguous stores.
     """
     if not rows.is_cuda:
         return pack_rows_plain(rows, bins, flow, offsets, valid, rnd, word_off,

@@ -63,6 +63,91 @@ def test_bin_offsets_kernel(dev, n, nbins):
             binning._BIN_CSR.launches - before[1]) == want
 
 
+#: bin_offsets' one pass: ballots at one bin, matches above; the look-back
+#: a warp per bin up to 4 bins (the invalid one included), a lane per bin above
+@pytest.mark.parametrize("n,nbins,vfrac", [
+    (4095, 1, 0.5), (4096, 1, 1.0), (4097, 1, 0.5), (4095, 2, 0.5), (4097, 3, 0.5),
+    (12289, 3, 0.5), (12289, 4, 0.5),
+    (8191, 31, 0.5), (8193, 32, 0.5), (12289, 33, 1.0), (40000, 1023, 0.5),
+    (1 << 22, 1, 0.9), (1 << 22, 2, 0.9), (1 << 22, 33, 0.9), (50000, 1, 0.0),
+    (50000, 3, 0.0), (0, 2, 0.5), (1, 1, 0.0)])
+def test_bin_offsets_tiles(dev, n, nbins, vfrac):
+    """The one pass at its tile edges (4096 items a tile), 2**22 items (more
+    tiles than resident CTAs), all or no items valid; ranked by ballots at
+    one bin, by matches above: one launch each."""
+    rng = np.random.default_rng(n + nbins)
+    bins = _i32(rng, (n,), 0, nbins)
+    if n > 10000:                                   # runs of equal bins, as at one rank
+        bins[: n // 2] = torch.sort(bins[: n // 2]).values
+    bins, valid = bins.to(dev), torch.from_numpy(rng.random(n) < vfrac).to(dev)
+    before = binning._BIN_OFFSETS.launches
+    _eq(binning.bin_offsets(bins, nbins, valid),
+        binning.bin_offsets_plain(bins, nbins, valid))
+    assert binning._BIN_OFFSETS.launches - before == 1
+
+
+def test_bin_offsets_back_to_back(dev):
+    """Calls with other bin counts reuse the scratch of the one before: a
+    status word left over must never be read as this call's."""
+    rng = np.random.default_rng(7)
+    n = 300000
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    for nbins in (3, 2, 33, 1, 3, 1023, 3):
+        bins = _i32(rng, (n,), 0, nbins).to(dev)
+        got = binning.bin_offsets(bins, nbins, valid)
+        _eq(got, binning.bin_offsets_plain(bins, nbins, valid))
+
+
+def _wire(rng, n, nflows, nprocs, rnd, drop, wmax=None):
+    """A pack_rows call as a commit makes it: flows of their own row
+    widths (``wmax`` wider than some), ranks per (dest, flow) bucket from
+    one binning pass, the round's window of each flow still retrying, the
+    live flows' segments laid out in order; at one rank the flows are
+    concatenated in batch order.  ``drop`` cuts the buffer short, so
+    rows past its end drop (one may straddle it).  ``wmax``: rows that
+    wide, the flows' widths from half of it up to it."""
+    if wmax is not None:
+        roww = rng.integers(max(1, wmax // 2), wmax + 1, nflows)
+    else:
+        roww = rng.integers(1, 7, nflows)
+        wmax = int(roww.max()) + int(rng.integers(0, 2))
+    flow = np.sort(rng.integers(0, nflows, n)) if nprocs == 1 else rng.integers(0, nflows, n)
+    dest = rng.integers(0, nprocs, n)
+    valid = rng.random(n) < 0.9
+    caps = np.maximum(1, rng.integers(n // (4 * nprocs * nflows) + 1,
+                                      n // (nprocs * nflows) + 2, nflows))
+    rounds = rng.integers(1, 4, nflows)
+    rounds[0] = rnd + 1                                  # one flow ships in this round
+    live = rounds > rnd
+    seg = np.where(live, caps * roww, 0)
+    woff = np.cumsum(seg) - seg
+    wtot = int(seg.sum())
+    total = nprocs * wtot - (int(rng.integers(1, wtot)) if drop else 0)
+    t = [torch.from_numpy(a.astype(np.int32)) for a in (dest, flow)]
+    offs = binning.bin_offsets_plain(t[0] * nflows + t[1], nprocs * nflows,
+                                     torch.from_numpy(valid))[1]
+    rows = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (n, wmax)).astype(np.int32))
+    tabs = [torch.from_numpy(a.astype(np.int32)) for a in (woff, roww, caps, rounds)]
+    return (rows, t[0], t[1], offs, torch.from_numpy(valid), rnd, *tabs, wtot, total)
+
+
+@pytest.mark.parametrize("n,nflows,nprocs,rnd,drop,wmax", [
+    (1000, 1, 1, 0, False, None), (5000, 3, 1, 1, False, None), (70001, 8, 1, 2, True, None),
+    (1 << 20, 2, 1, 0, False, None), (5000, 5, 8, 0, True, None),
+    (70001, 8, 8, 1, False, None), (300000, 4, 8, 2, True, None),
+    (5000, 3, 1, 0, False, 8), (70001, 4, 8, 1, True, 31), (4097, 2, 1, 0, True, 32),
+    (70001, 5, 8, 2, False, 33), (30000, 3, 8, 0, True, 65), (100000, 1, 1, 0, False, 65)])
+def test_pack_rows_wire(dev, n, nflows, nprocs, rnd, drop, wmax):
+    """Flows of other widths, retry windows, dropped rows; consecutive
+    slots at one rank (P=1), random destinations at P=8; rows up to 7
+    words wide, and 8, 31, 32, 33 and 65 words (one row or less a lane
+    step, one wrap at most)."""
+    args = _wire(np.random.default_rng(n + nflows + rnd), n, nflows, nprocs, rnd, drop,
+                 wmax=wmax)
+    on = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    _eq(binning.pack_rows(*on), binning.pack_rows_plain(*on))
+
+
 @pytest.mark.parametrize("n,nbins", [(0, 4), (1, 1), (5000, 3), (70001, 1024), (200000, 5000),
                                      (300000, 1 << 20), (9000, 1 << 24)])
 def test_bin_csr_kernel(dev, n, nbins):
