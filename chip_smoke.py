@@ -29,10 +29,15 @@ Phases, each fatal on failure:
      split: bin_offsets and pack_rows held bit for bit and timed at their
      kernel-phase call and at the extensions path's wave call (2**19
      items, where most of their launches are), with the device ms and
-     launches of each kernel they run (torch.profiler); and each
+     launches of each kernel they run (torch.profiler); the csr split:
+     bin_csr held bit for bit and timed at its kernel-phase call and at an
+     extensions wave's CSR (2**19 items into 2**20 blocks), with the
+     device ms and launches of each kernel it runs, beside
+     torch.sort(stable=True) of its int32 key; each
      hash probe's time split on the card (torch.profiler device time by
      role: the CSR, the probe kernel, copies, the rest), with its CSR
-     timed beside the bincount + argsort it replaced; find_arrivals' two
+     timed beside that stable sort and the bincount + int64 argsort the
+     first wrapper ran; find_arrivals' two
      routes (block-major, one warp per query) timed at 1/8 to 8 queries
      a block, on either side of the density that picks between them;
   4. hash-map path: a 2**26-bucket hash map (block 64, u32 keys and
@@ -732,7 +737,8 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     genomics path with two walk steps and the extensions path's first two
     phases, recording each kernel's largest call, then one dense insert
     wave of the extensions path, recording its first bin_offsets and
-    pack_rows calls (under ``"wave"``: the calls most launches make).  No
+    pack_rows calls and the CSR of its insert_arrivals call (under
+    ``"wave"``: the calls most launches make).  No
     path reaches ragged_slots or histogram: they take the inputs of the extensions
     path's first pack_rows call and the bins of its largest
     multi_bin_offsets call.
@@ -763,6 +769,11 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
                         ext[_name] = (w, args)
                 if probe[0] == "wave" and _name in WIRE_KERNELS and _name not in wave_calls:
                     wave_calls[_name] = args
+                if probe[0] == "wave" and _name == "insert_arrivals" \
+                        and "bin_csr" not in wave_calls:
+                    # the CSR the wave's probe builds (the plain probe builds none)
+                    tk, _tv, _st, seg, valid, _mode = args
+                    wave_calls["bin_csr"] = (seg[:, 0], tk.shape[0], valid)
                 return _fn(*args)
             setattr(mod, attr, tap)
     try:
@@ -792,7 +803,7 @@ def capture_calls(sz: dict, data: dict, gz: dict, gdata: dict, xz: dict, xdata: 
     rows, *slot_args, total = ext["pack_rows"][1]
     calls["ragged_slots"] = (*slot_args, total)     # sentinel = the buffer's size
     calls["histogram"] = ext["bin_offsets"][1]
-    check(set(wave_calls) == set(WIRE_KERNELS), f"a wave reached {sorted(wave_calls)}")
+    check(set(wave_calls) == {*WIRE_KERNELS, "bin_csr"}, f"a wave reached {sorted(wave_calls)}")
     calls["wave"] = wave_calls
     return calls
 
@@ -861,9 +872,9 @@ def bound_ops(name: str, args: tuple) -> int:
     floor: compares, masks and address arithmetic per word or slot)."""
     if name == "bin_offsets":
         return 24 * args[0].numel()            # count, scan, ordered rank passes
-    if name == "bin_csr":                     # per digit pass: digit, count, recount,
-        passes = len(binning.digit_widths(args[1]))   # ordered rank, two places
-        return 16 * passes * args[0].numel()
+    if name == "bin_csr":                     # per item and digit: the digit (shift,
+        passes = len(binning.digit_widths(args[1]))   # mask), its rank (count, add)
+        return 4 * passes * args[0].numel()
     if name == "pack_rows":
         return 12 * args[0].numel()            # window test + slot per word
     if name == "place_rows":
@@ -897,15 +908,27 @@ def max_abs_err(a, b) -> int:
     return err
 
 
+def csr_key(bins: torch.Tensor, nbins: int, valid: torch.Tensor) -> torch.Tensor:
+    """The int32 key whose stable sort is the CSR's order: the bin of a live
+    item, ``nbins`` for the rest."""
+    return torch.where(valid & (bins >= 0) & (bins < nbins), bins, nbins).to(torch.int32)
+
+
 def library_call(name: str, args: tuple):
     """One PyTorch call computing the same function, where there is one:
     place_rows is ``Tensor.index_put`` of the landing words (the drop mask
     and word indices are prepared outside the timed call); histogram is
     ``torch.bincount`` weighted by the valid mask (float64 sums, exact
-    below 2**53), cast back to int32 outside the timed call."""
+    below 2**53), cast back to int32 outside the timed call; bin_csr is
+    ``torch.sort(stable=True)`` of the int32 key (:func:`csr_key`, made
+    outside the timed call), whose indices are the order (the starts need
+    a ``searchsorted`` more)."""
     if name == "histogram":
         bins, nbins, valid = args
         return lambda: torch.bincount(bins, weights=valid, minlength=nbins)
+    if name == "bin_csr":
+        key = csr_key(*args)
+        return lambda: torch.sort(key, stable=True)
     if name != "place_rows":
         return None
     dst, slots, rows = args
@@ -1008,6 +1031,31 @@ def wire_split(calls: dict, reps: int, dev, seed: int) -> dict:
     return out
 
 
+def csr_split(calls: dict, reps: int, dev) -> dict:
+    """bin_csr at the kernel phase's call (the largest a path makes) and at
+    the CSR of an extensions wave's insert (2**19 items into 2**20 blocks):
+    held bit for bit against its plain version, the wrapper's ms (CUDA
+    events), its device ms and launches by kernel (torch.profiler; memsets
+    included) and the library's stable sort of its int32 key."""
+    out = {}
+    for label, args in (("kernel phase", calls["bin_csr"]), ("wave", calls["wave"]["bin_csr"])):
+        check(max_abs_err(binning.bin_csr(*args), binning.bin_csr_plain(*args)) == 0,
+              f"bin_csr at the {label} call: kernel equals its plain version bit for bit")
+        bins, nbins, valid = args
+        row = dict(items=bins.shape[0], nbins=nbins, valid=int(valid.sum()),
+                   ms=time_ms(lambda: binning.bin_csr(*args), reps, dev))
+        key = csr_key(*args)
+        row["sort_ms"] = time_ms(lambda: torch.sort(key, stable=True), reps, dev)
+        if dev.type == "cuda":
+            split = device_ms(lambda: binning.bin_csr(*args), reps)
+            row.update(device_ms=sum(v["ms"] for v in split.values()),
+                       launches=sum(v["launches"] for v in split.values()),
+                       device_ms_by_kernel=short_names(split))
+        out[label] = row
+        print(f"csr split bin_csr {label}: " + json.dumps(row), flush=True)
+    return out
+
+
 def kernel_phase(calls: dict, reps: int, dev) -> dict:
     rows = {}
     for name, (mod, wrapper, plain, _src, _rep) in KERNELS.items():
@@ -1021,8 +1069,10 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
         check(err == 0, f"{name}: kernel equals its plain version bit for bit")
         lib = library_call(name, args)
         if lib is not None:
-            check(torch.equal(lib().to(got.dtype), got),
-                  f"{name}: library call computes the same")
+            out = lib()
+            same = (torch.equal(out.indices.to(torch.int32), got[0]) if name == "bin_csr"
+                    else torch.equal(out.to(got.dtype), got))
+            check(same, f"{name}: library call computes the same")
         bytes_ms = bound_bytes(name, args, got) / HBM_BYTES_PER_S * 1e3
         ops_ms = bound_ops(name, args) / OPS_PER_S * 1e3
         rows[name] = dict(
@@ -1038,6 +1088,10 @@ def kernel_phase(calls: dict, reps: int, dev) -> dict:
     return rows
 
 
+#: bin_csr's device kernels as the profiler names them (the first five
+#: are the earlier design's, so a run against an older checkout splits too)
+CSR_KERNELS = ("bd_count", "bo_scan", "bd_starts", "bd_place", "csr_finish", "csr_count",
+               "csr_pass", "csr_starts")
 #: device kernels of the probes by role, as the profiler names them (the
 #: first names are the earlier warp-per-block walk and warp-per-query
 #: find, so a run against an older checkout splits its time too)
@@ -1045,7 +1099,7 @@ PROBE_ROLES = (
     ("probe", ("insert_arrivals_kernel", "find_arrivals_kernel", "insert_kernel",
                "find_kernel", "probe_insert_blocks", "probe_find_blocks",
                "probe_find_queries")),
-    ("csr", ("bd_count", "bo_scan", "bd_starts", "bd_place", "csr_finish")),
+    ("csr", CSR_KERNELS),
     ("clone", ("Memcpy DtoD",)),
     ("memset", ("Memset",)),
 )
@@ -1137,7 +1191,8 @@ def probe_split(calls: dict, reps: int, dev) -> dict:
     time (CUDA events), its device time by role under torch.profiler
     (the probe kernel, the CSR's kernels, table copies, memsets, and the
     rest: PyTorch glue), and the CSR built both ways
-    (``hash_probe.bin_queries`` and the bincount + argsort yardstick)."""
+    (``hash_probe.bin_queries``), beside the library's stable sort of its
+    int32 key and the bincount + int64 argsort yardstick."""
     out = {}
     for name in ("insert_arrivals", "find_arrivals", "insert", "find"):
         args = calls[name]
@@ -1155,6 +1210,8 @@ def probe_split(calls: dict, reps: int, dev) -> dict:
         nb, valid = args[0].shape[0], args[_VALID_ARG[name]]
         qblock = args[3] if name in ("insert", "find") else args[3][:, 0]
         row["csr_ms"] = time_ms(lambda: hash_probe.bin_queries(qblock, valid, nb), reps, dev)
+        key = csr_key(qblock, nb, valid)
+        row["csr_sort_ms"] = time_ms(lambda: torch.sort(key, stable=True), reps, dev)
         row["csr_argsort_ms"] = time_ms(lambda: csr_argsort(qblock, valid, nb), reps, dev)
         out[name] = row
         print(f"probe split {name}: " + json.dumps(row), flush=True)
@@ -1498,7 +1555,8 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--wire-split", action="store_true",
-                    help="only build, capture the paths' calls and print the wire split")
+                    help="only build, capture the paths' calls and print the wire and "
+                         "CSR splits")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -1543,9 +1601,11 @@ def main(argv=None) -> int:
     calls = capture_calls(sz, data, gz, gdata, xz, xdata, dev)
     if args.wire_split:
         wire_split(calls, sz["reps"], dev, args.seed)
+        csr_split(calls, sz["reps"], dev)
         return 0
     krows = kernel_phase(calls, sz["reps"], dev)
     wire_split(calls, sz["reps"], dev, args.seed)
+    csr_split(calls, sz["reps"], dev)
     large_bins_case(sz, dev, args.seed)
     probe_split(calls, sz["reps"], dev)
     find_routes(sz, dev, args.seed)

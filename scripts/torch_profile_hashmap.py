@@ -15,8 +15,9 @@ and 8 decode steps of that wave.  For each run it prints:
   * wall time of the profiled run and the device's busy share (the sum
     of kernel and memcpy/memset times over the wall time; one stream,
     so they do not overlap);
-  * device time by kernel name, largest first, and the time of the
-    port's hand-written kernels.
+  * device time by kernel name, largest first, the time of the port's
+    hand-written kernels, and the time and launches of bin_csr's kernels
+    (its memsets are not told apart from the path's others).
 The Chrome trace and the full table are written under ``--out``.
 ``--cpu-rehearsal`` runs the tiny CPU sizes (CPU activity only).
 """
@@ -38,8 +39,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 
 #: name fragments of the port's kernels as the profiler lists them
-PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", "bd_count", "bd_starts", "bd_place",
-                "csr_finish", "pack_rows_kernel", "copy_words", "place_rows_kernel",
+PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", *chip_smoke.CSR_KERNELS,
+                "pack_rows_kernel", "copy_words", "place_rows_kernel",
                 "probe_insert_blocks", "probe_find_blocks", "probe_find_queries",
                 "membership_kernel", "hash_words_kernel", "row_mix_kernel",
                 "ragged_slots_kernel", "histogram_kernel", "flash_fwd_kernel",
@@ -94,6 +95,9 @@ def profile_window(name: str, drive, dev, out: Path):
     ours = sum(t for t, _, k in rows if any(p in k for p in PORT_KERNELS))
     print(f"profiled {name}: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / (wall * 1e3):.1f}%), port kernels {ours:.1f} ms", flush=True)
+    csr = [(t, n) for t, n, k in rows if any(c in k for c in chip_smoke.CSR_KERNELS)]
+    print(f"bin_csr kernels: {sum(t for t, _ in csr):.3f} ms over "
+          f"{sum(n for _, n in csr)} launches (memsets not included)", flush=True)
     print(f"{'ms':>10} {'calls':>7}  name", flush=True)
     for t, n, k in rows[:25]:
         print(f"{t:10.3f} {n:7d}  {k[:100]}", flush=True)

@@ -29,7 +29,8 @@ class GlobalPointer(NamedTuple):
         return self.rank < 0
 
     @staticmethod
-    def null(shape=(), device="cpu") -> "GlobalPointer":
+    def null(shape=(), device="cuda") -> "GlobalPointer":
+        """The null pointer: on the card unless the caller asks for the CPU."""
         return GlobalPointer(torch.full(shape, -1, dtype=torch.int32, device=device),
                              torch.zeros(shape, dtype=torch.int32, device=device))
 

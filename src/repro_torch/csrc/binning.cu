@@ -1,7 +1,8 @@
-// Exchange wire kernels for Hopper (sm_90a): bin_offsets, pack_rows,
-// place_rows, ragged_slots, row_mix, histogram.  Plain C entry points, bound with ctypes by
-// repro_torch/kernels/binning.py; every entry point launches on the
-// caller's stream, allocates nothing, and returns cudaGetLastError().
+// Exchange wire kernels for Hopper (sm_90a): bin_offsets, bin_csr,
+// pack_rows, place_rows, ragged_slots, row_mix, histogram.  Plain C entry
+// points, bound with ctypes by repro_torch/kernels/binning.py; every entry
+// point launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
 // All u32 words travel as 32-bit ints; only bit patterns matter.
 //
 // bin_offsets replaces src/repro/kernels/binning.py::bin_offsets
@@ -43,22 +44,39 @@
 // and builds the hash probes' CSR: the items in stable bin order (each
 // bin's valid items in batch order, the items that are not live --
 // invalid, or a bin outside [0, nbins) -- last) and where each bin's run
-// starts.  A stable counting sort by least-significant digit: each item
+// starts.  A stable counting sort by least-significant digit, one launch
+// per digit (the Onesweep design: Adinets and Merrill, "Onesweep: A
+// Faster Least Significant Digit Radix Sort for GPUs", 2022): each item
 // travels as a 64-bit word bin << 32 | index (a negative word when it is
-// not live; the first pass reads the bins and makes the words on the
-// fly), and each pass over a digit of at most 10 bits is a stable
-// partition of the previous pass's order.  A pass is the three steps of
-// bin_offsets over CTA segments of kDigitSegItems words: bd_count counts
-// each segment's digits, bo_scan gives each segment's base per digit
-// and the digit totals, bd_starts scans the totals; bd_place recounts
-// its segment per warp, walks each warp's kSegItems words in order, 32
-// at a time, ranking equal digits with __match_any_sync,
-// sorts the segment by digit in shared memory that way, and writes it
-// out, so each digit's run of the segment goes out as consecutive
-// words.  csr_finish then takes each place's index and, by binary
-// search of the sorted bins, each bin's start.  Bound: bytes -- per
-// pass the words read twice and written once, the segment tables
-// nseg * (digits + 1) ints.
+// not live: the digit past the last), and each pass over a digit of at
+// most kDigitBits bits is a stable partition of the previous pass's order.
+//   - one memset zeroes the scratch's control words, digit counts and
+//     every pass's status words;
+//   - csr_count reads the bins (in place, at their row stride) and the
+//     valid bytes once and counts every pass's digits in shared memory
+//     (count_item, which histogram shares), flushing with global atomics;
+//     the last CTA to finish scans each pass's counts into digit starts;
+//   - each pass is one launch of csr_pass: a CTA takes a tile (its index
+//     from an atomic counter), each warp loads its chunk of words into
+//     registers at once (the first pass makes them from the bins on the
+//     fly) and ranks them in order, 32 a step, its peers found by one
+//     __ballot_sync per bit of the digit (measured faster than
+//     __match_any_sync); the tile publishes its per-digit aggregate (flag
+//     A; the first tile its inclusive prefix), sorts itself by digit in
+//     shared memory, then looks back a thread per digit over the earlier
+//     tiles' status words to the nearest inclusive prefix (flag P) and
+//     publishes its own; flag and count share one 32-bit word (so a call
+//     takes fewer than 2**30 items); it writes the tile out by digit runs,
+//     so a run's words land consecutively.  Each word is read once and
+//     written once a pass; the last pass writes the index (order) and the
+//     bin (sorted bins) instead;
+//   - csr_starts finds each bin's start by a binary search of the sorted
+//     bins (nbins log n reads, whatever the bins' spread).
+// Tiles hold 8192 words (4096 measured slower at 2**24 items, 2048 slower
+// there and no faster at 2**19).  Bound: bytes -- the bins and valid
+// bytes read, order and start written; the words add 8 bytes written and
+// read per item and pass but the last, the status words tiles * 1025 * 4
+// bytes a pass.
 //
 // pack_rows replaces src/repro/kernels/binning.py::pack_rows
 // (_pack_rows_kernel): the ragged word slot of each row for retry
@@ -102,11 +120,17 @@
 // histogram replaces src/repro/kernels/binning.py::histogram
 // (_hist_kernel): per-bin counts of the valid items.  The TPU kernel
 // sums one-hot rows on the MXU in float32; here the counts are exact
-// integers: each block counts in shared memory, the lanes of a warp
-// that hold the same bin merged by __match_any_sync into one atomicAdd,
-// and flushes once per bin to global memory.  Bins outside [0, nbins)
-// are not counted.  Above kMaxSharedBins bins the counts go straight to
-// global atomics.  Bound: bytes -- 5 bytes read per item.
+// integers.  Each warp loads 512 items a step with 16-byte loads of the
+// bins (4-byte loads of the valid bytes beside them); up to kFewBins bins
+// it counts by one __ballot_sync per bin and item, every lane keeping the
+// warp's counts in registers; above, count_item (shared with bin_csr's
+// count pass) adds each item to shared counters by atomicAdd (merging the
+// lanes of equal bins by __match_any_sync first measured slower), each
+// warp on its own copy of the counters while kMaxSharedBins allows (one
+// copy per CTA at most); each CTA flushes once per bin to global memory.
+// Bins outside [0, nbins) are not counted.
+// Above kMaxSharedBins bins the counts go straight to global atomics.
+// Bound: bytes -- 5 bytes read per item.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,13 +138,21 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kSegItems = 1024;    // words per warp segment (bin_csr)
 constexpr int kWarpsPerCta = 8;
 constexpr int kMaxBins = 1024;     // including the invalid bin
-constexpr int kDigitBits = 10;     // bits of the bin one bin_csr pass sorts by
-constexpr int kDigitSegItems = kWarpsPerCta * kSegItems;   // words per bin_csr CTA
 constexpr int kThreads = 256;
+constexpr int kSMs = 132;
 constexpr int kMaxSharedBins = 12288;   // 48 KB of shared counters
+constexpr int kFewBins = 4;             // bins up to which histogram counts by ballots
+constexpr int kGroup = 16;              // items a histogram lane loads in a step
+constexpr int kDigitBits = 10;          // widest digit of one bin_csr pass
+constexpr int kDigitStride = (1 << kDigitBits) + 1;   // digit counters a pass (not-live last)
+constexpr int kMaxPasses = 4;           // digits of a 31-bit bin
+constexpr int kCountItems = 8;          // items a csr_count thread loads before it counts
+constexpr int kCountCtas = kSMs * 4;    // csr_count CTAs at most: one flush each
+constexpr int kDigitsPerThread = (kDigitStride + kThreads - 1) / kThreads;   // csr_pass
+constexpr int kCsrSteps = 32;           // words a csr_pass lane holds: 8192-word tiles
+constexpr int kCsrTile = kWarpsPerCta * kWarp * kCsrSteps;
 constexpr int kTileItems = 4096;        // items per CTA of bin_offsets' one pass
 // bins (the invalid one included) up to which bin_offsets looks back a
 // warp per bin, 32 tiles a read (measured faster up to 4, a lane per bin
@@ -133,40 +165,31 @@ constexpr unsigned kFull = 0xffffffffu;
 // (0: the tile has published nothing yet -- the words are zeroed per call)
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kPrefix = 2ull << 32;
+// bin_csr's status words: flag in the high 2 bits, a count below 2**30 in
+// the low 30 (so a call takes fewer than 2**30 items)
+constexpr unsigned kCsrAggregate = 1u << 30;
+constexpr unsigned kCsrPrefix = 2u << 30;
+constexpr unsigned kCsrCount = (1u << 30) - 1;
 
 __device__ __forceinline__ int bucket_of(int bin, unsigned char valid, int nb) {
   // nb includes the invalid bin (nb - 1)
   return (valid && bin >= 0 && bin < nb - 1) ? bin : nb - 1;
 }
 
-__global__ void bo_scan(const int* __restrict__ seg_counts, long long nseg, int nb,
-                        int* __restrict__ seg_base, int* __restrict__ counts) {
-  __shared__ int part[1024];
-  const int b = blockIdx.x, t = threadIdx.x, T = blockDim.x;
-  const long long per = (nseg + T - 1) / T;
-  const long long beg = per * t;
-  const long long end = beg + per < nseg ? beg + per : nseg;
-  int s = 0;
-  for (long long g = beg; g < end; ++g) s += seg_counts[g * nb + b];
-  part[t] = s;
-  __syncthreads();
-  for (int off = 1; off < T; off <<= 1) {   // Hillis-Steele inclusive scan
-    const int v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  int run = part[t] - s;                    // exclusive prefix of this chunk
-  for (long long g = beg; g < end; ++g) {
-    const int c = seg_counts[g * nb + b];
-    seg_base[g * nb + b] = run;
-    run += c;
-  }
-  if (t == T - 1) counts[b] = part[t];
-}
-
 __device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
   asm volatile("st.release.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// A status word whose flag and value travel in one access needs no
+// ordering against anything else: relaxed, at the GPU's scope.
+__device__ __forceinline__ void store_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
@@ -494,35 +517,88 @@ __global__ void row_mix_kernel(const unsigned* __restrict__ rows, long long m,
   }
 }
 
-template <bool kShared>
-__global__ void histogram_kernel(const int* __restrict__ bins,
-                                 const unsigned char* __restrict__ valid, long long n,
-                                 int nbins, int* __restrict__ counts) {
-  extern __shared__ int sh[];
-  int* cnt = kShared ? sh : counts;
-  if (kShared) {
-    for (int b = threadIdx.x; b < nbins; b += blockDim.x) sh[b] = 0;
-    __syncthreads();
-  }
-  const int lane = threadIdx.x % kWarp;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // the loop bound is warp-uniform: every lane of a warp takes part in
-  // each __match_any_sync
-  for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x - lane; base < n;
-       base += stride) {
-    const long long i = base + lane;
-    int b = -1;
-    if (i < n && valid[i]) {
-      const int v = bins[i];
-      if (v >= 0 && v < nbins) b = v;
+// Count one item (b < 0: none) in shared counters: histogram's counters
+// above kFewBins bins and bin_csr's digit counts.
+__device__ __forceinline__ void count_item(int b, int* cnt) {
+  if (b >= 0) atomicAdd(cnt + b, 1);
+}
+
+// The buckets (-1: not counted) of a lane's 16 items of the warp's 512 at
+// i0: item i0 + 4 (32 q + lane) + e is b[4 q + e], so every load of the
+// warp is contiguous (16 bytes of bins and 4 valid bytes a lane); a whole
+// aligned step by vector loads, else item by item.
+__device__ __forceinline__ void load_group(const int* __restrict__ bins,
+                                           const unsigned char* __restrict__ valid,
+                                           long long n, int nbins, long long i0, bool vec,
+                                           int lane, int (&b)[kGroup]) {
+  if (vec && i0 + kWarp * kGroup <= n) {
+    int4 b4[4];
+    unsigned v4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long i = i0 + 4 * (q * kWarp + lane);
+      b4[q] = __ldcs(reinterpret_cast<const int4*>(bins + i));
+      v4[q] = __ldcs(reinterpret_cast<const unsigned*>(valid + i));
     }
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    if (b >= 0 && lane == __ffs(peers) - 1) atomicAdd(&cnt[b], __popc(peers));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int bb[4] = {b4[q].x, b4[q].y, b4[q].z, b4[q].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (v4[q] >> (8 * e)) & 0xffu;
+        b[4 * q + e] = ok && bb[e] >= 0 && bb[e] < nbins ? bb[e] : -1;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const long long i = i0 + 4 * ((j / 4) * kWarp + lane) + j % 4;
+      const int v = i < n && valid[i] ? bins[i] : -1;
+      b[j] = v >= 0 && v < nbins ? v : -1;
+    }
   }
-  if (kShared) {
-    __syncthreads();
-    for (int b = threadIdx.x; b < nbins; b += blockDim.x)
-      if (sh[b]) atomicAdd(&counts[b], sh[b]);
+}
+
+// kBallot: at most kFewBins bins, counted by ballots in registers; else by
+// count_item into `copies` shared copies of the counters (0: global).
+template <bool kBallot>
+__global__ void __launch_bounds__(kThreads) histogram_kernel(
+    const int* __restrict__ bins, const unsigned char* __restrict__ valid, long long n,
+    int nbins, bool vec, int copies, int* __restrict__ counts) {
+  extern __shared__ int sh[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nsh = kBallot ? nbins : copies * nbins;
+  for (int k = threadIdx.x; k < nsh; k += kThreads) sh[k] = 0;
+  __syncthreads();
+  int* cnt = copies ? sh + (warp % copies) * nbins : counts;
+  int few[kFewBins] = {};                  // the warp's counts (ballots)
+  constexpr long long kWarpItems = kWarp * kGroup;
+  const long long stride = (long long)gridDim.x * kWarpsPerCta * kWarpItems;
+  for (long long i0 = ((long long)blockIdx.x * kWarpsPerCta + warp) * kWarpItems; i0 < n;
+       i0 += stride) {
+    int b[kGroup];
+    load_group(bins, valid, n, nbins, i0, vec, lane, b);
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if constexpr (kBallot) {
+#pragma unroll
+        for (int k = 0; k < kFewBins; ++k)
+          if (k < nbins) few[k] += __popc(__ballot_sync(kFull, b[j] == k));
+      } else {
+        count_item(b[j], cnt);
+      }
+    }
+  }
+  if constexpr (kBallot) {
+    if (lane == 0)
+      for (int k = 0; k < nbins; ++k) atomicAdd(sh + k, few[k]);
+  }
+  __syncthreads();
+  const int ncopies = kBallot ? 1 : copies;
+  for (int k = threadIdx.x; ncopies && k < nbins; k += kThreads) {
+    int c = 0;
+    for (int v = 0; v < ncopies; ++v) c += sh[v * nbins + k];
+    if (c) atomicAdd(counts + k, c);
   }
 }
 
@@ -546,7 +622,8 @@ __global__ void place_rows_kernel(const int* __restrict__ slots,
 }
 
 // The items' words: read from the previous pass, or made from the bins
-// (at row stride bstride; read only for a valid item) in the first.
+// (at row stride bstride) in the first; the bin and the valid byte are
+// loaded together, whatever the valid byte says.
 struct Words {
   const long long* words;
   const int* bins;
@@ -555,33 +632,17 @@ struct Words {
   long long nbins;
   __device__ __forceinline__ long long operator()(long long i) const {
     if (words) return words[i];
-    const long long b = valid[i] ? (long long)bins[i * bstride] : -1;
-    return (b >= 0 && b < nbins ? b << 32 : -(1LL << 32)) | i;
+    const long long b = bins[i * bstride];
+    return (valid[i] && b >= 0 && b < nbins ? b << 32 : -(1LL << 32)) | i;
   }
 };
 
-// The digit of a word, or nd for a word that is not live (the last bin).
+// The digit of a word, or nd for a word that is not live (the last digit).
 __device__ __forceinline__ int digit_of(long long w, int shift, int nd) {
   return w >= 0 ? (int)((w >> (32 + shift)) & (nd - 1)) : nd;
 }
 
-__global__ void bd_count(Words src, long long n, int shift, int nd,
-                         int* __restrict__ seg_counts) {
-  extern __shared__ int sh[];
-  const int nb = nd + 1;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) sh[b] = 0;
-  __syncthreads();
-  const long long beg = (long long)blockIdx.x * kDigitSegItems;
-  const long long end = beg + kDigitSegItems < n ? beg + kDigitSegItems : n;
-  for (long long i = beg + threadIdx.x; i < end; i += blockDim.x)
-    atomicAdd(&sh[digit_of(src(i), shift, nd)], 1);
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x)
-    seg_counts[(long long)blockIdx.x * nb + b] = sh[b];
-}
-
-// out[b] = the sum of in[0:b], by one warp in chunks of 32 (in place
-// allowed).
+// out[b] = the sum of in[0:b], by one warp in chunks of 32.
 __device__ __forceinline__ void warp_exclusive_scan(const int* in, int* out, int nb,
                                                     int lane) {
   int carry = 0;
@@ -589,95 +650,304 @@ __device__ __forceinline__ void warp_exclusive_scan(const int* in, int* out, int
     const int v = c + lane < nb ? in[c + lane] : 0;
     int x = v;
     for (int o = 1; o < kWarp; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      const int y = __shfl_up_sync(kFull, x, o);
       if (lane >= o) x += y;
     }
     if (c + lane < nb) out[c + lane] = carry + x - v;
-    carry += __shfl_sync(0xffffffffu, x, kWarp - 1);
+    carry += __shfl_sync(kFull, x, kWarp - 1);
   }
 }
 
-// start[b] = the words of the digits below b.
-__global__ void bd_starts(const int* __restrict__ counts, int nb, int* __restrict__ start) {
-  warp_exclusive_scan(counts, start, nb, threadIdx.x);
+// The passes of one bin_csr call: each pass's digit shift and digit count.
+struct CsrPlan {
+  int passes;
+  int shift[kMaxPasses];
+  int nd[kMaxPasses];
+};
+
+// Every pass's digit counts (pass p at counts + p * kDigitStride, its
+// not-live digit last), by count_item into shared counters; the last CTA to
+// finish turns them into digit starts.
+__global__ void __launch_bounds__(kThreads) csr_count(
+    const int* __restrict__ bins, long long bstride, const unsigned char* __restrict__ valid,
+    long long n, long long nbins, CsrPlan plan, int* __restrict__ counts,
+    int* __restrict__ done) {
+  __shared__ int tally[kMaxPasses * kDigitStride];
+  __shared__ bool last;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int total = plan.passes * kDigitStride;
+  for (int k = threadIdx.x; k < total; k += kThreads) tally[k] = 0;
+  __syncthreads();
+  const long long threads = (long long)gridDim.x * kThreads;
+  for (long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x; i0 < n;
+       i0 += threads * kCountItems) {
+    long long b[kCountItems];
+    bool live[kCountItems];
+#pragma unroll
+    for (int j = 0; j < kCountItems; ++j) {   // every load first
+      const long long i = i0 + j * threads;
+      b[j] = i < n ? bins[i * bstride] : 0;
+      live[j] = i < n && valid[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kCountItems; ++j) {
+      if (i0 + j * threads >= n) break;
+      const bool in = live[j] && b[j] >= 0 && b[j] < nbins;
+      for (int p = 0; p < plan.passes; ++p) {
+        const int nd = plan.nd[p];
+        count_item(in ? (int)((b[j] >> plan.shift[p]) & (nd - 1)) : nd,
+                   tally + p * kDigitStride);
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < total; k += kThreads)
+    if (tally[k]) atomicAdd(counts + k, tally[k]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int k = threadIdx.x; k < total; k += kThreads) tally[k] = __ldcg(counts + k);
+  __syncthreads();
+  if (warp < plan.passes)
+    warp_exclusive_scan(tally + warp * kDigitStride, counts + warp * kDigitStride,
+                        plan.nd[warp] + 1, lane);
 }
 
-// Shared memory of bd_place: the sorted segment, each warp's digit
-// counts (then bases), and per digit the segment's local and global start.
-size_t bd_place_shmem(int nb) {
-  return sizeof(long long) * kDigitSegItems + sizeof(int) * (kWarpsPerCta + 2) * nb;
+// The look-back of csr_pass's tile t > 0, a thread per digit (several
+// digits a thread, all at once): each digit's count in the earlier tiles
+// from their status words, one tile a read (more tiles a read measured
+// slower: the look-back is bound by these reads), back to the nearest
+// inclusive prefix; a word not yet published is read again at once (a
+// sleep between reads measured slower).  It publishes the tile's inclusive
+// prefix and writes the exclusive one to base[k].
+__device__ __forceinline__ void look_back_digits(const unsigned* status, long long t, int nb,
+                                                 unsigned* mine, const int* agg, int* base) {
+  constexpr int kPer = kDigitsPerThread;
+  int ex[kPer];
+  long long p[kPer];                       // the next earlier tile to read, -1: done
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    ex[j] = 0;
+    p[j] = (int)threadIdx.x + j * kThreads < nb ? t - 1 : -1;
+  }
+  for (bool busy = true; busy;) {
+    unsigned w[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      w[j] = p[j] >= 0 ? load_relaxed(status + p[j] * nb + threadIdx.x + j * kThreads) : 0u;
+    busy = false;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const unsigned flag = w[j] & ~kCsrCount;
+      if (p[j] >= 0 && flag != 0) {
+        ex[j] += (int)(w[j] & kCsrCount);
+        p[j] = flag == kCsrPrefix ? -1 : p[j] - 1;
+      }
+      busy |= p[j] >= 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int k = threadIdx.x + j * kThreads;
+    if (k < nb) {
+      store_relaxed(mine + k, kCsrPrefix | (unsigned)(ex[j] + agg[k]));
+      base[k] = ex[j];
+    }
+  }
 }
 
-__global__ void bd_place(Words src, long long n, int shift, int nd,
-                         const int* __restrict__ seg_base, const int* __restrict__ start,
-                         long long* __restrict__ out) {
+// The sum of v over the CTA's threads below this one (tmp: kWarpsPerCta ints).
+__device__ __forceinline__ int block_exclusive_scan(int v, int* tmp) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == kWarp - 1) tmp[warp] = x;
+  __syncthreads();
+  int below = 0;
+  for (int u = 0; u < warp; ++u) below += tmp[u];
+  __syncthreads();                         // tmp may be reused at once
+  return below + x - v;
+}
+
+// Shared memory of csr_pass: the tile sorted by digit, each warp's digit
+// counts (then bases), and per digit the tile's count, its start in the
+// tile and where its first word goes (then less that start).
+size_t csr_pass_shmem(int nb) {
+  return sizeof(long long) * kCsrTile + sizeof(int) * (kWarpsPerCta + 3) * nb;
+}
+
+// One digit pass over tiles of kCsrTile words: the words to out, or (the
+// last pass) each word's index to order and its bin to sbin (nbins for a
+// word that is not live).  dstart: the digit starts.
+__global__ void __launch_bounds__(kThreads, 2) csr_pass(
+    Words src, long long n, int shift, int nd, const int* __restrict__ dstart,
+    int* __restrict__ next_tile, unsigned* __restrict__ status, long long* __restrict__ out,
+    int* __restrict__ order, int* __restrict__ sbin, int nbins) {
+  constexpr int kChunk = kWarp * kCsrSteps;   // words per warp, in order
   extern __shared__ __align__(16) long long buf[];
   const int nb = nd + 1;
-  int* cnt = reinterpret_cast<int*>(buf + kDigitSegItems);   // kWarpsPerCta x nb
-  int* local = cnt + kWarpsPerCta * nb;                       // nb
-  int* global = local + nb;                                   // nb
+  int* wcnt = reinterpret_cast<int*>(buf + kCsrTile);   // kWarpsPerCta x nb
+  int* agg = wcnt + kWarpsPerCta * nb;
+  int* local = agg + nb;
+  int* base = local + nb;
+  __shared__ int s_tile, scan_tmp[kWarpsPerCta];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const long long seg0 = (long long)blockIdx.x * kDigitSegItems;
-  const long long beg = seg0 + (long long)warp * kSegItems;
-  const long long end = beg + kSegItems < n ? beg + kSegItems : n;
-  const long long seg_end = seg0 + kDigitSegItems < n ? seg0 + kDigitSegItems : n;
-  int* run = cnt + warp * nb;
-  for (int b = lane; b < nb; b += kWarp) run[b] = 0;
-  __syncwarp();
-  for (long long i = beg + lane; i < end; i += kWarp)
-    atomicAdd(&run[digit_of(src(i), shift, nd)], 1);
+  if (threadIdx.x == 0) s_tile = atomicAdd(next_tile, 1);
+  for (int k = threadIdx.x; k < kWarpsPerCta * nb; k += kThreads) wcnt[k] = 0;
   __syncthreads();
-  // per digit: each warp's local base, the digit's local start in the
-  // segment and its global start
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    int acc = 0;
-    for (int w = 0; w < kWarpsPerCta; ++w) {
-      const int c = cnt[w * nb + b];
-      cnt[w * nb + b] = acc;
-      acc += c;
-    }
-    local[b] = acc;                         // the digit's count, scanned below
-    global[b] = start[b] + seg_base[(long long)blockIdx.x * nb + b];
-  }
-  __syncthreads();
-  if (warp == 0) warp_exclusive_scan(local, local, nb, lane);   // each digit's local start
-  __syncthreads();
+  const long long t = s_tile;
+  const long long beg = t * kCsrTile;
+  const int items = (int)(n - beg < kCsrTile ? n - beg : kCsrTile);
+  // the warp's chunk: every load at once, then ranked in order 32 a step
+  const long long c0 = beg + (long long)warp * kChunk + lane;
+  long long w[kCsrSteps];
+#pragma unroll
+  for (int s = 0; s < kCsrSteps; ++s) w[s] = c0 + s * kWarp < n ? src(c0 + s * kWarp) : 0;
+  int* run = wcnt + warp * nb;
   const unsigned lower = (1u << lane) - 1u;
-  for (long long base = beg; base < end; base += kWarp) {
-    const long long i = base + lane;
-    const bool act = i < end;
-    const long long w = act ? src(i) : 0;
-    const int d = act ? digit_of(w, shift, nd) : nb;   // nb: idle lane
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int r = __popc(peers & lower);
-    if (act) buf[local[d] + run[d] + r] = w;
+  const int dbits = 32 - __clz(nb);        // bits of a digit, the idle lane's nb included
+  unsigned rk[kCsrSteps / 2] = {};         // ranks in the warp's chunk, two 16-bit a word
+#pragma unroll
+  for (int s = 0; s < kCsrSteps; ++s) {
+    const bool act = c0 + s * kWarp < n;
+    const int d = act ? digit_of(w[s], shift, nd) : nb;   // nb: idle lane
+    // the lanes of equal digit: one ballot per bit (measured faster than
+    // __match_any_sync)
+    unsigned peers = kFull;
+    for (int bit = 0; bit < dbits; ++bit) {
+      const unsigned set = __ballot_sync(kFull, (d >> bit) & 1);
+      peers &= (d >> bit) & 1 ? set : ~set;
+    }
+    const int rr = __popc(peers & lower);
+    const int prior = act ? run[d] : 0;
     __syncwarp();
-    if (act && r == 0) run[d] += __popc(peers);
+    if (act && rr == 0) run[d] = prior + __popc(peers);
     __syncwarp();
+    rk[s / 2] |= (unsigned)(prior + rr) << (16 * (s % 2));
   }
   __syncthreads();
-  for (long long i = threadIdx.x; i < seg_end - seg0; i += blockDim.x) {
-    const long long w = buf[i];
-    const int d = digit_of(w, shift, nd);
-    out[global[d] + (i - local[d])] = w;
+  // per digit each warp's base and the tile's aggregate, published at once
+  // (the first tile's is its inclusive prefix), then each digit's start in
+  // the tile: a thread per kDigitsPerThread consecutive digits
+  unsigned* mine = status + t * nb;
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < kDigitsPerThread; ++j) {
+    const int k = kDigitsPerThread * threadIdx.x + j;
+    if (k < nb) {
+      int acc = 0;
+      for (int v = 0; v < kWarpsPerCta; ++v) {
+        const int c = wcnt[v * nb + k];
+        wcnt[v * nb + k] = acc;
+        acc += c;
+      }
+      agg[k] = acc;
+      sum += acc;
+      store_relaxed(mine + k, (t == 0 ? kCsrPrefix : kCsrAggregate) | (unsigned)acc);
+    }
+  }
+  int at = block_exclusive_scan(sum, scan_tmp);
+#pragma unroll
+  for (int j = 0; j < kDigitsPerThread; ++j) {
+    const int k = kDigitsPerThread * threadIdx.x + j;
+    if (k < nb) {
+      local[k] = at;
+      at += agg[k];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kCsrSteps; ++s)        // the tile sorted by digit
+    if (c0 + s * kWarp < n) {
+      const int d = digit_of(w[s], shift, nd);
+      buf[local[d] + run[d] + ((rk[s / 2] >> (16 * (s % 2))) & 0xffffu)] = w[s];
+    }
+  __syncthreads();
+  // look-back: where the tile's first word of each digit goes
+  if (t > 0) {
+    look_back_digits(status, t, nb, mine, agg, base);
+  } else {
+    for (int k = threadIdx.x; k < nb; k += kThreads) base[k] = 0;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nb; k += kThreads) base[k] += dstart[k] - local[k];
+  __syncthreads();
+  for (int i = threadIdx.x; i < items; i += kThreads) {   // out by digit runs
+    const long long v = buf[i];
+    const long long p = base[digit_of(v, shift, nd)] + i;
+    if (order) {
+      order[p] = (int)v;
+      sbin[p] = v >= 0 ? (int)(v >> 32) : nbins;
+    } else {
+      out[p] = v;
+    }
   }
 }
 
-// Each place's index, and each bin's start: the first place whose bin
-// (nbins for a word that is not live) is at least the bin.
-__global__ void csr_finish(const long long* __restrict__ words, long long n, long long nbins,
-                           int* __restrict__ order, int* __restrict__ start) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) order[t] = (int)(words[t] & 0xffffffffLL);
-  if (t <= nbins) {
+// start[b], the first place whose sorted bin is b or more: a binary search
+// of the sorted bins per bin.  (A fill of each place's run of bins, the
+// warp filling a long run, measured faster on the kernel phase's and a
+// wave's batches, and about twice as slow summed over the extensions
+// path's calls, where a few long runs each fall to one warp.)
+__global__ void csr_starts(const int* __restrict__ sbin, long long n, long long nbins,
+                           int* __restrict__ start) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b <= nbins;
+       b += stride) {
     long long lo = 0, hi = n;
     while (lo < hi) {
       const long long mid = (lo + hi) / 2;
-      const long long w = words[mid];
-      if ((w >= 0 ? w >> 32 : nbins) < t) lo = mid + 1; else hi = mid;
+      if (sbin[mid] < b) lo = mid + 1; else hi = mid;
     }
-    start[t] = (int)lo;
+    start[b] = (int)lo;
   }
+}
+
+// Where one bin_csr call keeps what in its scratch (byte offsets): the
+// control words (each pass's tile counter, csr_count's done counter), the
+// digit counts and every pass's status words -- all zeroed by one memset
+// -- then the words between passes and the sorted bins.
+struct CsrLayout {
+  CsrPlan plan;
+  long long tiles, counts, status[kMaxPasses], zeroed, words[2], sbin, bytes;
+};
+
+CsrLayout csr_layout(long long n, long long nbins) {
+  CsrLayout L{};
+  int bits = 1;
+  while ((1LL << bits) < nbins) ++bits;
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  L.plan.passes = passes;
+  for (int p = 0, shift = 0; p < passes; ++p) {
+    const int width = bits / passes + (p < bits % passes);
+    L.plan.shift[p] = shift;
+    L.plan.nd[p] = 1 << width;
+    shift += width;
+  }
+  L.tiles = (n + kCsrTile - 1) / kCsrTile;
+  auto up = [](long long b) { return (b + 255) / 256 * 256; };   // 256-byte aligned
+  long long off = 256;
+  L.counts = off;
+  off += up(sizeof(int) * passes * kDigitStride);
+  for (int p = 0; p < passes; ++p) {
+    L.status[p] = off;
+    off += up(sizeof(unsigned) * L.tiles * (L.plan.nd[p] + 1));
+  }
+  L.zeroed = off;
+  for (int q = 0; q < 2; ++q) {            // pass p < last writes words[p % 2]
+    L.words[q] = off;
+    if (q < passes - 1) off += up(sizeof(long long) * n);
+  }
+  L.sbin = off;
+  L.bytes = off + up(sizeof(int) * n);
+  return L;
 }
 
 int grid_for(long long work) {
@@ -730,47 +1000,44 @@ int bin_offsets_launch(const void* bins, const void* valid, long long n, int nb,
   return (int)bo_rank_tiles_launch<0>(bins, valid, n, nb, scratch, counts, offsets, s);
 }
 
-// bins (n,) i32 at row stride bstride, valid (n,) u8, nbins >= 1;
-// scratch words (2 n,) i64, seg (2 ceil(n / kDigitSegItems) (2**10 + 1),)
-// i32, digits (2 (2**10 + 1),) i32; out order (n,) i32, start (nbins + 1,) i32.
+// Bytes of scratch bin_csr_launch takes for n items into nbins bins.
+long long bin_csr_scratch_bytes(long long n, long long nbins) {
+  return csr_layout(n, nbins).bytes;
+}
+
+// bins (n,) i32 at row stride bstride, valid (n,) u8, n < 2**30, 1 <= nbins < 2**31;
+// scratch (bin_csr_scratch_bytes,) 8-byte aligned; out order (n,) i32,
+// start (nbins + 1,) i32.
 int bin_csr_launch(const void* bins, long long bstride, const void* valid, long long n,
-                   long long nbins, void* words, void* seg, void* digits, void* order,
-                   void* start, void* stream) {
+                   long long nbins, void* scratch, void* order, void* start, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nbins < 1 || nbins >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  int bits = 1;
-  while ((1LL << bits) < nbins) ++bits;
-  const int passes = (bits + kDigitBits - 1) / kDigitBits;
-  const long long nseg = (n + kDigitSegItems - 1) / kDigitSegItems;
-  const int maxb = (1 << kDigitBits) + 1;
-  long long* wbuf[2] = {(long long*)words, (long long*)words + n};
-  int* seg_counts = (int*)seg;
-  int* seg_base = seg_counts + nseg * maxb;
-  int* counts = (int*)digits;
-  int* dstart = counts + maxb;
-  const size_t place_shmem = bd_place_shmem(maxb);
-  cudaFuncSetAttribute(bd_place, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)place_shmem);
-  Words src{nullptr, (const int*)bins, bstride, (const unsigned char*)valid, nbins};
-  int shift = 0;
-  for (int p = 0; p < passes && n > 0; ++p) {
-    const int width = bits / passes + (p < bits % passes);
-    const int nd = 1 << width, nb = nd + 1;
-    long long* out = wbuf[p % 2];
-    bd_count<<<(int)nseg, kWarpsPerCta * kWarp, sizeof(int) * nb, s>>>(src, n, shift, nd,
-                                                                        seg_counts);
-    bo_scan<<<nb, 1024, 0, s>>>(seg_counts, nseg, nb, seg_base, counts);
-    bd_starts<<<1, kWarp, 0, s>>>(counts, nb, dstart);
-    bd_place<<<(int)nseg, kWarpsPerCta * kWarp, bd_place_shmem(nb), s>>>(
-        src, n, shift, nd, seg_base, dstart, out);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = Words{out, nullptr, 0, nullptr, nbins};
-    shift += width;
+  if (n >= (1LL << 30) || nbins < 1 || nbins >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const CsrLayout L = csr_layout(n, nbins);
+  char* base = (char*)scratch;
+  int* sbin = (int*)(base + L.sbin);
+  if (n > 0) {
+    cudaMemsetAsync(base, 0, L.zeroed, s);
+    const long long want = (n + kThreads * kCountItems - 1) / (kThreads * kCountItems);
+    csr_count<<<(int)(want < kCountCtas ? want : kCountCtas), kThreads, 0, s>>>(
+        (const int*)bins, bstride, (const unsigned char*)valid, n, nbins, L.plan,
+        (int*)(base + L.counts), (int*)base + kMaxPasses);
+    Words src{nullptr, (const int*)bins, bstride, (const unsigned char*)valid, nbins};
+    for (int p = 0; p < L.plan.passes; ++p) {
+      const bool last = p == L.plan.passes - 1;
+      long long* out = last ? nullptr : (long long*)(base + L.words[p % 2]);
+      const int nd = L.plan.nd[p];
+      const size_t shmem = csr_pass_shmem(nd + 1);
+      cudaFuncSetAttribute(csr_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      csr_pass<<<(int)L.tiles, kThreads, shmem, s>>>(
+          src, n, L.plan.shift[p], nd, (const int*)(base + L.counts) + p * kDigitStride,
+          (int*)base + p, (unsigned*)(base + L.status[p]), out, last ? (int*)order : nullptr,
+          last ? sbin : nullptr, (int)nbins);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      src = Words{out, nullptr, 0, nullptr, nbins};
+    }
   }
-  const long long threads = (n > nbins + 1 ? n : nbins + 1);
-  csr_finish<<<(int)((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      n > 0 ? src.words : nullptr, n, nbins, (int*)order, (int*)start);
+  csr_starts<<<grid_for(nbins + 1), kThreads, 0, s>>>(sbin, n, nbins, (int*)start);
   return (int)cudaGetLastError();
 }
 
@@ -843,15 +1110,20 @@ int histogram_launch(const void* bins, const void* valid, long long n, int nbins
   cudaMemsetAsync(counts, 0, sizeof(int) * nbins, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n == 0) return (int)err;
-  const long long cap = 132LL * 8;          // a few blocks per SM: one flush each
-  long long blocks = (n + kThreads - 1) / kThreads;
-  const int grid = (int)(blocks < cap ? blocks : cap);
-  if (nbins <= kMaxSharedBins)
+  const long long want = (n + kThreads * kGroup - 1) / (kThreads * kGroup);
+  const long long cap = kSMs * 8LL;        // a few CTAs per SM: one flush each
+  const int grid = (int)(want < cap ? want : cap);
+  const bool vec = ((uintptr_t)bins | (uintptr_t)valid) % 16 == 0;
+  if (nbins <= kFewBins) {
     histogram_kernel<true><<<grid, kThreads, sizeof(int) * nbins, s>>>(
-        (const int*)bins, (const unsigned char*)valid, n, nbins, (int*)counts);
-  else
-    histogram_kernel<false><<<grid, kThreads, 0, s>>>(
-        (const int*)bins, (const unsigned char*)valid, n, nbins, (int*)counts);
+        (const int*)bins, (const unsigned char*)valid, n, nbins, vec, 1, (int*)counts);
+  } else {
+    // a copy of the counters per warp while they fit, else fewer (0: global)
+    int copies = nbins <= kMaxSharedBins ? kMaxSharedBins / nbins : 0;
+    copies = copies < kWarpsPerCta ? copies : kWarpsPerCta;
+    histogram_kernel<false><<<grid, kThreads, sizeof(int) * copies * nbins, s>>>(
+        (const int*)bins, (const unsigned char*)valid, n, nbins, vec, copies, (int*)counts);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""Exchange wire kernels: ``bin_offsets``, ``pack_rows``, ``place_rows``,
-``ragged_slots``, ``row_mix`` and ``histogram``.
+"""Exchange wire kernels: ``bin_offsets`` (and ``bin_csr``), ``pack_rows``,
+``place_rows``, ``ragged_slots``, ``row_mix`` and ``histogram``.
 
 Each wrapper launches its hand-written CUDA kernel
 (``csrc/binning.cu``) on a CUDA tensor and takes its plain PyTorch
@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.hashing import fmix32
 from repro_torch.core.object_container import scatter_rows
 from repro_torch.core.u32 import M32, as_u64, mul32, to_i32
-from repro_torch.kernels.build import Kernel, register
+from repro_torch.kernels.build import Kernel, library, register
 
 _I32 = torch.int32
 _P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -29,12 +29,11 @@ LAUNCH_BINS = 1023
 #: bits of the bin one bin_csr pass sorts by (``kDigitBits``)
 DIGIT_BITS = 10
 _TILE_ITEMS = 4096                       # items per bin_offsets CTA (``kTileItems``)
-_DIGIT_SEG_ITEMS = 8 * 1024              # words per bin_csr CTA (``kDigitSegItems``)
 
 _BIN_OFFSETS = register("bin_offsets", Kernel(
     "binning", "bin_offsets_launch", [_P, _P, _LL, _INT, _P, _P, _P]))
 _BIN_CSR = register("bin_csr", Kernel(
-    "binning", "bin_csr_launch", [_P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P]))
+    "binning", "bin_csr_launch", [_P, _LL, _P, _LL, _LL, _P, _P, _P]))
 _PACK_ROWS = register("pack_rows", Kernel(
     "binning", "pack_rows_launch",
     [_P, _INT, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _INT, _INT, _LL, _LL, _P]))
@@ -110,12 +109,24 @@ def bin_csr_plain(bins: torch.Tensor, nbins: int, valid: torch.Tensor):
     return order.to(_I32), start.to(_I32)
 
 
+def _csr_scratch_bytes(n: int, nbins: int) -> int:
+    """Bytes of scratch one ``bin_csr`` launch takes (its C layout's own count)."""
+    fn = library(_BIN_CSR.source).bin_csr_scratch_bytes
+    fn.argtypes = [_LL, _LL]
+    fn.restype = _LL
+    return fn(n, nbins)
+
+
 def bin_csr(bins: torch.Tensor, nbins: int, valid: torch.Tensor):
-    """:func:`bin_csr_plain` for any ``nbins``, bit for bit.
+    """:func:`bin_csr_plain` for any ``nbins``, bit for bit (on the card:
+    fewer than 2**30 items).
 
     CUDA: ``bin_csr`` in ``csrc/binning.cu``, a stable counting sort by
-    least-significant digit (:func:`digit_widths`); ``bins`` may be a
-    strided column (the exchange segment's block lane).
+    least-significant digit (:func:`digit_widths`): one memset, one count
+    pass over every digit, one launch per digit (tiles ranked in order,
+    each digit's prefix across tiles by a decoupled look-back) and one
+    pass writing the starts.  ``bins`` may be a strided column (the
+    exchange segment's block lane).
     """
     if not bins.is_cuda:
         return bin_csr_plain(bins, nbins, valid)
@@ -125,16 +136,13 @@ def bin_csr(bins: torch.Tensor, nbins: int, valid: torch.Tensor):
         raise ValueError(f"bin_csr bins: want an int32 vector, got {bins.dtype} "
                          f"{tuple(bins.shape)}")
     require(valid, "bin_csr valid", torch.bool, (n,), dev)
-    if not 1 <= nbins < 1 << 31:
-        raise ValueError(f"bin_csr: {nbins} bins")
-    maxb = (1 << DIGIT_BITS) + 1
-    words = torch.empty(2 * n, dtype=torch.int64, device=dev)
-    seg = torch.empty(2 * -(-n // _DIGIT_SEG_ITEMS) * maxb, dtype=_I32, device=dev)
-    digits = torch.empty(2 * maxb, dtype=_I32, device=dev)
+    if not 1 <= nbins < 1 << 31 or n >= 1 << 30:
+        raise ValueError(f"bin_csr: {n} items into {nbins} bins (fewer than 2**30 items, "
+                         f"1 to 2**31 - 1 bins)")
+    scratch = torch.empty(-(-_csr_scratch_bytes(n, nbins) // 8), dtype=torch.int64, device=dev)
     order = torch.empty(n, dtype=_I32, device=dev)
     start = torch.empty(nbins + 1, dtype=_I32, device=dev)
-    _BIN_CSR(bins, bins.stride(0) if n else 1, valid, n, nbins, words, seg, digits, order,
-             start)
+    _BIN_CSR(bins, bins.stride(0) if n else 1, valid, n, nbins, scratch, order, start)
     return order, start
 
 
@@ -351,8 +359,11 @@ def histogram_plain(bins: torch.Tensor, nbins: int, valid: torch.Tensor) -> torc
 def histogram(bins: torch.Tensor, nbins: int, valid: torch.Tensor) -> torch.Tensor:
     """Per-bin valid counts (:func:`histogram_plain`), exact integers.
 
-    CUDA: per-block counts in shared memory with warp-aggregated atomics,
-    one flush per block to global memory.
+    CUDA: 16-byte loads of the bins, 512 items a warp a step; up to 4 bins
+    one ballot per bin and item (the warp's counts in registers), above
+    lanes of equal bins merged by ``__match_any_sync`` into per-warp shared
+    counters; one flush per block to global memory (past 12288 bins,
+    global atomics).
     """
     if not bins.is_cuda:
         return histogram_plain(bins, nbins, valid)

@@ -190,7 +190,7 @@ def test_serial_backend_and_pointers():
     p = from_global_index(torch.tensor([0, 9, 17]), 8)
     assert p.rank.tolist() == [0, 1, 2] and p.offset.tolist() == [0, 1, 1]
     assert global_index(p + 1, 8).tolist() == [1, 10, 18]
-    assert GlobalPointer.null((2,)).is_null().all()
+    assert GlobalPointer.null((2,), device="cpu").is_null().all()
 
 
 def _imports(path: pathlib.Path):

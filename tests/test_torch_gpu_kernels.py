@@ -162,6 +162,26 @@ def test_bin_csr_kernel(dev, n, nbins):
     _eq(binning.bin_csr(col, nbins, valid), binning.bin_csr_plain(col, nbins, valid))
 
 
+#: bin_csr's tiles hold 8192 words
+@pytest.mark.parametrize("n,nbins,vfrac,stride", [
+    (8191, 1025, 0.9, 1), (8192, 1025, 0.9, 1), (8193, 1025, 0.9, 3), (24577, 1, 0.9, 1),
+    (40000, 1, 0.5, 2), (50000, 1025, 0.0, 1), (50000, 1 << 20, 0.0, 3),
+    (1 << 19, 1 << 20, 0.9, 3), (2 * 132 * 8192 - 1, 1 << 20, 0.9, 1),
+    ((1 << 22) + 1, 1 << 20, 0.9, 3), (3 << 20, 1025, 0.9, 1)])
+def test_bin_csr_tiles(dev, n, nbins, vfrac, stride):
+    """The CSR at its tile edges, all invalid, bins in a strided column (the
+    exchange segment's block lane), 1, 1025 and 2**20 bins, up to 512
+    tiles; one crowded bin in a third of the items.  One launch of the
+    wrapper each."""
+    rng = np.random.default_rng(n + nbins + stride)
+    wide = _i32(rng, (n, stride), -1, nbins + 1)
+    wide[: n // 3, 0] = nbins // 2
+    col, valid = wide.to(dev)[:, 0], torch.from_numpy(rng.random(n) < vfrac).to(dev)
+    before = binning._BIN_CSR.launches
+    _eq(binning.bin_csr(col, nbins, valid), binning.bin_csr_plain(col, nbins, valid))
+    assert binning._BIN_CSR.launches - before == 1
+
+
 def test_multi_bin_offsets_many_ranks(dev):
     """P x F = 256 x 5 composite bins: past one launch's bins."""
     rng = np.random.default_rng(256)
@@ -424,7 +444,8 @@ def test_ragged_slots_kernel(dev, n, rnd):
 
 
 @pytest.mark.parametrize("n,nbins", [(0, 3), (1, 1), (1000, 5), (70001, 1023),
-                                     (50000, 20000), (3 << 20, 2)])
+                                     (50000, 20000), (3 << 20, 2), (100003, 1), (100003, 2),
+                                     (100003, 3), (100003, 12288), (100003, 12289)])
 def test_histogram_kernel(dev, n, nbins):
     rng = np.random.default_rng(n + nbins)
     bins = _i32(rng, (n,), -2, nbins + 2).to(dev)     # out-of-range bins are not counted
@@ -432,6 +453,14 @@ def test_histogram_kernel(dev, n, nbins):
     got = binning.histogram(bins, nbins, valid)
     _eq(got, binning.histogram_plain(bins, nbins, valid))
     assert int(got.sum()) == int((valid & (bins >= 0) & (bins < nbins)).sum())
+
+
+def test_histogram_unaligned(dev):
+    """Views that start off a 16-byte boundary: the item-by-item loads."""
+    rng = np.random.default_rng(11)
+    bins = _i32(rng, (70001,), -2, 5).to(dev)[3:]
+    valid = torch.from_numpy(rng.random(70001) < 0.7).to(dev)[3:]
+    _eq(binning.histogram(bins, 3, valid), binning.histogram_plain(bins, 3, valid))
 
 
 def _close_attention(got, want):

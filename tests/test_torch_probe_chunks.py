@@ -2,9 +2,15 @@
 
 ``csrc/hash_probe.cu`` and ``csrc/binning.cu`` run only on the card.
 ``emulate_bin_csr`` repeats ``bin_csr``, the probes' CSR: a stable
-counting sort of the items by digits of their block, pass for pass
-(segment counts, scan, each warp's ordered walk ranking equal digits,
-the segment sorted in shared memory and written out by digit runs).
+counting sort of the items by digits of their block: the count pass over
+every digit, then one pass per digit (each warp ranking its words in
+order 32 a step, a tile publishing its aggregates, sorting itself by
+digit and looking back a thread per digit over the earlier tiles' status
+words, the tiles advancing in seeded random interleavings; the tile
+written out by digit runs), then the starts from the sorted bins.
+``emulate_histogram`` repeats ``histogram_kernel``: 512 items a warp a
+step, ballots up to 4 bins, shared counters (per warp while they fit)
+above, global ones past 12288 bins.
 ``emulate_insert`` repeats ``probe_insert_blocks`` step for step: the
 staged block, its FREE and READY slots listed by ballot prefix counts,
 and per step of 32 lanes: each lane's first READY match (``list_match``:
@@ -19,9 +25,10 @@ the sparse batches' route, one warp per query.  ``bin_offsets``' large-bin
 composition (``binning.bin_offsets_lsd``) runs over ``emulate_bin_csr``.
 
 Each is held against the plain versions (``bin_csr_plain``,
-``insert_plain``, ``find_plain``, ``bin_offsets_plain``) and the JAX
-package's jnp path, bit for bit: every output is integer.  Inputs come
-from numpy with a seed.
+``insert_plain``, ``find_plain``, ``bin_offsets_plain``,
+``histogram_plain``) and the JAX package (its jnp path; the Pallas
+histogram in interpret mode), bit for bit: every output is integer.
+Inputs come from numpy with a seed.
 """
 
 import jax.numpy as jnp
@@ -29,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import binning as jbinning
 from repro.kernels import ops as jops
 from repro_torch.kernels import binning, hash_probe
 from repro_torch.kernels.ref import MODE_ADD, MODE_KEEP, MODE_SET
@@ -327,63 +335,172 @@ def test_find_blocks_out_of_range():
     assert torch.equal(_t(found), pf) and torch.equal(_t(vals), pv)
 
 
-def _emulate_digit_pass(w: np.ndarray, shift: int, nd: int) -> np.ndarray:
-    """One bin_csr pass: bd_count per CTA segment of 8192 words, bo_scan
-    across segments, bd_starts, and bd_place: each warp recounts its 1024
-    words and walks them 32 at a time, a lane's place in the segment its
-    digit's local start plus its warp's base plus its rank among the lower
-    lanes of equal digit (``__match_any_sync``); the segment, so sorted,
-    goes out each digit's run at the digit's global base."""
-    n, nb = w.shape[0], nd + 1
-    d = np.where(w >= 0, (w >> (32 + shift)) & (nd - 1), nd)
-    seg, sub = 8 * 1024, 1024
-    nseg = -(-n // seg)
-    seg_counts = np.stack([np.bincount(d[g * seg:(g + 1) * seg], minlength=nb)
-                           for g in range(nseg)])
-    seg_base = np.cumsum(seg_counts, 0) - seg_counts
-    counts = seg_counts.sum(0)
-    start = np.cumsum(counts) - counts
-    out = np.empty_like(w)
-    for g in range(nseg):
-        lo_seg, hi_seg = g * seg, min((g + 1) * seg, n)
-        local = np.cumsum(seg_counts[g]) - seg_counts[g]
-        glob = start + seg_base[g]
-        buf = np.empty(hi_seg - lo_seg, np.int64)
-        acc = np.zeros(nb, np.int64)
-        for wp in range(8):
-            lo = min(lo_seg + wp * sub, hi_seg)
-            hi = min(lo + sub, hi_seg)
-            run = acc.copy()
-            acc = acc + np.bincount(d[lo:hi], minlength=nb)
-            for base in range(lo, hi, LANES):
-                lanes = d[base:min(base + LANES, hi)]
-                for lane, dd in enumerate(lanes):
-                    rank = int((lanes[:lane] == dd).sum())
-                    buf[local[dd] + run[dd] + rank] = w[base + lane]
-                for dd in np.unique(lanes):
-                    run[dd] += int((lanes == dd).sum())
-        for i, x in enumerate(buf):
-            dd = (x >> (32 + shift)) & (nd - 1) if x >= 0 else nd
-            out[glob[dd] + i - local[dd]] = x
-    return out
+WARPS = 8
+X, A, P = 0, 1, 2            # status flags: nothing published, aggregate, prefix
 
 
-def emulate_bin_csr(bins: torch.Tensor, nbins: int, valid: torch.Tensor):
-    """bin_csr on the CPU: the words bin << 32 | index (negative when not
-    live), one emulated pass per digit of ``digit_widths``, then each
-    place's index and each bin's start by binary search."""
+STEPS = 32                   # words a csr_pass lane holds: 8192-word tiles (``kCsrSteps``)
+
+
+def count_item(b: np.ndarray, cnt: np.ndarray) -> None:
+    """count_item for a step of items: one shared atomicAdd per item whose
+    bucket is not negative."""
+    np.add.at(cnt, b[b >= 0], 1)
+
+
+def _digits(w: np.ndarray, shift: int, nd: int) -> np.ndarray:
+    return np.where(w >= 0, (w >> (32 + shift)) & (nd - 1), nd)
+
+
+def emulate_count(bins, valid, nbins, plan, ctas: int = 3) -> list:
+    """csr_count: each CTA counts every pass's digits of its items (grid
+    stride) in shared counters and flushes them with atomics; the last CTA
+    to finish scans each pass's counts into digit starts."""
+    n = bins.shape[0]
+    live = valid & (bins >= 0) & (bins < nbins)
+    counts = [np.zeros(nd + 1, np.int64) for _, nd in plan]
+    for cta in range(ctas):
+        items = (np.arange(n) // 256) % ctas == cta
+        for (shift, nd), cnt in zip(plan, counts):
+            tally = np.zeros(nd + 1, np.int64)
+            count_item(np.where(live[items], (bins[items] >> shift) & (nd - 1), nd), tally)
+            cnt += tally                               # the flush
+    return [np.cumsum(c) - c for c in counts]
+
+
+def rank_tile(d: np.ndarray, nb: int, steps: int):
+    """Each warp's chunk of a tile in order, 32 words a step: each word's
+    rank among its digit's words in the chunk (its peers: the lanes whose
+    digit agrees with it in every bit, one ballot per bit; the lowest peer
+    advances the warp's count), and each warp's counts."""
+    chunk = LANES * steps
+    rank = np.zeros(d.shape[0], np.int64)
+    wcnt = np.zeros((WARPS, nb), np.int64)
+    for w in range(WARPS):
+        run = wcnt[w]
+        for s in range(w * chunk, min((w + 1) * chunk, d.shape[0]), LANES):
+            step = d[s:s + LANES]
+            peers = np.ones((step.shape[0], step.shape[0]), bool)
+            for bit in range(int(nb).bit_length()):  # one ballot per bit
+                set_ = (step >> bit) & 1
+                peers &= set_[:, None] == set_[None, :]
+            prior = run[step]                          # every peer reads the count first
+            rank[s:s + LANES] = prior + np.tril(peers, -1).sum(1)
+            run[step] = prior + peers.sum(1)           # then the lowest peer advances it
+    return rank, wcnt
+
+
+def look_back(flag, val, t: int, nb: int):
+    """Each digit's count in the tiles before tile t, a thread per digit (all
+    at once) reading one earlier tile a time back to an inclusive prefix (a
+    word not yet published is read again); yields at every read, so other
+    tiles advance in between."""
+    ex = np.zeros(nb, np.int64)
+    p = np.full(nb, t - 1)
+    done = np.zeros(nb, bool)
+    k = np.arange(nb)
+    while not done.all():
+        yield
+        f = np.where(done, X, flag[p, k])
+        seen = ~done & (f != X)
+        ex[seen] += val[p[seen], k[seen]]
+        done |= seen & (f == P)
+        p[seen & ~done] -= 1
+    return ex
+
+
+def emulate_pass(words, n, shift, nd, dstart, steps, last, nbins, resident, seed):
+    """One csr_pass launch: tiles taking their indices in order and advancing
+    in a seeded random interleaving.  Returns the words (or, the last pass,
+    the order and the sorted bins)."""
+    nb, tile = nd + 1, WARPS * LANES * steps
+    tiles = -(-n // tile)
+    flag = np.zeros((tiles, nb), np.int64)             # zeroed by the call's memset
+    val = np.zeros((tiles, nb), np.int64)
+    out = np.zeros(n, np.int64)
+
+    def tile_proc(t):
+        beg = t * tile
+        w = words[beg:beg + tile]
+        d = _digits(w, shift, nd)
+        rank, wcnt = rank_tile(d, nb, steps)
+        wbase = np.cumsum(wcnt, 0) - wcnt                # each warp's base per digit
+        agg = wcnt.sum(0)
+        flag[t], val[t] = (P if t == 0 else A), agg   # counts, the digit starts apart
+        yield
+        local = np.cumsum(agg) - agg                   # each digit's start in the tile
+        warp = np.arange(w.shape[0]) // (LANES * steps)
+        buf = np.empty_like(w)
+        buf[local[d] + wbase[warp, d] + rank] = w      # the tile sorted by digit
+        ex = (yield from look_back(flag, val, t, nb)) if t > 0 else np.zeros(nb, np.int64)
+        if t > 0:
+            flag[t], val[t] = P, ex + agg
+        assert (val < 1 << 30).all(), "a count fits the status word's 30 bits"
+        base = dstart + ex - local                     # where each digit's run goes, less its start
+        bd = _digits(buf, shift, nd)
+        out[base[bd] + np.arange(buf.shape[0])] = buf  # out by digit runs
+
+    rng = np.random.default_rng(seed)
+    live, started = [], 0
+    while started < tiles or live:
+        while started < tiles and len(live) < resident:  # indices from the counter
+            live.append(tile_proc(started))
+            started += 1
+        proc = live[rng.integers(len(live))]
+        try:
+            next(proc)
+        except StopIteration:
+            live.remove(proc)
+    if not last:
+        return out
+    return out & 0xFFFFFFFF, np.where(out >= 0, out >> 32, nbins)
+
+
+def emulate_starts(sbin: np.ndarray, nbins: int) -> np.ndarray:
+    """csr_starts: each bin's start, a binary search of the sorted bins for
+    the first place whose bin is the bin or more."""
+    b = np.arange(nbins + 1)
+    lo, hi = np.zeros_like(b), np.full_like(b, sbin.shape[0])
+    while (lo < hi).any():                             # every bin's search, a step at a time
+        open_ = lo < hi
+        mid = (lo + hi) // 2
+        below = open_ & (sbin[np.minimum(mid, max(sbin.shape[0] - 1, 0))] < b) \
+            if sbin.shape[0] else np.zeros_like(open_)
+        lo = np.where(below, mid + 1, lo)
+        hi = np.where(open_ & ~below, mid, hi)
+    return lo
+
+
+def emulate_bin_csr(bins: torch.Tensor, nbins: int, valid: torch.Tensor, steps=None,
+                    resident: int = 4, seed: int = 0):
+    """bin_csr on the CPU: the count pass, one emulated csr_pass per digit of
+    ``digit_widths`` (the first making the words bin << 32 | index, negative
+    when not live), then the starts.  ``steps``: words a lane holds (the
+    kernel's by default; fewer make small tiles)."""
     b, v = bins.numpy().astype(np.int64), valid.numpy()
     n = b.shape[0]
+    widths = binning.digit_widths(nbins)
+    plan = [(sum(widths[:p]), 1 << wd) for p, wd in enumerate(widths)]
+    steps = STEPS if steps is None else steps
     live = v & (b >= 0) & (b < nbins)
     w = np.where(live, b << 32, -(1 << 32)) | np.arange(n)
-    shift = 0
-    for width in binning.digit_widths(nbins):
-        w = _emulate_digit_pass(w, shift, 1 << width) if n else w
-        shift += width
-    sbin = np.where(w >= 0, w >> 32, nbins)
-    start = np.searchsorted(sbin, np.arange(nbins + 1), side="left")
-    return (torch.from_numpy((w & 0xFFFFFFFF).astype(np.int32)),
+    order, sbin = np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if n:
+        dstarts = emulate_count(b, v, nbins, plan)
+        for p, ((shift, nd), dstart) in enumerate(zip(plan, dstarts)):
+            w = emulate_pass(w, n, shift, nd, dstart, steps, p == len(plan) - 1, nbins,
+                             resident, seed + p)
+        order, sbin = w
+    start = emulate_starts(sbin, nbins)
+    return (torch.from_numpy(order.astype(np.int32)),
             torch.from_numpy(start.astype(np.int32)))
+
+
+def _check_csr(bins, nbins, valid, **kw):
+    got = emulate_bin_csr(_t(bins), nbins, _t(valid), **kw)
+    want = binning.bin_csr_plain(_t(bins), nbins, _t(valid))
+    assert torch.equal(got[0], want[0]), "order vs bin_csr_plain"
+    assert torch.equal(got[1], want[1]), "start vs bin_csr_plain"
 
 
 @pytest.mark.parametrize("n,nbins", [(5000, 1024), (20000, 4096), (3000, 1 << 20), (0, 2048)])
@@ -397,14 +514,10 @@ def test_bin_csr_digit_passes(n, nbins):
     bins = np.where(rng.random(n) < 0.5, hot[rng.integers(0, 40, n)],
                     rng.integers(0, nbins, n)).astype(np.int32)
     valid = rng.random(n) < 0.85
-    got = emulate_bin_csr(_t(bins), nbins, _t(valid))
-    want = binning.bin_csr_plain(_t(bins), nbins, _t(valid))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _check_csr(bins, nbins, valid)
     wild = bins.copy()
     wild[::17] = np.where(np.arange(len(wild[::17])) % 2, -3, nbins + 5)   # not live
-    got = emulate_bin_csr(_t(wild), nbins, _t(valid))
-    want = binning.bin_csr_plain(_t(wild), nbins, _t(valid))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _check_csr(wild, nbins, valid)
 
     offs = binning.bin_offsets_lsd(_t(bins), nbins, _t(valid), emulate_bin_csr)
     plain = binning.bin_offsets_plain(_t(bins), nbins, _t(valid))
@@ -412,6 +525,47 @@ def test_bin_csr_digit_passes(n, nbins):
     jc, jo = jops.bin_offsets(jnp.asarray(bins), nbins, jnp.asarray(valid), impl="jnp")
     assert torch.equal(offs[0], _t(np.asarray(jc)))
     assert torch.equal(offs[1][_t(valid)], _t(np.asarray(jo))[_t(valid)])
+
+
+TILE = WARPS * LANES * STEPS      # csr_pass's tile
+
+
+@pytest.mark.parametrize("n,nbins", [(TILE - 1, 3000), (TILE, 3000), (TILE + 1, 3000),
+                                     (TILE + 1, 1), (TILE - 1, 1 << 20)])
+def test_bin_csr_tile_edges(n, nbins):
+    """At the tile's edges: one full tile, one short of it, one word past it
+    (a second tile of one word); one bin (one pass of two digits and the
+    not-live one) and two passes."""
+    rng = np.random.default_rng(n * 7 + nbins)
+    bins = rng.integers(-1, nbins + 1, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    _check_csr(bins, nbins, valid)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bin_csr_hot_bin(seed):
+    """Several tiles where nine items in ten fall in one bin: each digit's
+    run spans tiles, most digits absent from a tile (aggregate 0), and the
+    look-back crosses tiles that have published only aggregates."""
+    rng = np.random.default_rng(seed)
+    n, nbins = 3 * TILE + 333, 5000
+    bins = np.where(rng.random(n) < 0.9, 4321, rng.integers(0, nbins, n)).astype(np.int32)
+    valid = rng.random(n) < 0.95
+    _check_csr(bins, nbins, valid, resident=2 + 3 * seed, seed=seed)
+
+
+@pytest.mark.parametrize("resident", [2, 7, 40])
+def test_bin_csr_interleavings(resident):
+    """Tiles of 256 words (one word a lane) advancing in seeded random
+    interleavings, 2 to 40 at a time: every order of completion gives the
+    stable CSR."""
+    rng = np.random.default_rng(resident)
+    n, nbins = 7000, 2000
+    bins = rng.integers(0, nbins, n).astype(np.int32)
+    bins[: n // 3] = np.sort(bins[: n // 3])          # runs of equal bins
+    valid = rng.random(n) < 0.8
+    for seed in range(2):
+        _check_csr(bins, nbins, valid, steps=1, resident=resident, seed=seed)
 
 
 def test_digit_widths():
@@ -434,3 +588,67 @@ def test_bin_queries_is_a_stable_csr():
     assert np.array_equal(start.numpy(), np.searchsorted(key[want], np.arange(nb + 1)))
     assert all(torch.equal(a, b) for a, b in zip(
         emulate_bin_csr(_t(qb), nb, _t(valid)), (order, start)))
+
+
+# --------------------------------------------------------------------------
+# histogram
+# --------------------------------------------------------------------------
+
+FEW_BINS = 4                  # up to this many bins: ballots (``kFewBins``)
+MAX_SHARED_BINS = 12288       # above: global atomics (``kMaxSharedBins``)
+GROUP = 16                    # items a lane loads a step (``kGroup``)
+
+
+def emulate_histogram(bins: np.ndarray, nbins: int, valid: np.ndarray) -> np.ndarray:
+    """histogram_kernel: each warp takes 512 items a step, lane l holding
+    items 4 (32 q + l) + e (16-byte loads), then counts its 16 items: one
+    ballot per bin and item up to 4 bins (the warp's counts in registers),
+    else count_item into its warp's copy of the counters (one copy per
+    warp while 12288 counters allow; past 12288 bins the global counts);
+    one flush per CTA."""
+    n = bins.shape[0]
+    grid = min(-(-n // (256 * GROUP)), 132 * 8)
+    copies = 0 if nbins > MAX_SHARED_BINS else min(WARPS, MAX_SHARED_BINS // nbins)
+    counts = np.zeros(nbins, np.int64)
+    lane = np.arange(LANES)
+    item = (4 * (LANES * np.arange(4)[:, None] + lane[None, :]))[:, None, :] \
+        + np.arange(4)[None, :, None]                  # [q, e, lane]
+    item = item.reshape(GROUP, LANES)                  # [4 q + e, lane]
+    for cta in range(grid):
+        shared = np.zeros((max(copies, 1), nbins), np.int64)
+        for warp in range(WARPS):
+            few = np.zeros(FEW_BINS, np.int64)
+            cnt = shared[warp % copies] if copies else counts
+            for i0 in range((cta * WARPS + warp) * LANES * GROUP, n,
+                            grid * WARPS * LANES * GROUP):
+                i = i0 + item
+                b = np.where(i < n, bins[np.minimum(i, n - 1)], -1)
+                ok = (i < n) & valid[np.minimum(i, n - 1)] & (b >= 0) & (b < nbins)
+                b = np.where(ok, b, -1)
+                for j in range(GROUP):
+                    if nbins <= FEW_BINS:
+                        few[:nbins] += [(b[j] == k).sum() for k in range(nbins)]
+                    else:
+                        count_item(b[j], cnt)
+            if nbins <= FEW_BINS:
+                shared[0] += few[:nbins]
+        if nbins <= FEW_BINS or copies:
+            counts += shared.sum(0)
+    return counts.astype(np.int32)
+
+
+@pytest.mark.parametrize("nbins", [1, 2, 3, 1024, 12289])
+def test_histogram_lanes(nbins):
+    """The emulated histogram equals the plain version and the Pallas kernel
+    (interpret mode): ballots at 1-3 bins, per-warp counters at 1024, global
+    counters past 12288; bins outside range and a ragged last step."""
+    rng = np.random.default_rng(nbins)
+    n = 3 * 512 + 77
+    bins = rng.integers(-2, nbins + 2, n).astype(np.int32)
+    bins[:300] = nbins // 2                            # one crowded bin
+    valid = rng.random(n) < 0.8
+    got = emulate_histogram(bins, nbins, valid)
+    assert torch.equal(_t(got), binning.histogram_plain(_t(bins), nbins, _t(valid)))
+    want = jbinning.histogram(jnp.asarray(bins), nbins, jnp.asarray(valid), tile=512)
+    assert np.array_equal(got, np.asarray(want))
+    assert got.sum() == (valid & (bins >= 0) & (bins < nbins)).sum()
