@@ -9,7 +9,9 @@ Phases, each fatal on failure:
   2. build the kernels from the four sources in src/repro_torch/csrc, one
      nvcc per source, all at once (ptxas registers and spills of every
      kernel; registers, local bytes and shared memory of each instance of
-     the bf16 flash_attention kernel as the card reports them);
+     both flash_attention routes as the card reports them, and the count
+     of tensor-core instructions in the float32 route's SASS, from
+     cuobjdump);
   3. kernel phase: a short probe of the paths records each kernel's
      largest call (ragged_slots takes the inputs of the extensions path's
      first pack_rows call, histogram the bins of its largest
@@ -18,12 +20,16 @@ Phases, each fatal on failure:
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function; flash_attention is held
-     against its plain version on six cases (the serving path's prefill
+     against its plain version on ten cases (the serving path's prefill
      call, D=320 with a window, D=256, Tq=1 < Tk, non-causal with a
-     ragged key tile: the bf16 tensor-core route; float32: the CUDA-core
-     route, flash_attention_f32) elementwise (bf16 within one ulp of each
-     element, float32 at 3e-5; attention_close), timed on the first
-     beside scaled_dot_product_attention (their ratio printed); a fixed
+     ragged key tile: the bf16 wgmma route; float32, the 3xTF32 route
+     flash_attention_f32: the kernel-phase call at D=128, D=16 at 2048
+     tokens, D=320 with a window, and the float32 serve phase's prefill
+     call, 4 slots of 32 tokens at D=16, without and with its 16-key
+     window) elementwise
+     (bf16 within one ulp of each element, float32 at 3e-5;
+     attention_close), each route's row timed beside
+     scaled_dot_product_attention (their ratio printed); a fixed
      large-bin bin_offsets case (2**24 items into 2**20 bins, past one
      launch of its kernel: the bin_csr route) held bit for bit; the wire
      split: bin_offsets and pack_rows held bit for bit and timed at their
@@ -68,7 +74,18 @@ Phases, each fatal on failure:
      matmuls; the first layer's attention output on wave 0's prompts
      (lm.forward of the model cut to one layer) is held kernel vs plain
      at LAYER_REL_L2, and two faults planted around the kernel's wrapper
-     must each break that check.
+     must each break that check;
+  8. float32 serve phase: repro_torch.launch.serve.main, as a user runs
+     it, with the JAX package's own float32 configurations (--arch
+     qwen3-4b --reduced, and gemma3-4b --reduced, whose local layers
+     carry a 16-key window): its prefills run flash_attention_f32 once
+     per layer and wave and never the bf16 route; each layer's prefill
+     call of wave 0, captured as the run made it, is held against the
+     plain version on its inputs elementwise at 3e-5 (attention_close);
+     a plain run of the same model and prompts, teacher-forced with its
+     tokens, gives logits within F32_SERVE_REL_L2 of it at every step;
+     a control run with Q, K and V rounded to TF32 before the kernel
+     (one TF32 pass) must break both checks.
 Each path runs through the port's entry points (the containers on a
 SerialBackend), with the kernels (launch counts reset just before, read
 just after) and with the plain versions; the two runs must pass the
@@ -88,6 +105,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -116,12 +134,15 @@ from repro_torch.data import genomics as gen  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import binning, bloom_kernel, build, hash_probe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ops import MODE_ADD  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (float32)
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 
 FULL = dict(capacity=1 << 26, block=64, wave=1 << 23, waves=4, find=1 << 23,
@@ -167,6 +188,10 @@ FLASH_FULL = {
     "suffix_tq1": (8, 32, 8, 1, 2048, 128, True, 0, BF16),
     "noncausal_ragged": (2, 8, 8, 1000, 1000, 128, False, 0, BF16),
     "f32": (2, 16, 4, 777, 777, 128, True, 0, F32),
+    "f32_d16": (4, 16, 4, 2048, 2048, 16, True, 0, F32),
+    "f32_d320_window": (2, 8, 4, 2048, 2048, 320, True, 1024, F32),
+    "f32_serve_prefill": (4, 4, 4, 32, 32, 16, True, 0, F32),
+    "f32_serve_prefill_window": (4, 4, 4, 32, 32, 16, True, 16, F32),
 }
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
@@ -175,6 +200,10 @@ FLASH_REHEARSAL = {
     "suffix_tq1": (2, 4, 2, 1, 40, 16, True, 0, BF16),
     "noncausal_ragged": (1, 2, 2, 40, 40, 16, False, 0, BF16),
     "f32": (1, 4, 2, 37, 37, 16, True, 0, F32),
+    "f32_d16": (1, 4, 2, 70, 70, 16, True, 0, F32),
+    "f32_d320_window": (1, 2, 1, 70, 70, 320, True, 24, F32),
+    "f32_serve_prefill": (4, 4, 4, 32, 32, 16, True, 0, F32),
+    "f32_serve_prefill_window": (4, 4, 4, 32, 32, 16, True, 16, F32),
 }
 
 # name -> (module, wrapper, plain, source, TPU kernel it replaces)
@@ -209,7 +238,7 @@ KERNELS = {
                      "src/repro_torch/csrc/binning.cu", "src/repro/kernels/binning.py:139"),
     "histogram": (binning, "histogram", "histogram_plain", "src/repro_torch/csrc/binning.cu",
                   "src/repro/kernels/binning.py:368"),
-    # one TPU kernel, two routes by dtype: bf16 on the tensor cores, float32 on the CUDA cores
+    # one TPU kernel, two routes by dtype: bf16 by wgmma, float32 by 3xTF32 mma.sync
     "flash_attention": (fa, "flash_attention", "flash_attention_plain",
                         "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
@@ -227,7 +256,8 @@ SERVING_KERNELS = ("flash_attention",)
 WIRE_KERNELS = ("bin_offsets", "pack_rows")
 #: kernels no path reaches (the kernel phase derives their inputs)
 OFF_PATH = ("ragged_slots", "histogram")
-#: the float kernels: held at a tolerance on the cases above, not on captured calls
+#: the float kernels: held at a tolerance on the cases above (and the float32 serve
+#: phase's own calls), not on the paths' captured calls
 FLOAT_KERNELS = ("flash_attention", "flash_attention_f32")
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
@@ -823,6 +853,21 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+def tensor_core_sass(lib: Path, kernel: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each function of ``lib``
+    whose name holds ``kernel``, counted in ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def time_ms(fn, reps: int, dev) -> float:
     fn()
     sync(dev)
@@ -1229,6 +1274,12 @@ def attention_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
     return pairs
 
 
+def f32_within(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Float32 attention outputs within atol = rtol = 3e-5 elementwise."""
+    w = want.float()
+    return bool(((got.float() - w).abs() <= 3e-5 + 3e-5 * w.abs()).all())
+
+
 def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
                     per_element: bool = True) -> tuple[float, str]:
     """Fail unless ``got`` is within the attention tolerance of ``want``:
@@ -1248,8 +1299,7 @@ def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
         scale = 1e-2 * float(w.abs().max())
         tol, ok = f"atol={scale:.4g}", err <= scale
     elif got.dtype == torch.float32:
-        tol = "atol=rtol=3e-5"
-        ok = bool((diff <= 3e-5 + 3e-5 * w.abs()).all())
+        tol, ok = "atol=rtol=3e-5", f32_within(got, want)
     else:
         tol = f"atol={BF16_ATOL:g} rtol=2**-7"
         ok = bool((diff <= BF16_ATOL + BF16_RTOL * w.abs()).all())
@@ -1260,8 +1310,12 @@ def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
 def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
     """flash_attention against its plain version on each case; kernel,
     plain and (the cases the JSON rows report) scaled_dot_product_attention
-    times; the bound from the pairs the mask keeps (4 D flops each) at
-    the type's peak and from the bytes (q, k, v read once, the output
+    times, and on the card the kernel's device time (torch.profiler: the
+    wrapper's host time left out); the bound from the pairs the mask
+    keeps (4 D flops each) at the route's peak (bf16: one pass at the
+    bf16 rate; float32: three TF32 passes at the TF32 rate, with the
+    CUDA-core floor, one pass at the float32 rate, beside it as
+    cuda_core_ms) and from the bytes (q, k, v read once, the output
     written once)."""
     rows = {}
     for i, (case, (b, hq, hkv, tq, tk, d, causal, window, dtype)) in enumerate(cases.items()):
@@ -1283,7 +1337,7 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
             check(ran == {route: 1}, f"flash_attention {case}: one launch of {route}, {ran}")
         err, tol = attention_close(got, want, f"flash_attention {case}: kernel vs plain")
         flops = 4 * b * hq * d * attention_pairs(tq, tk, causal, window)
-        ops_ms = flops / (BF16_OPS_PER_S if dtype == BF16 else OPS_PER_S) * 1e3
+        ops_ms = (flops / BF16_OPS_PER_S if dtype == BF16 else 3 * flops / TF32_OPS_PER_S) * 1e3
         bytes_ms = _nbytes(q, k, v, got) / HBM_BYTES_PER_S * 1e3
         library_ms = None
         if case in FLASH_ROWS.values():
@@ -1300,6 +1354,10 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
             bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms,
             shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], causal=causal, window=window,
                        dtype=str(dtype)))
+        if dtype == F32:
+            row["cuda_core_ms"] = flops / OPS_PER_S * 1e3
+        if dev.type == "cuda":   # the kernel alone, without the wrapper's host time
+            row["device_ms"] = sum(v["ms"] for v in device_ms(kern, reps).values())
         if library_ms is not None:
             row["sdpa_ratio"] = row["ms"] / library_ms    # kernel / the library call
         print(f"kernel flash_attention {case}: " + json.dumps(row), flush=True)
@@ -1482,6 +1540,151 @@ def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# the float32 serve phase: serve.py's main with the reduced configurations
+# --------------------------------------------------------------------------
+
+#: the JAX package's own float32 configurations (configs.reduced), served
+#: by serve.py's main at its default flags (16 requests, 4 slots)
+F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b")
+#: relative L2 gap allowed between the kernel run's logits and the plain
+#: run's at every step: both run in float32 (matmuls too: TF32 off) and
+#: differ only in the attention's summation order and the kernel's 3xTF32
+#: products (about 2**-20 of each product).  It sits between the sound
+#: runs (below 1e-6) and the one-TF32-pass control (above 1e-4)
+F32_SERVE_REL_L2 = 1e-5
+
+
+def tf32_rounded(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds (10 mantissa bits, to
+    nearest, ties away from zero): float32 operands the tensor cores take
+    in one pass without loss."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _one_tf32_pass(real):
+    def control(q, k, v, causal=True, window=0, impl="auto"):
+        return real(*(tf32_rounded(t) for t in (q, k, v)), causal=causal, window=window,
+                    impl=impl)
+    return control
+
+
+def _serve_tapped(arch: str, dev, plant=None, forced=None) -> dict:
+    """``serve.main(["--arch", arch, "--reduced"])`` as a user runs it,
+    its ``serve`` call tapped for the model, the prompts, the tokens and
+    every step's logits, and ``ops.flash_attention`` for the inputs and
+    output of each call (wave 0's prefill makes the first n_layers).
+    ``plant`` wraps ``ops.flash_attention``; ``forced`` feeds these tokens."""
+    logits, calls, seen = {}, [], {}
+    real_serve, real_attn = serve_cli.serve, ops.flash_attention
+    attn = plant(real_attn) if plant else real_attn
+
+    def keep(wave, step, lg):
+        logits[wave, step] = lg.clone()
+
+    def tap_serve(params, cfg, prompts, batch, gen, impl="auto", **kwargs):
+        seen.update(params=params, cfg=cfg, prompts=prompts, batch=batch, gen=gen)
+        seen["tokens"] = real_serve(params, cfg, prompts, batch, gen, impl, on_logits=keep,
+                                    forced=forced, **kwargs)
+        return seen["tokens"]
+
+    def tap_attn(q, k, v, causal=True, window=0, impl="auto"):
+        out = attn(q, k, v, causal=causal, window=window, impl=impl)
+        if len(calls) < seen["cfg"].n_layers:
+            calls.append((q.clone(), k.clone(), v.clone(), causal, window, out.clone()))
+        return out
+    serve_cli.serve, ops.flash_attention = tap_serve, tap_attn
+    try:
+        rc = serve_cli.main(["--arch", arch, "--reduced"]
+                            + (["--cpu"] if dev.type == "cpu" else []))
+    finally:
+        serve_cli.serve, ops.flash_attention = real_serve, real_attn
+    check(rc == 0 and "tokens" in seen, f"f32 serve {arch}: serve.main returned {rc}")
+    return dict(seen, logits=logits, calls=calls)
+
+
+def f32_serve_path(impl: str, arch: str, runs: dict, dev) -> dict:
+    """``impl="auto"``: serve.main as a user runs it (``_serve_tapped``).
+    ``impl="torch"``: the same model and prompts through ``serve`` on the
+    plain versions, teacher-forced with the kernel run's tokens."""
+    if impl == "auto":
+        return dict(_serve_tapped(arch, dev), impl=impl)
+    a, logits = runs["auto"], {}
+    forced = torch.tensor([a["tokens"][i] for i in range(len(a["tokens"]))], device=dev)
+    tokens = serve(a["params"], a["cfg"], a["prompts"], a["batch"], a["gen"], "torch",
+                   forced=forced, on_logits=lambda w, st, lg: logits.__setitem__((w, st),
+                                                                               lg.clone()))
+    return dict(a, tokens=tokens, logits=logits, impl=impl)
+
+
+def check_f32_serve(r: dict) -> None:
+    """A float32 model; one prefill and gen decode steps of finite logits
+    per wave; gen in-vocab tokens per request; on the card, the kernel run
+    launched flash_attention_f32 once per layer and wave and nothing else."""
+    cfg, gen = r["cfg"], r["gen"]
+    n_req = r["prompts"].shape[0]
+    n_waves = -(-n_req // r["batch"])
+    check(cfg.dtype == "float32" and r["params"]["embed"].dtype == torch.float32,
+          f"f32 serve {cfg.name}: a float32 model")
+    check(sorted(r["logits"]) == [(w, st) for w in range(n_waves) for st in range(gen + 1)],
+          f"f32 serve {cfg.name}: one prefill and {gen} decode steps of logits per wave")
+    check(all(bool(torch.isfinite(lg).all()) for lg in r["logits"].values()),
+          f"f32 serve {cfg.name}: finite logits")
+    check(len(r["tokens"]) == n_req and all(
+        len(t) == gen and all(0 <= x < cfg.vocab for x in t) for t in r["tokens"].values()),
+        f"f32 serve {cfg.name}: {gen} in-vocab tokens per request")
+    if r["impl"] == "auto" and r["prompts"].is_cuda:
+        counts = {k: n for k, n in r["launches"].items() if n}
+        check(counts == {"flash_attention_f32": cfg.n_layers * n_waves},
+              f"f32 serve {cfg.name}: flash_attention_f32 once per layer ({cfg.n_layers}) "
+              f"and wave ({n_waves}), no other kernel (the bf16 route included): {counts}")
+
+
+def _logits_gap(a: dict, b: dict) -> dict:
+    vocab = a["cfg"].vocab
+    return {key: rel_l2(b["logits"][key][:, :vocab], a["logits"][key][:, :vocab])
+            for key in a["logits"]}
+
+
+def same_f32_serve(a: dict, b: dict, dev) -> None:
+    """Each layer's prefill call of wave 0, as the kernel run made it,
+    within 3e-5 of the plain version on its inputs; the plain run's
+    logits within F32_SERVE_REL_L2 of the kernel run's at every (wave,
+    step).  Then a control: serve.main again with Q, K and V rounded to
+    TF32 before the kernel, fed the kernel run's tokens; both checks must
+    catch it."""
+    name = a["cfg"].name
+    check(len(a["calls"]) == a["cfg"].n_layers,
+          f"f32 serve {name}: wave 0's prefill calls captured, one per layer")
+    for i, (q, k, v, causal, window, out) in enumerate(a["calls"]):
+        err, _ = attention_close(out, fa.flash_attention_plain(q, k, v, causal=causal,
+                                                               window=window),
+                                 f"f32 serve {name}: layer {i} prefill call, kernel vs plain")
+        print(f"f32 serve {name}: layer {i} prefill call {tuple(q.shape)} window {window}: "
+              f"max |kernel - plain| {err:.3g} (atol=rtol=3e-5)", flush=True)
+    errs = _logits_gap(a, b)
+    worst = max(errs, key=errs.get)
+    a["rel_l2_max"], a["rel_l2_mean"] = errs[worst], sum(errs.values()) / len(errs)
+    print(f"f32 serve {name}: kernel vs plain logits, relative L2: max "
+          f"{errs[worst]:.3g} at (wave, step) {worst}, mean {a['rel_l2_mean']:.3g} "
+          f"(limit {F32_SERVE_REL_L2:g})", flush=True)
+    check(errs[worst] <= F32_SERVE_REL_L2,
+          f"f32 serve {name}: kernel and plain logits within relative L2 "
+          f"{F32_SERVE_REL_L2:g}")
+    forced = torch.tensor([a["tokens"][i] for i in range(len(a["tokens"]))], device=dev)
+    c = _serve_tapped(name, dev, plant=_one_tf32_pass, forced=forced)
+    missed = sum(f32_within(out, fa.flash_attention_plain(q, k, v, causal=causal,
+                                                          window=window))
+                 for q, k, v, causal, window, out in c["calls"])
+    a["control_rel_l2_max"] = max(_logits_gap(c, b).values())
+    print(f"f32 serve {name}: control (Q, K, V rounded to TF32): prefill calls within "
+          f"3e-5 {missed}/{len(c['calls'])}; logits relative L2 max "
+          f"{a['control_rel_l2_max']:.3g} (limit {F32_SERVE_REL_L2:g})", flush=True)
+    check(missed == 0 and a["control_rel_l2_max"] > F32_SERVE_REL_L2,
+          f"f32 serve {name}: the per-call and the logits checks catch one TF32 pass")
+
+
+# --------------------------------------------------------------------------
 
 def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
            vz: dict, smi: str) -> None:
@@ -1513,6 +1716,14 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
             sync_find_insert_ops_per_s=2 * fi / t["sync_find_insert_s"],
             fault_launches=r["launches_faulty"], seconds=t, total_s=r["total_s"],
             peak_mem_bytes=r["peak_bytes"], launches=r["launches"])
+    elif path.startswith("f32 serve"):
+        cfg = r["cfg"]
+        line = dict(
+            card=smi, arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+            requests=r["prompts"].shape[0], slots=r["batch"], prompt_len=r["prompts"].shape[1],
+            gen=r["gen"], total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
+            rel_l2_max=r.get("rel_l2_max"), control_rel_l2_max=r.get("control_rel_l2_max"),
+            launches={k: n for k, n in r["launches"].items() if n})
     elif path == "serving path":
         t = r["timings"]
         n_tok = vz["requests"] * vz["gen"]
@@ -1586,8 +1797,16 @@ def main(argv=None) -> int:
         for src, log in build.BUILD_LOGS.items():
             for fn, info in ptxas_report(log).items():
                 print(f"ptxas {src} {fn}: {info}", flush=True)
-        for inst in fa.bf16_instances():
-            print("flash_attention bf16 instance: " + json.dumps(inst), flush=True)
+        f32_insts = fa.f32_instances()
+        for route, insts in (("bf16", fa.bf16_instances()), ("f32", f32_insts)):
+            for inst in insts:
+                print(f"flash_attention {route} instance: " + json.dumps(inst), flush=True)
+        f32_spills = [i for i in f32_insts if i["local_bytes"]]
+        check(not f32_spills, f"flash_attention f32 instances spill nothing: {f32_spills}")
+        sass = tensor_core_sass(build.BUILD_DIR / "libflash_attention.so", "flash_fwd_tf32")
+        print("flash_attention f32 SASS tensor-core instructions by instance: "
+              + json.dumps(sass) + f", total {sum(sass.values())}", flush=True)
+        check(sum(sass.values()) > 0, "the float32 route runs tensor-core instructions")
 
     # 3. kernel phase at the paths' shapes
     gz = G_REHEARSAL if rehearsal else G_FULL
@@ -1674,13 +1893,24 @@ def main(argv=None) -> int:
               and all(n == 0 for name, n in counts.items() if name not in SERVING_KERNELS),
               f"serving path: the bf16 flash_attention route once per layer and wave, "
               f"no other kernel (flash_attention_f32 included): {counts}")
+    del sv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 8. the float32 serve phase: serve.py's main, plain run teacher-forced
+    for arch in F32_SERVE_ARCHS:
+        run_path(f"f32 serve {arch}",
+                 lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),
+                 check_f32_serve, lambda a, b: same_f32_serve(a, b, dev),
+                 ("flash_attention_f32",))
 
     # launches: the paths' kernel runs (each path's counts are printed above)
     paths = sorted({p for p, _ in launched})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(launched[p, "auto"][name] for p in paths),
                     **{k: v for k, v in krows[name].items()
-                       if k not in ("shape", "tol", "sdpa_ratio", "regime")})
+                       if k not in ("shape", "tol", "sdpa_ratio", "regime", "cuda_core_ms",
+                                    "device_ms")})
                for name, (_m, _w, _p, src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

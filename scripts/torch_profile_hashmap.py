@@ -43,7 +43,7 @@ PORT_KERNELS = ("bo_count", "bo_scan", "bo_rank", *chip_smoke.CSR_KERNELS,
                 "pack_rows_kernel", "copy_words", "place_rows_kernel",
                 "probe_insert_blocks", "probe_find_blocks", "probe_find_queries",
                 "membership_kernel", "hash_words_kernel", "row_mix_kernel",
-                "ragged_slots_kernel", "histogram_kernel", "flash_fwd_kernel",
+                "ragged_slots_kernel", "histogram_kernel", "flash_fwd_tf32",
                 "flash_fwd_wgmma")
 
 

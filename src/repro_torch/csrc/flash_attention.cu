@@ -11,11 +11,9 @@
 // if causal, and kpos > qpos - window if window > 0.  Query head h reads
 // kv head h / (Hq / Hkv): K/V are never replicated.
 //
-// Two routes, chosen by dtype in the wrapper:
-//   bf16 -> flash_fwd_wgmma (tensor cores, below);
-//   f32  -> flash_fwd_kernel (float32 FMAs on the CUDA cores; TF32 would
-//           not hold float32 accuracy), one CTA per (batch, head,
-//           64-query tile) looping over 64-key tiles held in shared memory.
+// Two routes, chosen by dtype in the wrapper, both on the tensor cores:
+//   bf16 -> flash_fwd_wgmma (wgmma fed by a TMA ring; its design below);
+//   f32  -> flash_fwd_tf32 (3xTF32 mma.sync; its design at namespace f32).
 //
 // Bound: operations.  The function does 4 D flops per (query, key) pair
 // the mask keeps: 2.75e11 at B=8, Hq=32, T=2048, D=128 causal, 0.278 ms
@@ -76,201 +74,6 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
-
-// --------------------------------------------------------------------------
-// float32: the CUDA-core kernel (flash_fwd_kernel)
-// --------------------------------------------------------------------------
-namespace {
-
-constexpr int kBQ = 64;            // query rows per CTA
-constexpr int kBK = 64;            // keys per tile
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kPStride = kBK + 4;  // rows 4 apart land 16 banks apart
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  long long qs[3], ks[3], vs[3], os[3];  // element strides of dims b, h, t
-  int hq, hkv, tq, tk, d, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// rows [r0, r0 + kBK) of a (T, D) slice at row stride rs into dst (f32, row
-// stride ld); rows at or past n are zero (V rows past Tk must not be NaN:
-// p = 0 times NaN is NaN)
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, long long rs,
-                                          int r0, int rows, int n, int d) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const int g = r0 + r;
-    float* out = dst + r * ld;
-    if (g < n) {
-      const T* in = src + (long long)g * rs;
-      for (int c = lane; c < d; c += 32) out[c] = to_f(in[c]);
-    } else {
-      for (int c = lane; c < d; c += 32) out[c] = 0.f;
-    }
-  }
-}
-
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int ld = p.d + 1;
-  float* Qs = smem;              // kBQ x ld
-  float* KVs = Qs + kBQ * ld;    // kBK x ld: the K tile, then the V tile
-  float* Ps = KVs + kBK * ld;    // kBQ x kPStride
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // the heaviest (last) tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int q0 = qt * kBQ;
-  const int off = p.tk - p.tq;
-
-  const T* qg = (const T*)p.q + b * p.qs[0] + h * p.qs[1];
-  const T* kg = (const T*)p.k + b * p.ks[0] + hk * p.ks[1];
-  const T* vg = (const T*)p.v + b * p.vs[0] + hk * p.vs[1];
-  load_tile(Qs, ld, qg + (long long)q0 * p.qs[2], p.qs[2], 0, kBQ, p.tq - q0, p.d);
-
-  float acc[4][NJ];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // the key tiles this query tile can see
-  const int qlo = q0 + off;
-  const int qhi = min(q0 + kBQ, p.tq) - 1 + off;
-  const int khi = p.causal ? min(p.tk, qhi + 1) : p.tk;
-  const int klo = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
-  const int kt1 = (khi + kBK - 1) / kBK;
-
-  for (int kt = klo / kBK; kt < kt1; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile's P.V is done with KVs and Ps
-    load_tile(KVs, ld, kg, p.ks[2], k0, kBK, p.tk, p.d);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < p.d; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * ld + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = KVs[(tx + 16 * j) * ld + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i + off;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool seen = kpos < p.tk && (!p.causal || kpos <= qpos) &&
-                          (p.window <= 0 || kpos > qpos - p.window);
-        s[i][j] = seen ? s[i][j] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_ref = m_new == -INFINITY ? 0.f : m_new;   // no key seen yet
-      const float alpha = expf(m[i] - m_ref);                 // 0 while m[i] = -inf
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_ref);
-        Ps[(ty * 4 + i) * kPStride + tx + 16 * j] = pv;
-        rs += pv;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-
-    __syncthreads();   // every score read K; Ps is written
-    load_tile(KVs, ld, vg, p.vs[2], k0, kBK, p.tk, p.d);
-    __syncthreads();
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * kPStride + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        const float vv = c < p.d ? KVs[kk * ld + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-  T* og = (T*)p.o + b * p.os[0] + h * p.os[1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.tq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* out = og + (long long)row * p.os[2];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < p.d) out[c] = from_f<T>(acc[i][j] * inv);
-    }
-  }
-}
-
-template <typename T, int NJ>
-int launch(const Params& p, int batch, cudaStream_t s) {
-  const size_t smem = (size_t)((kBQ + kBK) * (p.d + 1) + kBQ * kPStride) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.tq + kBQ - 1) / kBQ, p.hq, batch);
-  flash_fwd_kernel<T, NJ><<<grid, kThreads, smem, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const Params& p, int batch, cudaStream_t s) {
-  const int nj = (p.d + 15) / 16;
-  if (nj <= 1) return launch<T, 1>(p, batch, s);
-  if (nj <= 2) return launch<T, 2>(p, batch, s);
-  if (nj <= 4) return launch<T, 4>(p, batch, s);
-  if (nj <= 8) return launch<T, 8>(p, batch, s);
-  if (nj <= 12) return launch<T, 12>(p, batch, s);
-  if (nj <= 16) return launch<T, 16>(p, batch, s);
-  if (nj <= 20) return launch<T, 20>(p, batch, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // --------------------------------------------------------------------------
 // bf16: tensor cores (wgmma) fed by a TMA ring
@@ -844,6 +647,378 @@ int dispatch(const Args& a, cudaStream_t stream) {
 }  // namespace tc
 
 
+// --------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores (flash_fwd_tf32)
+// --------------------------------------------------------------------------
+// The same function in float32: logits, probabilities and the output to
+// float32 accuracy (atol = rtol = 3e-5 against the plain version).
+//
+// Bound: operations.  A kept (query, key) pair costs 4 D flops; at the
+// kernel-phase call (2, 16, 4, 777, 777, 128) causal that is 4.95 GFLOP,
+// 0.074 ms on the CUDA cores at 67 TFLOP/s.  The tensor cores take TF32,
+// which keeps 11 bits of a float32: one TF32 pass misses the gate by
+// ~30x.  So each operand x is split into hi (x rounded to TF32) and lo =
+// x - hi, and every product is taken as lo*hi + hi*lo + hi*hi into one
+// float32 accumulator (CUTLASS's 3xTF32): the dropped lo*lo and the
+// roundings leave about 2^-20 of each product, far inside the gate.  Three
+// TF32 passes at 495 TFLOP/s bound the call at 0.030 ms.
+//
+// Design of flash_fwd_tf32.  One CTA covers one (batch, query head,
+// 64-query tile); the grid is one dimension, ordered so that the
+// heaviest query tiles of every (batch, head) start first.  Four warps
+// each own 16 query rows; at D > 192 (SPLIT) eight warps, two on each 16
+// rows, each holding half of O's columns and computing S itself.
+//   * mma.sync.m16n8k8 tf32 with the operands split in registers, so
+//     shared memory holds raw float32 tiles: no hi/lo planes, no
+//     transposed copy of V (wgmma's tf32 form takes only K-major
+//     operands; V lands MN-major).  At D = 128 a wgmma design with hi/lo
+//     planes of Q, K and V (64 KB each at 64 rows) and a ring would not
+//     fit two consumer warpgroups in 227 KB.
+//   * The split: hi = (bits(x) + 0x1000) & ~0x1FFF rounds to nearest,
+//     ties away from zero (what cvt.rna.tf32.f32 does in four SASS
+//     instructions, here in two), lo = x - hi exactly, passed whole: the
+//     tensor cores read a .tf32 operand's top 19 bits.
+//   * Each 3xTF32 product runs one pass per term over all the warp's
+//     accumulators (never two mmas in a row on one accumulator), and S's
+//     head-dim loop is unrolled at the instance's width.
+//   * Shared memory holds the Q tile and one K and one V tile, filled by
+//     16-byte cp.async copies (the wrapper hands over 16-byte aligned rows
+//     of dt = D rounded up to 4 columns; rows past Tq / Tk zero-filled,
+//     columns past dt zeroed once).  V's copy runs under S = Q K^T and the softmax,
+//     the next K's under O += P V.  D = 128: 105 KB, two CTAs an SM.
+//   * S = Q K^T: the head dim is walked in an order that gives lane t (=
+//     lane % 4) columns 4t .. 4t + 3 of each 16 for both operands (two
+//     8-column mma steps), so its A and B values are neighbours: one
+//     128-bit load each, conflict-free at a row pitch of 16 mod 32 floats.
+//   * O += P V: P is the S accumulator itself, read with the keys of each
+//     8-key step in the same order (2t, 2t+1), so the accumulator is the A
+//     fragment with no shuffle; V is read at those two keys' rows (pitch
+//     DP + 4: conflict-free 32-bit loads).
+//   * Softmax as the bf16 route: c = log2(e)/sqrt(D) folded into p =
+//     2^(s c - m) (one FMA, one MUFU.EX2), the per-element mask only on
+//     the tiles that the diagonal, the window edge or Tk cuts, key tiles
+//     visited only where the mask leaves them non-empty, m_ref = 0 while a
+//     row has seen no key, l >= 1e-30.
+namespace f32 {
+
+constexpr int kBQ = 64;   // query rows a CTA, 16 a warp
+
+struct Params {
+  const float *q, *k, *v;
+  float* o;
+  long long qs[3], ks[3], vs[3], os[3];   // element strides of dims b, h, t
+  int batch, hq, hkv, tq, tk, dt, d, causal, window;   // dt: columns read (d % 4 padded)
+  float scale_log2;                       // log2(e) / sqrt(D)
+};
+
+// DP: the widest head dim (a multiple of 16); BK keys a tile; SPLIT: two
+// warps on each 16 rows, each with half of O's columns
+template <int DP, int BK, bool SPLIT>
+struct Cfg {
+  static constexpr int kDP = DP;
+  static constexpr int kBK = BK;
+  static constexpr bool kSplit = SPLIT;
+  static constexpr int kThreads = SPLIT ? 256 : 128;
+  static constexpr int kLdK = DP + (DP % 32 ? 32 : 16);   // Q and K rows (floats)
+  static constexpr int kLdV = DP + 4;   // V rows
+  static constexpr int kNJ = (SPLIT ? DP / 2 : DP) / 8;   // O column blocks a warp holds
+  static constexpr int kSmem = ((kBQ + BK) * kLdK + BK * kLdV) * 4;
+};
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero,
+// as cvt.rna.tf32.f32, whose SASS takes four instructions; here an add
+// and a mask), lo = x - hi exactly, passed whole: the tensor cores read
+// the top 19 bits of a .tf32 operand, so lo is truncated to TF32 there
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 into N accumulators, one pass over them per term (the small
+// terms first), so that back-to-back mmas never share an accumulator
+// (accumulators d[n0] .. d[n0 + N - 1])
+template <int N, int M>
+__device__ __forceinline__ void mma3(float (&d)[M][4], int n0, const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[N][2],
+                                     const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n0 + n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n0 + n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n0 + n], ah, bh[n][0], bh[n][1]);
+}
+
+__device__ __forceinline__ void split4(float x0, float x1, float x2, float x3,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(x0, hi[0], lo[0]);
+  split(x1, hi[1], lo[1]);
+  split(x2, hi[2], lo[2]);
+  split(x3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// rows [r0, r0 + rows) of a (T, dt) slice at row stride rs into dst (row
+// pitch ld floats), columns [0, dt) in 16-byte copies (dt % 4 == 0, rows
+// 16-byte aligned); rows at or past n are zero-filled.  Thread i copies
+// pieces i, i + NT, ...: (row, column) steps by NT without a divide
+template <int NT>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, long long rs,
+                                          int r0, int rows, int n, int dt) {
+  const uint32_t base = tc::smem_addr(dst);
+  const int per_row = dt / 4, step_r = NT / per_row, step_c = 4 * (NT % per_row);
+  int r = threadIdx.x / per_row, col = 4 * (threadIdx.x % per_row);
+  for (; r < rows; r += step_r) {
+    const bool in = r0 + r < n;
+    cp_async16(base + 4u * (r * ld + col), in ? src + (r0 + r) * rs + col : src, in ? 16 : 0);
+    col += step_c;
+    if (col >= dt) {
+      col -= dt;
+      ++r;
+    }
+  }
+}
+
+// min blocks 1: registers up to 255, never traded for spills to reach an
+// occupancy step
+template <typename C>
+__global__ void __launch_bounds__(C::kThreads, 1) flash_fwd_tf32(const Params p) {
+  constexpr int DP = C::kDP, BK = C::kBK, NB = BK / 8, NJ = C::kNJ, NT = C::kThreads;
+  constexpr int CH = NJ % 4 == 0 ? 4 : NJ;         // O column blocks an mma3 step takes
+  constexpr int LK = C::kLdK, LV = C::kLdV;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);    // kBQ x LK
+  float* Ks = Qs + kBQ * LK;                       // BK x LK
+  float* Vs = Ks + BK * LK;                        // BK x LV
+
+  // the heaviest (last) query tiles of every (batch, head) first
+  const int nq = (p.tq + kBQ - 1) / kBQ, per = p.hq * p.batch;
+  const int qt = nq - 1 - (int)(blockIdx.x / per), hb = (int)(blockIdx.x % per);
+  const int h = hb % p.hq, b = hb / p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const int q0 = qt * kBQ, off = p.tk - p.tq;
+  const int q_first = q0 + off, q_last = min(q0 + kBQ, p.tq) - 1 + off;
+  const int khi = p.causal ? min(p.tk, q_last + 1) : p.tk;
+  const int klo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
+  const int kt0 = klo / BK, kt1 = (khi + BK - 1) / BK;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3);                          // the warp's rows in the tile
+  const int c0 = (C::kSplit ? DP / 2 : 0) * (warp >> 2);  // its first O column
+
+  const float* qg = p.q + b * p.qs[0] + h * p.qs[1] + (long long)q0 * p.qs[2];
+  const float* kg = p.k + b * p.ks[0] + hk * p.ks[1];
+  const float* vg = p.v + b * p.vs[0] + hk * p.vs[1];
+
+  // columns [dt, DP) stay zero: cp.async writes only [0, dt)
+  for (int i = threadIdx.x; i < (kBQ + 2 * BK) * (DP - p.dt); i += NT) {
+    const int r = i / (DP - p.dt), col = p.dt + i % (DP - p.dt);
+    if (r < kBQ + BK)
+      Qs[r * LK + col] = 0.f;                       // Q, then K (adjacent, same pitch)
+    else
+      Vs[(r - kBQ - BK) * LV + col] = 0.f;
+  }
+  load_tile<NT>(Qs, LK, qg, p.qs[2], 0, kBQ, p.tq - q0, p.dt);
+  load_tile<NT>(Ks, LK, kg, p.ks[2], kt0 * BK, BK, p.tk, p.dt);
+  cp_commit();
+
+  float o[NJ][4];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float* qa = Qs + (r0 + g) * LK + 4 * t;
+  const float* kb = Ks + g * LK + 4 * t;
+  const float* vb = Vs + 2 * t * LV + c0 + g;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK;
+    cp_wait_all();
+    __syncthreads();                               // K (and Q) landed; V is free
+    load_tile<NT>(Vs, LV, vg, p.vs[2], k0, BK, p.tk, p.dt);
+    cp_commit();
+
+    // S = Q K^T; s[n][i]: row r0 + g + 8 (i >> 1), key k0 + 8 n + 2 t + (i & 1)
+    float s[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int k2 = 0; k2 < DP / 16; ++k2) {         // columns past d are zero
+      const float4 x0 = *reinterpret_cast<const float4*>(qa + 16 * k2);
+      const float4 x1 = *reinterpret_cast<const float4*>(qa + 8 * LK + 16 * k2);
+      float4 y[NB];
+#pragma unroll
+      for (int n = 0; n < NB; ++n) y[n] = *reinterpret_cast<const float4*>(kb + 8 * n * LK + 16 * k2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {       // 8-column steps 2 k2 and 2 k2 + 1
+        uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+        if (half == 0)
+          split4(x0.x, x1.x, x0.y, x1.y, ah, al);
+        else
+          split4(x0.z, x1.z, x0.w, x1.w, ah, al);
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          split(half ? y[n].z : y[n].x, bh[n][0], bl[n][0]);
+          split(half ? y[n].w : y[n].y, bh[n][1], bl[n][1]);
+        }
+        mma3(s, 0, ah, al, bh, bl);
+      }
+    }
+
+    // online softmax; the 4 lanes of a quad share a row
+    const bool edge = k0 + BK > p.tk || (p.causal && k0 + BK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (edge) {
+          const int qpos = q0 + r0 + g + 8 * (i >> 1) + off;
+          const int kpos = k0 + 8 * n + 2 * t + (i & 1);
+          const bool seen = kpos < p.tk && (!p.causal || kpos <= qpos) &&
+                            (p.window <= 0 || kpos > qpos - p.window);
+          s[n][i] = seen ? s[n][i] : -INFINITY;
+        }
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+      }
+    float mref[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh] * p.scale_log2);
+      mref[hh] = m_new == -INFINITY ? 0.f : m_new;   // no key seen yet
+      alpha[hh] = tc::ex2(m[hh] - mref[hh]);         // 0 while m = -inf
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = tc::ex2(fmaf(s[n][i], p.scale_log2, -mref[i >> 1]));
+        s[n][i] = edge && s[n][i] == -INFINITY ? 0.f : e;   // a masked key: p = 0 outright
+        rs[i >> 1] += s[n][i];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];   // this lane's part
+#pragma unroll
+    for (int n = 0; n < NJ; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+
+    cp_wait_all();
+    __syncthreads();                               // V landed; K is free
+    if (kt + 1 < kt1) {
+      load_tile<NT>(Ks, LK, kg, p.ks[2], k0 + BK, BK, p.tk, p.dt);
+      cp_commit();
+    }
+
+    // O += P V: 8-key step kk is S block kk, its keys in the order 2t, 2t+1;
+    // V's column blocks CH at a time (columns past dt read V's zero pad)
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      uint32_t ah[4], al[4];
+      split4(s[kk][0], s[kk][2], s[kk][1], s[kk][3], ah, al);
+#pragma unroll
+      for (int n0 = 0; n0 < NJ; n0 += CH) {
+        if (c0 + 8 * n0 < p.dt) {
+          uint32_t bh[CH][2], bl[CH][2];
+#pragma unroll
+          for (int j = 0; j < CH; ++j) {
+            const float* vp = vb + 8 * kk * LV + 8 * (n0 + j);
+            split(vp[0], bh[j][0], bl[j][0]);
+            split(vp[LV], bh[j][1], bl[j][1]);
+          }
+          mma3(o, n0, ah, al, bh, bl);
+        }
+      }
+    }
+  }
+
+  // epilogue: O / l
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    inv[hh] = 1.f / fmaxf(l[hh], 1e-30f);
+  }
+  float* og = p.o + b * p.os[0] + h * p.os[1];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + r0 + g + 8 * (i >> 1), col = c0 + 8 * n + 2 * t + (i & 1);
+      if (row < p.tq && col < p.d) og[row * p.os[2] + col] = o[n][i] * inv[i >> 1];
+    }
+}
+
+// instance i: f(its Cfg, its kernel); head dims up to 16, 32, 64, 128,
+// 192, 256, 320 (past the last, cudaErrorInvalidValue)
+template <typename F>
+int with_instance(int i, F&& f) {
+  switch (i) {
+    case 0: return f(Cfg<16, 64, false>{}, flash_fwd_tf32<Cfg<16, 64, false>>);
+    case 1: return f(Cfg<32, 64, false>{}, flash_fwd_tf32<Cfg<32, 64, false>>);
+    case 2: return f(Cfg<64, 64, false>{}, flash_fwd_tf32<Cfg<64, 64, false>>);
+    case 3: return f(Cfg<128, 64, false>{}, flash_fwd_tf32<Cfg<128, 64, false>>);
+    case 4: return f(Cfg<192, 32, false>{}, flash_fwd_tf32<Cfg<192, 32, false>>);
+    case 5: return f(Cfg<256, 32, true>{}, flash_fwd_tf32<Cfg<256, 32, true>>);
+    case 6: return f(Cfg<320, 32, true>{}, flash_fwd_tf32<Cfg<320, 32, true>>);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the first instance that takes head dim d (-1: none)
+int instance_of(int d) {
+  int dp = 0;
+  const auto widest = [&](auto cfg, auto) {
+    dp = decltype(cfg)::kDP;
+    return 0;
+  };
+  for (int i = 0; with_instance(i, widest) == 0; ++i)
+    if (d <= dp) return i;
+  return -1;
+}
+
+int dispatch(const Params& p, cudaStream_t stream) {
+  return with_instance(instance_of(p.d), [&](auto cfg, auto kernel) {
+    using C = decltype(cfg);
+    const long long blocks = (long long)((p.tq + kBQ - 1) / kBQ) * p.hq * p.batch;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(p);
+    return (int)cudaGetLastError();
+  });
+}
+
+}  // namespace f32
+
+
 extern "C" {
 
 const char* kernel_error_string(int code) {
@@ -902,34 +1077,55 @@ int flash_attention_bf16_instance(int i, int* max_d, int* regs, int* local_bytes
   });
 }
 
-// The float32 route (flash_fwd_kernel), arguments as above with dt = d.
+// The float32 route (flash_fwd_tf32).  q, k, v as above with 16-byte
+// aligned rows: 16-byte aligned bases, row, head and batch strides that
+// are multiples of 4 elements, 1 <= d <= dt <= 320, dt % 4 == 0, columns
+// d..dt zero; o (B, Hq, Tq, d) at its own strides.
 int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* o,
                                long long qsb, long long qsh, long long qst,
                                long long ksb, long long ksh, long long kst,
                                long long vsb, long long vsh, long long vst,
                                long long osb, long long osh, long long ost,
-                               int batch, int hq, int hkv, int tq, int tk, int d,
+                               int batch, int hq, int hkv, int tq, int tk, int dt, int d,
                                int causal, int window, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (batch == 0 || hq == 0 || tq == 0) return (int)cudaGetLastError();
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.qs[0] = qsb; p.qs[1] = qsh; p.qs[2] = qst;
-  p.ks[0] = ksb; p.ks[1] = ksh; p.ks[2] = kst;
-  p.vs[0] = vsb; p.vs[1] = vsh; p.vs[2] = vst;
-  p.os[0] = osb; p.os[1] = osh; p.os[2] = ost;
+  f32::Params p;
+  p.q = (const float*)q;
+  p.k = (const float*)k;
+  p.v = (const float*)v;
+  p.o = (float*)o;
+  const long long strides[4][3] = {{qsb, qsh, qst}, {ksb, ksh, kst}, {vsb, vsh, vst},
+                                   {osb, osh, ost}};
+  long long* dst[4] = {p.qs, p.ks, p.vs, p.os};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[i][j];
+  p.batch = batch;
   p.hq = hq;
   p.hkv = hkv;
   p.tq = tq;
   p.tk = tk;
+  p.dt = dt;
   p.d = d;
   p.causal = causal;
   p.window = window;
-  p.scale = (float)(1.0 / sqrt((double)d));
-  return dispatch<float>(p, batch, s);
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  return f32::dispatch(p, (cudaStream_t)stream);
+}
+
+// Instance i of the float32 route, as flash_attention_bf16_instance
+// (cudaErrorInvalidValue past the last).
+int flash_attention_f32_instance(int i, int* max_d, int* regs, int* local_bytes, int* smem) {
+  return f32::with_instance(i, [&](auto cfg, auto kern) {
+    using C = decltype(cfg);
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+    if (err != cudaSuccess) return (int)err;
+    *max_d = C::kDP;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *smem = C::kSmem;
+    return 0;
+  });
 }
 
 }  // extern "C"

@@ -2,11 +2,12 @@
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors
 and takes its plain PyTorch version, ``flash_attention_plain``, only for
-CPU tensors.  On the card the dtype picks the route: bf16 runs the
-tensor-core kernel (``flash_fwd_wgmma``: wgmma fed by a TMA ring, counted
-by the ``flash_attention`` kernel), float32 the CUDA-core kernel
-(``flash_fwd_kernel``, counted by ``flash_attention_f32``; TF32 tensor
-cores would not keep float32 accuracy).  All of them compute what the
+CPU tensors.  On the card the dtype picks the route, both on the tensor
+cores: bf16 runs ``flash_fwd_wgmma`` (wgmma fed by a TMA ring, counted by
+the ``flash_attention`` kernel), float32 ``flash_fwd_tf32`` (counted by
+``flash_attention_f32``): 3xTF32 ``mma.sync``, each operand split into
+two TF32 halves and each product taken as three, which keeps float32
+accuracy.  All of them compute what the
 JAX package's Pallas kernel (``repro/kernels/flash_attention.py:82``)
 and its XLA twin ``blockwise_attention`` (``repro/models/attention.py:32``)
 compute: softmax attention with float32 logits, probabilities and accumulation,
@@ -33,7 +34,7 @@ _FLASH = register("flash_attention", Kernel(
     [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 9))
 _FLASH_F32 = register("flash_attention_f32", Kernel(
     "flash_attention", "flash_attention_f32_launch",
-    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 8))
+    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 9))
 
 #: the widest head the kernel takes (gemma3-4b: 2560 / 8)
 MAX_HEAD_DIM = 320
@@ -98,12 +99,12 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"flash_attention: batch {b} x heads {hq} exceed the grid")
 
 
-def _tma_operand(t: torch.Tensor, dt: int) -> torch.Tensor:
-    """``t`` itself where TMA can read it as it is (head dim ``dt``, a
-    16-byte aligned base and 16-byte multiple strides), else a contiguous
-    copy with the head dim zero-padded to ``dt``."""
+def _aligned_operand(t: torch.Tensor, dt: int) -> torch.Tensor:
+    """``t`` itself where the kernel can read its rows as they are (head
+    dim ``dt``, a 16-byte aligned base and 16-byte multiple strides), else
+    a contiguous copy with the head dim zero-padded to ``dt``."""
     if (t.shape[-1] == dt and t.data_ptr() % 16 == 0
-            and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])):
+            and all(s > 0 and s * t.element_size() % 16 == 0 for s in t.stride()[:3])):
         return t
     out = t.new_zeros((*t.shape[:3], dt))
     out[..., :t.shape[-1]] = t
@@ -119,17 +120,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention forward on the card; the plain version for CPU tensors.
 
-    Dispatch by dtype: bf16 runs the tensor-core kernel (one CTA per
-    batch, head and 128-query tile, 64 at D > 256), float32 the CUDA-core
-    kernel (64-query tiles).  Any strides with a contiguous head dim (the
-    model's head-split projections pass as views).  The bf16 kernel reads
-    q, k and v through TMA, which wants a 16-byte aligned base and strides:
-    an operand without them, or with a head dim that is not a multiple of
-    8, is first copied once into a contiguous buffer whose head dim is
-    padded with zeros to a multiple of 8 (a layout step of the same
-    kernel route; no model of the repo needs it).  The output is a
-    (B, Hq, Tq, D) view of a contiguous (B, Tq, Hq, D) buffer, so merging
-    the heads back after it copies nothing.
+    Dispatch by dtype: bf16 runs the wgmma kernel (one CTA per batch,
+    head and 128-query tile, 64 at D > 256), float32 the 3xTF32 kernel
+    (64-query tiles).  Any strides with a contiguous head dim (the
+    model's head-split projections pass as views).  Both kernels read
+    rows of q, k and v in 16-byte pieces (bf16 through TMA, float32 by
+    ``cp.async``), which wants a 16-byte aligned base and strides: an
+    operand without them, or with a head dim that is not a multiple of 8
+    (bf16) or 4 (float32), is first copied once into a contiguous buffer
+    whose head dim is padded with zeros to that multiple (a layout step of
+    the same kernel route; no model of the repo needs it).  The output is
+    a (B, Hq, Tq, D) view of a contiguous (B, Tq, Hq, D) buffer, so
+    merging the heads back after it copies nothing.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -138,12 +140,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, tk = k.shape[1], k.shape[2]
     flags = (int(causal), max(int(window), 0))
     if q.dtype == torch.float32:
+        dt = -(-d // 4) * 4
+        q, k, v = (_aligned_operand(t, dt) for t in (q, k, v))
         out = _head_merged(b, tq, hq, d, q)
         _FLASH_F32(q, k, v, out, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                   *out.stride()[:3], b, hq, hkv, tq, tk, d, *flags)
+                   *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags)
         return out
     dt = -(-d // 8) * 8
-    q, k, v = (_tma_operand(t, dt) for t in (q, k, v))
+    q, k, v = (_aligned_operand(t, dt) for t in (q, k, v))
     out = _head_merged(b, tq, hq, dt, q)
     _FLASH(q, k, v, out, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags)
@@ -152,21 +156,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def bf16_instances() -> list[dict]:
-    """The bf16 kernel's template instances as the card reports them: the
-    widest head dim each takes, registers a thread at launch, local
-    (spill) bytes and dynamic shared memory."""
+#: what an instance query returns past a route's last instance
+_NO_INSTANCE = 1   # cudaErrorInvalidValue
+
+
+def _instances(route: str) -> list[dict]:
+    """A route's template instances as the card reports them, in the
+    library's order: the widest head dim each takes, registers a thread
+    at launch, local (spill) bytes and dynamic shared memory."""
     lib = library(_FLASH.source)
-    fn = lib.flash_attention_bf16_instance
+    fn = getattr(lib, f"flash_attention_{route}_instance")
     fn.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 4
     fn.restype = _INT
     rows = []
-    for i in range(-(-MAX_HEAD_DIM // 64)):      # one instance per 64 columns of head dim
+    while True:
         vals = [_INT() for _ in range(4)]
-        rc = fn(i, *(ctypes.byref(x) for x in vals))
+        rc = fn(len(rows), *(ctypes.byref(x) for x in vals))
+        if rc == _NO_INSTANCE and rows:
+            return rows
         if rc != 0:
-            raise RuntimeError(f"flash_attention_bf16_instance({i}): CUDA error {rc} "
+            raise RuntimeError(f"flash_attention_{route}_instance({len(rows)}): CUDA error {rc} "
                                f"({lib.kernel_error_string(rc).decode()})")
         rows.append(dict(zip(("max_d", "registers", "local_bytes", "smem_bytes"),
                              (x.value for x in vals))))
-    return rows
+
+
+def bf16_instances() -> list[dict]:
+    """The bf16 kernel's instances, one per 64 columns of head dim."""
+    return _instances("bf16")
+
+
+def f32_instances() -> list[dict]:
+    """The float32 kernel's instances (head dims up to 16, 32, 64, 128,
+    192, 256 and 320)."""
+    return _instances("f32")

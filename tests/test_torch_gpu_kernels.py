@@ -514,19 +514,64 @@ def test_flash_attention_kernel(dev, dtype, b, hq, hkv, tq, tk, d, causal, windo
     _close_attention(got, fa.flash_attention_plain(q, k, v, causal=causal, window=window))
 
 
-def test_flash_attention_kernel_strided_views(dev):
+def _strided_views(dev, dtype):
     """The model's head-split projections pass as views (no copy); the
     output is a (B, Hq, T, D) view of a (B, T, Hq, D) buffer."""
     g = torch.Generator(device="cpu").manual_seed(5)
     b, t, hq, hkv, d = 2, 96, 8, 2, 128
-    x = torch.randn((b, t, (hq + 2 * hkv) * d), generator=g).to(dev, torch.bfloat16)
+    x = torch.randn((b, t, (hq + 2 * hkv) * d), generator=g).to(dev, dtype)
     q = x[..., :hq * d].reshape(b, t, hq, d).transpose(1, 2)
     k = x[..., hq * d:(hq + hkv) * d].reshape(b, t, hkv, d).transpose(1, 2)
     v = x[..., (hq + hkv) * d:].reshape(b, t, hkv, d).transpose(1, 2)
-    got = _launched(torch.bfloat16, lambda: fa.flash_attention(q, k, v, causal=True))
+    got = _launched(dtype, lambda: fa.flash_attention(q, k, v, causal=True))
     assert got.transpose(1, 2).is_contiguous()
     _close_attention(got, fa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                                    v.contiguous(), causal=True))
+
+
+def test_flash_attention_kernel_strided_views(dev):
+    _strided_views(dev, torch.bfloat16)
+
+
+def test_flash_attention_f32_kernel_strided_views(dev):
+    _strided_views(dev, torch.float32)
+
+
+def test_flash_attention_f32_kernel_phase_shape(dev):
+    """chip_smoke.py's float32 kernel-phase call: 13 query tiles of 64 rows
+    over 32 heads, causal, D = 128."""
+    g = torch.Generator(device="cpu").manual_seed(777)
+    q = torch.randn((2, 16, 777, 128), generator=g).to(dev)
+    k = torch.randn((2, 4, 777, 128), generator=g).to(dev)
+    v = torch.randn((2, 4, 777, 128), generator=g).to(dev)
+    got = _launched(torch.float32, lambda: fa.flash_attention(q, k, v, causal=True))
+    _close_attention(got, fa.flash_attention_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("d", [72, 20, 13])
+def test_flash_attention_f32_kernel_unaligned(dev, d):
+    """Rows the kernel's 16-byte copies cannot read (a base 8 bytes off 16,
+    or a head dim that is not a multiple of 4) are copied once, padded."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    b, t, hq, hkv = 1, 150, 4, 2
+    x = torch.randn((b, hq + 2 * hkv, t, d + 2), generator=g).to(dev)
+    q, k, v = x[:, :hq, :, 2:], x[:, hq:hq + hkv, :, 2:], x[:, hq + hkv:, :, 2:]
+    assert q.data_ptr() % 16 == 8
+    got = _launched(torch.float32, lambda: fa.flash_attention(q, k, v, causal=True, window=50))
+    assert got.shape == (b, hq, t, d) and got.transpose(1, 2).is_contiguous()
+    _close_attention(got, fa.flash_attention_plain(q, k, v, causal=True, window=50))
+
+
+def test_flash_attention_f32_instances_spill_nothing(dev):
+    """Every instance of the float32 route keeps its state in registers,
+    and its shared memory fits a block."""
+    rows = fa.f32_instances()
+    widths = [r["max_d"] for r in rows]
+    assert widths == sorted(set(widths)) and widths[-1] == fa.MAX_HEAD_DIM
+    assert all(w % 16 == 0 for w in widths)
+    for r in rows:
+        assert r["local_bytes"] == 0 and 0 < r["registers"] <= 255, r
+        assert r["smem_bytes"] <= 232448, r
 
 
 @pytest.mark.parametrize("d", [72, 20])
