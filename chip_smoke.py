@@ -20,16 +20,17 @@ Phases, each fatal on failure:
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function; flash_attention is held
-     against its plain version on ten cases (the serving path's prefill
-     call, D=320 with a window, D=256, Tq=1 < Tk, non-causal with a
-     ragged key tile: the bf16 wgmma route; float32, the 3xTF32 route
+     against its plain version on eleven cases (the serving path's prefill
+     call, the MoE path's (arctic's 56 query heads over 8, 1024 tokens),
+     D=320 with a window, D=256, Tq=1 < Tk, non-causal with a ragged key
+     tile: the bf16 wgmma route; float32, the 3xTF32 route
      flash_attention_f32: the kernel-phase call at D=128, D=16 at 2048
      tokens, D=320 with a window, and the float32 serve phase's prefill
      call, 4 slots of 32 tokens at D=16, without and with its 16-key
      window) elementwise
      (bf16 within one ulp of each element, float32 at 3e-5;
-     attention_close), each route's row timed beside
-     scaled_dot_product_attention (their ratio printed); a fixed
+     attention_close), each route's row and the MoE path's case timed
+     beside scaled_dot_product_attention (their ratio printed); a fixed
      large-bin bin_offsets case (2**24 items into 2**20 bins, past one
      launch of its kernel: the bin_csr route) held bit for bit; the wire
      split: bin_offsets and pack_rows held bit for bit and timed at their
@@ -75,11 +76,30 @@ Phases, each fatal on failure:
      (lm.forward of the model cut to one layer) is held kernel vs plain
      at LAYER_REL_L2, and two faults planted around the kernel's wrapper
      must each break that check;
-  8. float32 serve phase: repro_torch.launch.serve.main, as a user runs
+  8. MoE serving path: arctic-480b at full width (d_model 7168, 56 query
+     heads over 8, 128 experts top-2 of d_ff 4864 beside a dense residual
+     MLP, bf16 with a float32 router) cut to 2 of its 35 layers (27.7 B
+     parameters from the seed, drawn expert by expert) serves 16 requests
+     of 1024-token prompts in slots of 8, 16 greedy tokens each, through
+     serve on a SerialBackend: each layer's expert dispatch rides the
+     exchange (bin_offsets, pack_rows, place_rows: their largest calls,
+     captured on one prefill, held bit for bit and timed beside their
+     bounds first), the prefill attention the bf16 flash_attention; the
+     launches are counted exactly; each MoE layer's call on wave 0's
+     prefill and first decode step equals moe_apply on its input with the
+     plain versions bit for bit (y, aux, expert_load, drops, routing), and
+     a wire fault planted after pack_rows (two send slots swapped) must
+     break that; every logits row of the teacher-forced plain run within
+     SERVE_REL_L2, but for rows a near-tie routing flip (margin below
+     FLIP_MARGIN) sent another way; then the device time of one prefill
+     wave and one decode step by role (torch.profiler);
+  9. float32 serve phase: repro_torch.launch.serve.main, as a user runs
      it, with the JAX package's own float32 configurations (--arch
-     qwen3-4b --reduced, and gemma3-4b --reduced, whose local layers
-     carry a 16-key window): its prefills run flash_attention_f32 once
-     per layer and wave and never the bf16 route; each layer's prefill
+     qwen3-4b --reduced, gemma3-4b --reduced, whose local layers carry a
+     16-key window, and arctic-480b --reduced, whose MoE layers dispatch
+     over the exchange): its prefills run flash_attention_f32 once per
+     layer and wave and never the bf16 route (arctic's dispatch also
+     launches the wire kernels, counted exactly); each layer's prefill
      call of wave 0, captured as the run made it, is held against the
      plain version on its inputs elementwise at 3e-5 (attention_close);
      a plain run of the same model and prompts, teacher-forced with its
@@ -124,6 +144,7 @@ from repro_torch.containers import hashmap as hm  # noqa: E402
 from repro_torch.containers import hashmap_buffer as hb  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
 from repro_torch.core.backend import SerialBackend  # noqa: E402
+from repro_torch.core.exchange import CommittedPlan  # noqa: E402
 from repro_torch.core.faults import FaultInjectingTransport, FaultSpec  # noqa: E402
 from repro_torch.core.transport import DENSE  # noqa: E402
 from repro_torch.core.hashing import fmix32  # noqa: E402
@@ -138,7 +159,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ops import MODE_ADD  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (float32)
@@ -165,6 +188,12 @@ X_REHEARSAL = dict(capacity=1 << 14, block=64, n=1 << 12, cap=1 << 9, rounds=8,
 # serving path: serve.py's loop and flags at a chat-sized prompt
 V_FULL = dict(arch="qwen3-4b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32)
 V_REHEARSAL = dict(arch="qwen3-4b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4)
+# MoE serving path: arctic-480b at full width, cut to 2 of its 35 layers (13.6 B
+# parameters a layer: a third would not fit 80 GB), 1024-token prompts of its 4096
+M_FULL = dict(arch="arctic-480b", reduced=False, layers=2, requests=16, batch=8,
+              prompt_len=1024, gen=16)
+M_REHEARSAL = dict(arch="arctic-480b", reduced=True, layers=2, requests=4, batch=2,
+                   prompt_len=24, gen=4)
 #: relative L2 error allowed between two bf16 runs' logits.  Two bf16
 #: computations of the 36-layer model that differ in any rounding drift
 #: apart to ~2.3e-2 (kernel vs plain prefill with identical GEMMs, the
@@ -183,6 +212,7 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
 BF16, F32 = torch.bfloat16, torch.float32
 FLASH_FULL = {
     "serving_prefill": (8, 32, 8, 2048, 2048, 128, True, 0, BF16),
+    "arctic_prefill": (8, 56, 8, 1024, 1024, 128, True, 0, BF16),
     "d320_window": (2, 8, 4, 2048, 2048, 320, True, 1024, BF16),
     "d256": (4, 16, 8, 2048, 2048, 256, True, 0, BF16),
     "suffix_tq1": (8, 32, 8, 1, 2048, 128, True, 0, BF16),
@@ -195,6 +225,7 @@ FLASH_FULL = {
 }
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
+    "arctic_prefill": (2, 7, 1, 24, 24, 16, True, 0, BF16),
     "d320_window": (1, 2, 1, 70, 70, 320, True, 24, BF16),
     "d256": (1, 2, 1, 70, 70, 256, True, 0, BF16),
     "suffix_tq1": (2, 4, 2, 1, 40, 16, True, 0, BF16),
@@ -261,6 +292,8 @@ OFF_PATH = ("ragged_slots", "histogram")
 FLOAT_KERNELS = ("flash_attention", "flash_attention_f32")
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
+#: the flash_attention cases timed beside scaled_dot_product_attention
+SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill")
 
 
 def check(cond: bool, what: str) -> None:
@@ -1340,7 +1373,7 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
         ops_ms = (flops / BF16_OPS_PER_S if dtype == BF16 else 3 * flops / TF32_OPS_PER_S) * 1e3
         bytes_ms = _nbytes(q, k, v, got) / HBM_BYTES_PER_S * 1e3
         library_ms = None
-        if case in FLASH_ROWS.values():
+        if case in SDPA_CASES:
             def library():
                 return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                       enable_gqa=True)
@@ -1540,12 +1573,417 @@ def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
 
 
 # --------------------------------------------------------------------------
+# the MoE serving path: arctic-480b at full width through the exchange
+# --------------------------------------------------------------------------
+
+#: the MoE path's kernels: the exchange wire of every MoE layer's dispatch
+#: and the bf16 prefill attention
+MOE_WIRE = ("bin_offsets", "pack_rows", "place_rows")
+MOE_KERNELS = MOE_WIRE + ("flash_attention",)
+#: moe_apply itself (the serving path's tap stands in for it while it runs)
+real_moe_apply = moe_mod.moe_apply
+#: a router pick whose score margin (k-th minus (k+1)-th) is below this can
+#: go another way in two bf16 runs that differ by the attention's rounding
+FLIP_MARGIN = 1e-2
+
+
+def moe_layers(cfg) -> int:
+    """The layers that dispatch over the exchange (after ``first_k_dense``)."""
+    return sum(lm._layer_is_moe(cfg, i) for i in range(cfg.n_layers))
+
+
+def moe_wire_launches(cfg, passes: int) -> dict:
+    """Wire kernel launches of ``passes`` forward passes on one rank: per
+    MoE layer one binning pass and one pack per retry round, and
+    place_rows for the two send maps of each of the two flows and for the
+    reply."""
+    calls = passes * moe_layers(cfg)
+    return {"bin_offsets": calls, "pack_rows": calls * cfg.moe_dispatch_rounds,
+            "place_rows": 6 * calls}
+
+
+def moe_setup(mz: dict, dev, seed: int) -> dict:
+    """arctic-480b cut to ``layers`` layers (seeded init_params on the card,
+    expert by expert) and serve.py's prompts."""
+    cfg = get_config(mz["arch"])
+    if mz["reduced"]:
+        cfg = reduced(cfg)
+    cfg = dataclasses.replace(cfg, n_layers=mz["layers"])
+    sync(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                   (mz["requests"], mz["prompt_len"]),
+                                                   dtype=np.int32)
+    n_params = _numel(params)
+    mo = cfg.moe
+    print(f"MoE model: {cfg.name}, {cfg.n_layers} of 35 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, {mo.n_experts} experts top-{mo.top_k} "
+          f"(d_ff {mo.expert_d_ff}), dense residual d_ff {cfg.d_ff}, {n_params} parameters "
+          f"({cfg.dtype}, router float32), init {init_s:.2f}s", flush=True)
+    return dict(cfg=cfg, params=params, n_params=n_params,
+                prompts=torch.from_numpy(prompts).to(dev))
+
+
+def routed(p, x, cfg, impl: str) -> tuple:
+    """One moe_apply call on one rank (a ``SerialBackend``) with its
+    routing kept where the program makes it: ``router_topk``'s picks and
+    scores, the token flow's owner-side ``src_pos`` (which copy each
+    arrival is) and ``_bin_indices``' served mask.  Returns
+    ``(moe_apply's outputs, those tensors)``; :func:`routing_of` reads
+    them (after a timed run, so its work stays out of the timing)."""
+    check(not cfg.moe_dedup_dispatch, "routed: one exchange row per (token, expert) pair")
+    seen = {}
+    real_topk, real_bins, real_view = moe_mod.router_topk, moe_mod._bin_indices, CommittedPlan.view
+
+    def topk(*args):
+        out = real_topk(*args)
+        seen["idx"], seen["scores"] = out[1], out[3]
+        return out
+
+    def bins(*args):
+        out = real_bins(*args)
+        seen["ok"] = out[2]
+        return out
+
+    def view(self, handle):
+        res = real_view(self, handle)
+        if self._plan._flows[handle].op_name == "moe.dispatch":
+            seen["src_pos"] = res.src_pos
+        return res
+    moe_mod.router_topk, moe_mod._bin_indices, CommittedPlan.view = topk, bins, view
+    try:
+        out = real_moe_apply(p, x, cfg, SerialBackend(), impl=impl)
+    finally:
+        moe_mod.router_topk, moe_mod._bin_indices, CommittedPlan.view = (
+            real_topk, real_bins, real_view)
+    return out, seen
+
+
+def routing_of(seen: dict, cfg) -> tuple:
+    """One call's routing from what :func:`routed` kept: (each token's
+    top-k expert ids, sorted (B, T, K); the ids of the copies an expert
+    served, sorted, E for a copy no expert served; each token's top-k
+    score margin (B, T)).  A served arrival marks its copy (``src_pos``);
+    the others write False past the end."""
+    idx, k, ok = seen["idx"], cfg.moe.top_k, seen["ok"]
+    n = idx.numel()
+    served = torch.zeros(n + 1, dtype=torch.bool, device=idx.device).scatter_(
+        0, torch.where(ok, seen["src_pos"], n).long(), ok)[:n]
+    kept = torch.where(served.reshape(idx.shape), idx, cfg.moe.n_experts)
+    s = seen["scores"].sort(dim=-1, descending=True).values
+    return idx.sort(dim=-1).values, kept.sort(dim=-1).values, s[..., k - 1] - s[..., k]
+
+
+def moe_serving_path(impl: str, mz: dict, mv: dict, forced=None) -> dict:
+    """``serve`` over every request with moe_apply tapped: each call's
+    routing by (wave, step, layer), and on wave 0's prefill and first
+    decode step each call's input and outputs (for the exact check)."""
+    logits, timings, routing, exact, pending = {}, {}, {}, {}, []
+
+    def tap(params, x, cfg, backend, impl="auto"):
+        check(backend.nprocs() == 1, "the MoE serving path dispatches on one rank")
+        out, rt = routed(params, x, cfg, impl)
+        pending.append((params, x, out, rt))
+        return out
+
+    def keep(wave, step, lg):
+        logits[wave, step] = lg
+        for layer, (p, x, out, rt) in enumerate(pending):
+            routing[wave, step, layer] = rt
+            if wave == 0 and step <= 1:
+                exact[wave, step, layer] = (p, x, out)
+        pending.clear()
+    moe_mod.moe_apply = tap
+    t0 = time.perf_counter()
+    try:
+        tokens = serve(mv["params"], mv["cfg"], mv["prompts"], mz["batch"], mz["gen"], impl,
+                       forced=forced, on_logits=keep, timings=timings)
+    finally:
+        moe_mod.moe_apply = real_moe_apply
+    sync(mv["prompts"].device)
+    serve_s = time.perf_counter() - t0
+    routing = {key: routing_of(rt, mv["cfg"]) for key, rt in routing.items()}
+    exact = {key: (*c, routing[key]) for key, c in exact.items()}
+    return dict(tokens=tokens, logits=logits, timings=timings, routing=routing, exact=exact,
+                impl=impl, serve_s=serve_s)
+
+
+def check_moe_serving(r: dict, mz: dict, mv: dict) -> None:
+    """Finite logits, one prefill and gen decode steps per wave, gen in-vocab
+    tokens per request, one moe_apply call per layer and step."""
+    cfg = mv["cfg"]
+    n_waves = -(-mz["requests"] // mz["batch"])
+    keys = [(w, s) for w in range(n_waves) for s in range(mz["gen"] + 1)]
+    check(sorted(r["logits"]) == keys, "MoE serving: one prefill and gen decode steps per wave")
+    check(sorted(r["routing"]) == [(w, s, i) for w, s in keys for i in range(moe_layers(cfg))],
+          "MoE serving: one moe_apply call per layer and step")
+    for key, lg in r["logits"].items():
+        check(bool(torch.isfinite(lg).all()), f"MoE serving: finite logits at (wave, step) {key}")
+    toks = r["tokens"]
+    check(len(toks) == mz["requests"] and all(
+        len(t) == mz["gen"] and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
+        "MoE serving: gen in-vocab tokens per request")
+
+
+def _swap_send_slots(real):
+    """Fault: the send buffer's first and third row swapped after the pack
+    (two token copies delivered to each other's experts)."""
+    def fault(rows, bins, flow, offsets, valid, rnd, word_off, row_words, *rest):
+        out = real(rows, bins, flow, offsets, valid, rnd, word_off, row_words, *rest)
+        w = int(row_words[0])
+        first = out[:w].clone()
+        out[:w] = out[2 * w:3 * w]
+        out[2 * w:3 * w] = first
+        return out
+    return fault
+
+
+def moe_exact(mv: dict, call: tuple, plant=None) -> dict:
+    """One captured moe_apply call of the kernel run (its input, outputs
+    and routing) against moe_apply on its input with the plain versions:
+    y, aux, expert_load, the drops and the routing (picks, served copies,
+    margins, as :func:`routed` reads them from each run) bit for bit.
+    ``plant`` wraps ``binning.pack_rows`` for a rerun of the call through
+    the kernels, whose outputs then stand in for the captured ones."""
+    p, x, (y, aux, st), routing = call
+    cfg = mv["cfg"]
+    if plant is not None:
+        real = binning.pack_rows
+        binning.pack_rows = plant(real)
+        try:
+            (y, aux, st), seen = routed(p, x, cfg, "auto")
+        finally:
+            binning.pack_rows = real
+        routing = routing_of(seen, cfg)
+    (y2, aux2, st2), seen = routed(p, x, cfg, "torch")
+    routing2 = routing_of(seen, cfg)
+    return dict(y=torch.equal(y, y2), aux=torch.equal(aux, aux2),
+                load=torch.equal(st["expert_load"], st2["expert_load"]),
+                dropped=torch.equal(st["dispatch_dropped"], st2["dispatch_dropped"]),
+                routing=all(torch.equal(u, v) for u, v in zip(routing, routing2)),
+                served=int(st["expert_load"].sum()), copies=x.shape[0] * x.shape[1] * cfg.moe.top_k)
+
+
+def same_moe_serving(a: dict, b: dict, mz: dict, mv: dict) -> None:
+    """Each MoE layer's call on wave 0's prefill and first decode step, as
+    the kernel run made it, equals moe_apply on its input with the plain
+    versions bit for bit (a planted wire fault must break that); the plain
+    run, teacher-forced with the kernel run's tokens, gives every row's
+    logits within SERVE_REL_L2 of the kernel run's, but for rows whose
+    routing went another way at some layer and step so far in the wave: a
+    top-k set flipped at a score margin below FLIP_MARGIN, in the row
+    itself or (through the expert bins' capacity, which a decode step's
+    copies share) in another row of the same call (counted and printed)."""
+    cfg, vocab, batch = mv["cfg"], mv["cfg"].vocab, mz["batch"]
+    for key, call in sorted(a["exact"].items()):
+        got = moe_exact(mv, call)
+        print(f"MoE serving: (wave, step, layer) {key}: kernel run vs plain moe_apply on its "
+              f"input: " + json.dumps(got), flush=True)
+        check(all(got[k] for k in ("y", "aux", "load", "dropped", "routing")),
+              f"MoE serving: the call at {key} equals the plain moe_apply bit for bit")
+    if mv["prompts"].is_cuda:
+        key = (0, 0, 0)
+        got = moe_exact(mv, a["exact"][key], plant=_swap_send_slots)
+        print(f"MoE serving: planted fault (send slots 0 and 2 swapped after pack_rows) at "
+              f"{key}: " + json.dumps(got), flush=True)
+        check(not got["y"], "MoE serving: the exact check catches two swapped send slots")
+    else:
+        print("MoE serving: planted fault not run (the CPU has only the plain version)",
+              flush=True)
+
+    # per call: the smallest margin of a token whose top-k set flipped, and
+    # the rows whose served experts differ
+    apart = {}
+    for key, (ids_a, kept_a, margin_a) in a["routing"].items():
+        ids_b, kept_b, _ = b["routing"][key]
+        flipped = (ids_a != ids_b).any(dim=-1)
+        if bool(flipped.any()):
+            rows_apart = ((ids_a != ids_b) | (kept_a != kept_b)).flatten(1).any(dim=1)
+            apart[key] = (float(margin_a[flipped].min()), flipped.any(dim=1).tolist(),
+                          rows_apart.tolist())
+    flips, worst, rows = {}, 0.0, 0
+    for (w, st), lg_a in sorted(a["logits"].items()):
+        lg_b = b["logits"][w, st]
+        for j in range(batch):
+            if w * batch + j >= mz["requests"]:
+                continue
+            rows += 1
+            err = rel_l2(lg_b[j, :vocab], lg_a[j, :vocab])
+            if err <= SERVE_REL_L2:
+                worst = max(worst, err)
+                continue
+            # the calls of this wave, at this step and before, routing row j apart
+            causes = [(m, own[j]) for (w2, s2, _), (m, own, rows_apart) in apart.items()
+                      if w2 == w and s2 <= st and rows_apart[j]]
+            check(bool(causes) and min(m for m, _ in causes) < FLIP_MARGIN,
+                  f"MoE serving: (wave, step) {(w, st)} row {j} logits relative L2 {err} "
+                  f"above {SERVE_REL_L2} without a near-tie routing flip ({causes})")
+            flips[w, st, j] = (round(err, 6), min(m for m, _ in causes),
+                               any(o for _, o in causes))
+    own = sum(f[2] for f in flips.values())
+    print(f"MoE serving: kernel vs plain logits, {rows} rows: within relative L2 "
+          f"{SERVE_REL_L2} {rows - len(flips)} (worst {worst:.6f}); outside it {len(flips)} "
+          f"({own} after a flip of their own, {len(flips) - own} through a shared expert "
+          f"bin), each after a routing flip at a margin below {FLIP_MARGIN}; calls with a "
+          f"flip {len(apart)} of {len(a['routing'])}: (wave, step, row): [relative L2, "
+          f"margin, own flip] " + json.dumps({str(k): v for k, v in sorted(flips.items())}),
+          flush=True)
+    a["flipped_rows"] = len(flips)
+
+
+def moe_wire_phase(mz: dict, mv: dict, reps: int, dev) -> dict:
+    """One prefill of wave 0 with the wire wrappers tapped: the largest
+    bin_offsets, pack_rows and place_rows calls of the MoE path, each held
+    bit for bit against its plain version and timed (CUDA events) beside
+    its bound, with its device ms and launches by kernel on the card."""
+    seen, originals = {}, []
+    for name in MOE_WIRE:
+        for attr in (name, name + "_plain"):   # the CPU (rehearsal) calls the plain ones
+            real = getattr(binning, attr)
+            originals.append((attr, real))
+
+            def tap(*args, _name=name, _real=real):
+                w = _work(_name, args)
+                if w >= seen.get(_name, (-1,))[0]:
+                    seen[_name] = (w, args)
+                return _real(*args)
+            setattr(binning, attr, tap)
+    try:
+        lm.prefill(mv["params"], mv["cfg"], {"tokens": mv["prompts"][:mz["batch"]]},
+                   cache_len=mz["prompt_len"] + mz["gen"])
+    finally:
+        for attr, real in originals:
+            setattr(binning, attr, real)
+    check(set(seen) == set(MOE_WIRE), f"the MoE prefill reached {sorted(seen)}")
+    rows = {}
+    for name in MOE_WIRE:
+        args = seen[name][1]
+        fn, plain = getattr(binning, name), getattr(binning, name + "_plain")
+        got = fn(*args)
+        err = max_abs_err(got, plain(*args))
+        check(err == 0, f"{name} at the MoE path's call: kernel equals its plain version")
+        bytes_ms = bound_bytes(name, args, got) / HBM_BYTES_PER_S * 1e3
+        ops_ms = bound_ops(name, args) / OPS_PER_S * 1e3
+        row = dict(max_abs_err=err, ms=time_ms(lambda: fn(*args), reps, dev),
+                   plain_ms=time_ms(lambda: plain(*args), max(1, reps // 5), dev),
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   shape=[list(a.shape) for a in args if isinstance(a, torch.Tensor)])
+        if name in WIRE_KERNELS:
+            row["regime"] = wire_regime(name, args)
+        if dev.type == "cuda":
+            split = device_ms(lambda: fn(*args), reps)
+            row.update(device_ms=sum(v["ms"] for v in split.values()),
+                       launches=sum(v["launches"] for v in split.values()),
+                       device_ms_by_kernel=short_names(split))
+        rows[name] = row
+        print(f"MoE wire {name}: " + json.dumps(row), flush=True)
+        del got
+    seen.clear()
+    return rows
+
+
+def moe_roles() -> dict:
+    """Roles of the MoE path's device time: the (module, function) whose
+    launches, its callees' included, each role takes."""
+    return {"router": (moe_mod, "router_topk"), "bin_offsets": (binning, "bin_offsets"),
+            "pack_rows": (binning, "pack_rows"), "place_rows": (binning, "place_rows"),
+            "expert bmm": (moe_mod, "_expert_ffn"), "dense MLP": (layers_mod, "mlp"),
+            "attention": (lm.attn_mod, "attention")}
+
+
+#: the wire kernels' device functions by role: their C entry points launch
+#: them (and their memsets) outside any PyTorch op, so the profiler links
+#: them to no host call and they are told apart by name
+WIRE_DEVICE_NAMES = (("bo_rank_tiles", "bin_offsets"), ("pack_rows_kernel", "pack_rows"),
+                     ("place_rows_kernel", "place_rows"), ("copy_words", "place_rows"),
+                     ("Memset", "wire memsets"))
+
+
+def role_split(fn) -> dict:
+    """Device ms of each role of :func:`moe_roles` in one call of ``fn``
+    (torch.profiler).  A kernel, memset or copy that a PyTorch op launched
+    goes to the innermost role around that op, or to "the rest"; the
+    device time the profiler links to no op goes by name
+    (:data:`WIRE_DEVICE_NAMES`), or to "unlinked"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    originals = []
+    for role, (mod, attr) in moe_roles().items():
+        real = getattr(mod, attr)
+        originals.append((mod, attr, real))
+
+        def wrapped(*args, _real=real, _role=role, **kwargs):
+            with record_function("role:" + _role):
+                return _real(*args, **kwargs)
+        setattr(mod, attr, wrapped)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, real in originals:
+            setattr(mod, attr, real)
+    out = {role: 0.0 for role in (*moe_roles(), "wire memsets", "the rest", "unlinked")}
+    device, linked = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            if not ev.name.startswith("role:"):      # not a role's span on the device
+                device[ev.name] = device.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            continue
+        if not ev.kernels:
+            continue
+        role, node = "the rest", ev
+        while node is not None:
+            if node.name.startswith("role:"):
+                role = node.name[5:]
+                break
+            node = node.cpu_parent
+        for k in ev.kernels:
+            out[role] += k.duration / 1e3
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration / 1e3
+    for name, ms in device.items():
+        left = ms - linked.get(name, 0.0)
+        if left > 1e-6:
+            out[next((r for key, r in WIRE_DEVICE_NAMES if key in name), "unlinked")] += left
+    out["total"] = sum(out.values())
+    return out
+
+
+def moe_split(mz: dict, mv: dict) -> dict:
+    """The device split by role of one prefill wave and one decode step
+    through the kernels (after a warm wave and step)."""
+    cfg, params = mv["cfg"], mv["params"]
+    prompts = mv["prompts"][:mz["batch"]]
+    state = {}
+
+    def prefill():
+        state["cache"], lg = lm.prefill(params, cfg, {"tokens": prompts},
+                                        cache_len=mz["prompt_len"] + mz["gen"])
+        state["tok"] = lg.argmax(-1)[:, None]
+
+    def decode():
+        lm.decode_step(params, cfg, dict(state["cache"]), state["tok"])
+    prefill()
+    decode()
+    torch.cuda.synchronize()
+    out = {"prefill wave": role_split(prefill), "decode step": role_split(decode)}
+    for what, split in out.items():
+        print(f"MoE split {what} (device ms by role): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the float32 serve phase: serve.py's main with the reduced configurations
 # --------------------------------------------------------------------------
 
 #: the JAX package's own float32 configurations (configs.reduced), served
 #: by serve.py's main at its default flags (16 requests, 4 slots)
-F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b")
+F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b")
 #: relative L2 gap allowed between the kernel run's logits and the plain
 #: run's at every step: both run in float32 (matmuls too: TF32 off) and
 #: differ only in the attention's summation order and the kernel's 3xTF32
@@ -1620,7 +2058,8 @@ def f32_serve_path(impl: str, arch: str, runs: dict, dev) -> dict:
 def check_f32_serve(r: dict) -> None:
     """A float32 model; one prefill and gen decode steps of finite logits
     per wave; gen in-vocab tokens per request; on the card, the kernel run
-    launched flash_attention_f32 once per layer and wave and nothing else."""
+    launched flash_attention_f32 once per layer and wave and nothing else
+    but, for an MoE model, the wire kernels of each layer's dispatch."""
     cfg, gen = r["cfg"], r["gen"]
     n_req = r["prompts"].shape[0]
     n_waves = -(-n_req // r["batch"])
@@ -1635,9 +2074,13 @@ def check_f32_serve(r: dict) -> None:
         f"f32 serve {cfg.name}: {gen} in-vocab tokens per request")
     if r["impl"] == "auto" and r["prompts"].is_cuda:
         counts = {k: n for k, n in r["launches"].items() if n}
-        check(counts == {"flash_attention_f32": cfg.n_layers * n_waves},
+        want = {"flash_attention_f32": cfg.n_layers * n_waves}
+        if cfg.moe is not None:
+            want.update(moe_wire_launches(cfg, n_waves * (gen + 1)))
+        check(counts == want,
               f"f32 serve {cfg.name}: flash_attention_f32 once per layer ({cfg.n_layers}) "
-              f"and wave ({n_waves}), no other kernel (the bf16 route included): {counts}")
+              f"and wave ({n_waves}), no other kernel (the bf16 route included) but the "
+              f"MoE wire's {want}: {counts}")
 
 
 def _logits_gap(a: dict, b: dict) -> dict:
@@ -1724,12 +2167,13 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
             gen=r["gen"], total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
             rel_l2_max=r.get("rel_l2_max"), control_rel_l2_max=r.get("control_rel_l2_max"),
             launches={k: n for k, n in r["launches"].items() if n})
-    elif path == "serving path":
+    elif path in ("serving path", "MoE serving path"):    # vz: the path's sizes
         t = r["timings"]
         n_tok = vz["requests"] * vz["gen"]
         dec = sorted(t["decode_s"])
-        print(f"served {vz['requests']} requests, {n_tok} tokens in {r['total_s']:.2f}s "
-              f"({n_tok / r['total_s']:.1f} tok/s)", flush=True)
+        serve_s = r.get("serve_s", r["total_s"])
+        print(f"served {vz['requests']} requests, {n_tok} tokens in {serve_s:.2f}s "
+              f"({n_tok / serve_s:.1f} tok/s)", flush=True)
         line = dict(
             card=smi, arch=vz["arch"], requests=vz["requests"], slots=vz["batch"],
             prompt_len=vz["prompt_len"], gen=vz["gen"],
@@ -1737,9 +2181,13 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
             ttft_s=t["prefill_s"], decode_ms_per_step_mean=1e3 * sum(dec) / len(dec),
             decode_ms_per_step_median=1e3 * dec[len(dec) // 2],
             decode_tokens_per_s=vz["batch"] * len(dec) / sum(dec),
-            served_tokens_per_s=n_tok / r["total_s"], total_s=r["total_s"],
-            prefill_decode_rel_l2=r["consistency"], peak_mem_bytes=r["peak_bytes"],
+            served_tokens_per_s=n_tok / r.get("serve_s", r["total_s"]), total_s=r["total_s"],
+            peak_mem_bytes=r["peak_bytes"],
             launches={k: n for k, n in r["launches"].items() if n})
+        for key, name in (("consistency", "prefill_decode_rel_l2"),
+                          ("flipped_rows", "flipped_rows")):
+            if key in r:
+                line[name] = r[key]
     else:
         t = r["times"]
         line = dict(
@@ -1838,7 +2286,7 @@ def main(argv=None) -> int:
     vz = V_REHEARSAL if rehearsal else V_FULL
     launched = {}
 
-    def run_path(path, drive, oracle, same, used):
+    def run_path(path, drive, oracle, same, used, sizes=None):
         runs = {}
         for impl in ("auto", "torch"):
             if dev.type == "cuda":
@@ -1863,7 +2311,7 @@ def main(argv=None) -> int:
         check(all(n == 0 for n in runs["torch"]["launches"].values()),
               f"the plain run of the {path} launched no kernel: {runs['torch']['launches']}")
         for impl in ("auto", "torch"):
-            report(path, impl, runs[impl], sz, gz, gdata, xz, vz, smi)
+            report(path, impl, runs[impl], sz, gz, gdata, xz, sizes or vz, smi)
 
     run_path("hash-map path", lambda impl, _: main_path(impl, sz, data, dev),
              lambda r: check_oracle(r, data, sz), same_results, HASHMAP_KERNELS)
@@ -1897,7 +2345,30 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 8. the float32 serve phase: serve.py's main, plain run teacher-forced
+    # 8. the MoE serving path: the wire kernels at its shapes, then serve
+    # (the plain run fed the kernel run's tokens), then its device split
+    mz = M_REHEARSAL if rehearsal else M_FULL
+    mv = moe_setup(mz, dev, args.seed)
+    mrows = moe_wire_phase(mz, mv, sz["reps"], dev)
+    run_path("MoE serving path",
+             lambda impl, runs: moe_serving_path(impl, mz, mv,
+                                                 None if impl == "auto" else forced(runs)),
+             lambda r: check_moe_serving(r, mz, mv),
+             lambda a, b: same_moe_serving(a, b, mz, mv), MOE_KERNELS, sizes=mz)
+    m_waves = -(-mz["requests"] // mz["batch"])
+    if not rehearsal:
+        counts = {k: n for k, n in launched["MoE serving path", "auto"].items() if n}
+        want = moe_wire_launches(mv["cfg"], m_waves * (mz["gen"] + 1))
+        want["flash_attention"] = mz["layers"] * m_waves
+        check(counts == want, f"MoE serving path: launches {counts}, want {want}")
+        moe_split(mz, mv)
+    print("MoE wire rows: " + json.dumps({k: {f: v[f] for f in ("ms", "bound_ms")}
+                                          for k, v in mrows.items()}), flush=True)
+    del mv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 9. the float32 serve phase: serve.py's main, plain run teacher-forced
     for arch in F32_SERVE_ARCHS:
         run_path(f"f32 serve {arch}",
                  lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),

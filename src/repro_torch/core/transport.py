@@ -232,6 +232,10 @@ class DenseTransport(Transport):
         starts, wtot = ragged_offsets(
             [specs[fi].cap_e * rls[fi] for fi in replying])
         seg_off = dict(zip(replying, starts))
+        if nprocs * wtot >= 1 << 31:
+            # place_rows takes int32 word slots: a wider buffer would wrap
+            raise ValueError(f"{ctx.plan_op}: a reply buffer of {nprocs * wtot} words "
+                             f"exceeds int32 slots")
 
         send = torch.zeros(nprocs * wtot, dtype=_I32, device=dev)
         for fi in replying:
@@ -608,6 +612,12 @@ class HierarchicalTransport(Transport):
         pr, pc, c1, c2 = ctx.pr, ctx.pc, ctx.c1, ctx.c2
         rls = {fi: staged[fi].shape[1] for fi in staged}
         dev = next(iter(staged.values())).device
+        for fi in staged:
+            if nprocs * specs[fi].cap_e * rls[fi] >= 1 << 31:
+                # the source lands replies by int32 word slots (place_rows)
+                raise ValueError(f"{ctx.plan_op}: flow '{specs[fi].op_name}' replies "
+                                 f"{nprocs * specs[fi].cap_e * rls[fi]} words, past int32 "
+                                 f"slots")
 
         # ---- inverse stage 2: owner -> relay, ONE collective covering
         # every launch (per-launch blocks concatenate along words) ----

@@ -14,9 +14,13 @@ across": both packages can start from the same populated containers.
 
 And the LM's parameters: ``lm_params_from_numpy`` takes the JAX
 package's ``lm.init_params`` pytree (``np.asarray`` on each leaf) and
-unstacks its scanned units into the port's per-layer list;
+unstacks its scanned units into the port's per-layer list (an MoE
+layer's ``moe`` tree too: the float32 router, the bf16 expert stacks);
 ``lm_params_to_numpy`` goes back (bf16 leaves come back as float32
 arrays of the same values: numpy has no bfloat16 of its own).
+``moe_params_for_rank`` gives rank ``r`` of a ``P``-rank model axis an
+MoE layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's
+``shard_map`` shards them.
 """
 
 from __future__ import annotations
@@ -97,20 +101,25 @@ def _tree(fn, tree):
     return fn(tree)
 
 
+def tree_from_numpy(tree: dict, device="cuda") -> dict:
+    """A nested dict of numpy arrays (one layer's or module's JAX
+    parameters, e.g. ``moe_init``'s) -> the same dict of tensors on
+    ``device``, dtypes kept (bf16 included)."""
+    return _tree(lambda a: _tensor(a, device), tree)
+
+
 def lm_params_from_numpy(params_np: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The JAX LM pytree -> the port's parameters on ``device``: the layers
     in order (``prefix_i``, then each unit's ``p0..p{u-1}`` from
     ``stack``, then ``rem_i``)."""
     prefix, n_units, n_rem = _layout(cfg)
     pat = len(cfg.layer_pattern)
-    layers = [_tree(lambda a: _tensor(a, device), params_np[f"prefix_{i}"])
-              for i in range(prefix)]
+    layers = [tree_from_numpy(params_np[f"prefix_{i}"], device) for i in range(prefix)]
     for u in range(n_units):
         for i in range(pat):
             layers.append(_tree(lambda a: _tensor(np.asarray(a)[u], device),
                                 params_np["stack"][f"p{i}"]))
-    layers += [_tree(lambda a: _tensor(a, device), params_np[f"rem_{i}"])
-               for i in range(n_rem)]
+    layers += [tree_from_numpy(params_np[f"rem_{i}"], device) for i in range(n_rem)]
     out = {k: _tensor(params_np[k], device) for k in ("embed", "final_norm", "lm_head")
            if k in params_np}
     out["layers"] = layers
@@ -140,4 +149,17 @@ def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
         out["stack"] = {f"p{i}": stack(units[i]) for i in range(pat)}
     for i in range(n_rem):
         out[f"rem_{i}"] = layers[prefix + n_units * pat + i]
+    return out
+
+
+def moe_params_for_rank(moe_params: dict, cfg: ArchConfig, rank: int, nprocs: int) -> dict:
+    """One MoE layer's parameters as rank ``rank`` of ``nprocs`` holds
+    them: its slice of each expert stack (views), the rest shared."""
+    e = cfg.moe.n_experts
+    if e % nprocs:
+        raise ValueError(f"{e} experts do not split over {nprocs} ranks")
+    e_loc = e // nprocs
+    out = dict(moe_params)
+    out["experts"] = {k: v[rank * e_loc:(rank + 1) * e_loc]
+                      for k, v in moe_params["experts"].items()}
     return out

@@ -242,6 +242,8 @@ def ragged_slots(bins, flow, offsets, valid, rnd: int, word_off, row_words, caps
 def pack_rows_plain(rows, bins, flow, offsets, valid, rnd: int, word_off,
                     row_words, caps, rounds, wtot: int, total: int) -> torch.Tensor:
     """Slots, then a row scatter into a zeroed ``(total,)`` buffer (``ops.py:406-410``)."""
+    if total >= 1 << 31:
+        raise ValueError(f"pack_rows: {total} words exceed int32 slots")
     slots = ragged_slots_plain(bins, flow, offsets, valid, rnd, word_off, row_words,
                                caps, rounds, wtot, total)
     return scatter_rows(torch.zeros(total, dtype=_I32, device=rows.device), slots,

@@ -4,10 +4,12 @@ The port of ``repro/launch/serve.py``: a fixed decode batch of
 ``--batch`` slots; each wave of queued requests is prefilled into the
 slots (the last wave padded with zero prompts) and decoded greedily for
 ``--gen`` tokens.  It runs on the card unless ``--cpu`` is given, and
-without a card it exits non-zero.
+without a card it exits non-zero.  MoE models (arctic-480b) dispatch
+their experts over the exchange on a ``SerialBackend`` (one card).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --reduced --cpu \\
       --requests 16 --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --reduced
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
   serve_step(params, cache, tokens) -> (logits, cache)
 
 Each closes over the config and the kernel choice ``impl``.  The train
-step and the sharding trees wait for ROADMAP Queue 1 item 10.
+step and the sharding trees wait for ROADMAP Queue 1 items 6-7.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ allocated, and each decode step writes its one slot of the same buffers
 cache per token would cost more than the step).
 
 MLA (``cfg.mla``) and ``cfg.attn_probs_bf16`` wait for ROADMAP Queue 1
-item 10.
+item 6.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
     """
     if cfg.mla is not None or cfg.attn_probs_bf16:
         raise NotImplementedError(
-            "MLA and attn_probs_bf16 attention wait for ROADMAP Queue 1 item 10")
+            "MLA and attn_probs_bf16 attention wait for ROADMAP Queue 1 item 6")
     b, t, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 

@@ -1,7 +1,8 @@
 """Model assembly: the dense decoder-only LM and its serving path.
 
 The port of ``repro/models/lm.py`` for the layer kinds ``g`` (global
-attention) and ``l`` (sliding-window attention): ``init_params``,
+attention) and ``l`` (sliding-window attention), dense or MoE
+(``models/moe.py``, after the ``first_k_dense`` prefix): ``init_params``,
 ``cache_init``, ``forward``, ``prefill`` and ``decode_step``, with the
 JAX package's quirks kept (the ``sqrt(d_model)`` embedding scale taken in
 the model's dtype, the padded vocab rows masked to ``-1e30``, the cache's
@@ -9,14 +10,16 @@ the model's dtype, the padded vocab rows masked to ``-1e30``, the cache's
 
 Parameters are a dict: ``embed`` (padded_vocab, D), ``final_norm``,
 ``lm_head`` when the embeddings are untied, and ``layers``, one dict per
-layer in order (``ln1``, ``attn``, ``ln2``, ``mlp``).  The JAX package
-stacks its repeating units on a leading axis for ``scan``;
+layer in order (``ln1``, ``attn``, ``ln2``, and ``mlp`` or ``moe``).  The
+JAX package stacks its repeating units on a leading axis for ``scan``;
 ``repro_torch.interop.lm_params_from_numpy`` unstacks them.  The layer
-loop is a Python loop (no scan, no remat).
+loop is a Python loop (no scan, no remat).  MoE layers dispatch on a
+``SerialBackend`` (one rank): a model axis over several ranks waits for
+the multi-rank LM (ROADMAP Queue 3).
 
-MoE, MLA, the SSM kinds, the shared-attention kind ``a``,
-encoder-decoder, frontends and MTP raise ``NotImplementedError`` naming
-ROADMAP Queue 1 item 10; ``loss_fn`` and training wait for it too.
+MLA, the SSM kinds, the shared-attention kind ``a``, encoder-decoder,
+frontends and MTP raise ``NotImplementedError`` naming ROADMAP Queue 1
+item 6; ``loss_fn`` and training wait for item 7.
 """
 
 from __future__ import annotations
@@ -24,10 +27,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.backend import SerialBackend
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_SERIAL = SerialBackend()
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -37,8 +43,6 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM cannot run yet."""
     waits = []
-    if cfg.moe is not None:
-        waits.append("MoE over ExchangePlan")
     if cfg.mla is not None:
         waits.append("MLA")
     if cfg.ssm is not None or set(cfg.layer_pattern) - set("gl"):
@@ -52,7 +56,7 @@ def check_supported(cfg: ArchConfig) -> None:
         waits.append("MTP")
     if waits:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(waits)} wait for ROADMAP Queue 1 item 10")
+            f"{cfg.name}: {', '.join(waits)} wait for ROADMAP Queue 1 item 6")
 
 
 def kind_at(cfg: ArchConfig, layer_idx: int) -> str:
@@ -60,16 +64,24 @@ def kind_at(cfg: ArchConfig, layer_idx: int) -> str:
     return pat[layer_idx % len(pat)]
 
 
+def _layer_is_moe(cfg: ArchConfig, layer_idx: int) -> bool:
+    return cfg.moe is not None and layer_idx >= cfg.moe.first_k_dense
+
+
 # ---------------------------------------------------------------------------
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg, dtype, device) -> dict:
+def _block_init(gen, cfg, dtype, device, moe_layer: bool) -> dict:
     d = cfg.d_model
-    return {"ln1": torch.ones(d, dtype=dtype, device=device),
-            "attn": attn_mod.attn_init(gen, cfg, dtype, device),
-            "ln2": torch.ones(d, dtype=dtype, device=device),
-            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)}
+    p = {"ln1": torch.ones(d, dtype=dtype, device=device),
+         "attn": attn_mod.attn_init(gen, cfg, dtype, device),
+         "ln2": torch.ones(d, dtype=dtype, device=device)}
+    if moe_layer:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)
+    return p
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
@@ -85,7 +97,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
               "final_norm": torch.ones(d, dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (v, d), d ** -0.5, dtype, device)
-    params["layers"] = [_block_init(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]
+    params["layers"] = [_block_init(gen, cfg, dtype, device, _layer_is_moe(cfg, i))
+                        for i in range(cfg.n_layers)]
     return params
 
 
@@ -120,7 +133,12 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, cache=None, cache_len=None
                                       impl=impl)
     x = x + o
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp(bp["mlp"], h, cfg.activation), new_cache
+    if "moe" in bp:
+        # expert_load and the wire drops ride the dispatch; serving reads neither
+        y, _aux, _stats = moe_mod.moe_apply(bp["moe"], h, cfg, _SERIAL, impl=impl)
+    else:
+        y = L.mlp(bp["mlp"], h, cfg.activation)
+    return x + y, new_cache
 
 
 def forward(params, cfg: ArchConfig, tokens, *, cache=None, decode: bool = False,
@@ -173,7 +191,7 @@ def prefill(params, cfg: ArchConfig, batch: dict, cache_len: int, *, impl: str =
     if set(batch) - {"tokens"}:
         raise NotImplementedError(
             f"prefill inputs {sorted(set(batch) - {'tokens'})} (frontends, encoder-decoder) "
-            "wait for ROADMAP Queue 1 item 10")
+            "wait for ROADMAP Queue 1 item 6")
     cache = cache_init(cfg, tokens.shape[0], cache_len, tokens.device)
     h, new_cache = forward(params, cfg, tokens, cache=cache, decode=False, impl=impl)
     logits = h[:, -1] @ head_table(params, cfg).T

@@ -1,0 +1,357 @@
+"""Mixture-of-Experts with BCL-exchange token dispatch (the port of
+``repro/models/moe.py``).
+
+Expert dispatch is the many-to-many redistribution of BCL queues and
+ISx.  One call of :func:`moe_apply`:
+
+  1. registers the token routing AND a per-expert stats flow on one
+     :class:`~repro_torch.core.exchange.ExchangePlan` (one binning pass,
+     one ragged all-to-all for both flows); the stats flow asks each
+     expert's owner for its post-capacity served-token count, so every
+     rank learns the global expert load with no extra collective;
+  2. bins the arrivals per local expert (a stable sort) and runs the
+     batched expert FFN;
+  3. sends the expert outputs and the stats replies back through one
+     inverse all-to-all (``CommittedPlan.finish``) and merges them with
+     the router weights.
+
+Parallelism: the model axis is a :class:`~repro_torch.core.backend.Backend`
+in place of the JAX package's ``(mesh, axes)``; rank ``r`` holds experts
+``[r*e_loc, (r+1)*e_loc)`` (``interop.moe_params_for_rank``).  Every rank
+is given the whole ``x``; when ``T % P == 0`` and ``P > 1`` each rank
+dispatches its slice of the sequence and the outputs are all-gathered
+(the JAX ``shard_map``'s sequence split), otherwise every rank dispatches
+all of its tokens (decode).  The capacities are the JAX package's
+formulas.  On the card the wire runs the exchange's kernels
+(``multi_bin_offsets``, ``pack_rows``, ``place_rows``); ``impl="torch"``
+takes their plain versions.  Inference only: the wire kernels have no
+autograd.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.backend import Backend
+from repro_torch.core.exchange import ExchangePlan
+from repro_torch.core.transport import make_transport
+from repro_torch.models import layers as L
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+def _experts(gen, n: int, shape: tuple, scale: float, dtype, device) -> torch.Tensor:
+    """(n, *shape) ``N(0, 1) * scale`` drawn one expert at a time into a
+    preallocated tensor of ``dtype``, so the float32 draw of the whole
+    stack never exists."""
+    out = torch.empty((n, *shape), dtype=dtype, device=device)
+    for i in range(n):
+        out[i] = L.normal(gen, shape, scale, dtype, device)
+    return out
+
+
+def moe_init(gen: torch.Generator, cfg, dtype, device) -> dict:
+    """Router float32 (D, E); experts ``w_gate``/``w_in`` (E, D, F) and
+    ``w_out`` (E, F, D); ``shared``, ``dense`` and ``moe_bias`` as the
+    config asks.  The JAX package's shapes, scales and dtypes; the draws
+    differ."""
+    mo = cfg.moe
+    d, f, e = cfg.d_model, mo.expert_d_ff, mo.n_experts
+    s_in, s_out = d ** -0.5, f ** -0.5
+    p = {"router": L.normal(gen, (d, e), s_in, _F32, device),
+         "experts": {"w_gate": _experts(gen, e, (d, f), s_in, dtype, device),
+                     "w_in": _experts(gen, e, (d, f), s_in, dtype, device),
+                     "w_out": _experts(gen, e, (f, d), s_out, dtype, device)}}
+    if mo.shared_experts:
+        p["shared"] = L.mlp_init(gen, d, f * mo.shared_experts, cfg.activation, dtype, device)
+    if mo.dense_residual:
+        p["dense"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)
+    if mo.bias_update_rate > 0:
+        p["moe_bias"] = torch.zeros(e, dtype=_F32, device=device)
+    return p
+
+
+def _pack_act(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """(N, D) activations -> int32 wire lanes: float32 bit-views, or two
+    bf16 values per lane (the even element in the low half, as the JAX
+    package's ``bitcast_convert_type`` lays them out)."""
+    t = x.to(torch.bfloat16 if bf16 else _F32).contiguous()
+    return t.view(_I32)
+
+
+def _unpack_act(lanes: torch.Tensor, bf16: bool) -> torch.Tensor:
+    if not bf16:
+        return lanes.view(_F32)
+    return lanes.contiguous().view(torch.bfloat16).float()
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each of ``0..n-1`` in ``ids`` (int64), without the
+    host read of the largest id that ``torch.bincount`` makes on the card."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
+def _bin_indices(expert, valid, n_groups: int, cap: int, m: int):
+    """Slot assignment only: ``(flat_row_index (n_groups*cap,), slot (M,),
+    ok (M,))``; -1 marks empty bin slots.  An item's rank in its group is
+    its position in a stable sort by group."""
+    dev = expert.device
+    g = torch.where(valid, expert.to(_I32), n_groups).to(torch.int64)
+    counts_full = _counts(g, n_groups + 1)
+    start = torch.cumsum(counts_full, 0) - counts_full
+    order = torch.argsort(g, stable=True)
+    pos = torch.arange(m, device=dev) - start[g[order]]
+    pos_orig = torch.empty_like(pos).scatter_(0, order, pos)
+    ok = valid & (pos_orig < cap)
+    slot = torch.where(ok, g * cap + pos_orig, n_groups * cap)
+    binned_idx = torch.full((n_groups * cap + 1,), -1, dtype=_I32, device=dev)
+    binned_idx[slot] = torch.arange(m, dtype=_I32, device=dev)
+    return binned_idx[:-1], slot, ok
+
+
+def _gather_binned(rows, src, n_groups: int, cap: int) -> torch.Tensor:
+    """(n_groups, cap, D): bin slot i holds ``rows[src[i]]``, or zeros
+    where ``src[i]`` is -1."""
+    return torch.where((src >= 0)[:, None], rows[src.clamp(min=0).long()], 0) \
+        .reshape(n_groups, cap, -1)
+
+
+def _stats_flow(plan: ExchangePlan, e: int, e_loc: int, device) -> int:
+    """Register the per-expert stats flow: one row per global expert,
+    asking that expert's owner for its served-token count.  Its capacity
+    is exact (every rank sends ``e_loc`` rows to each owner), so it never
+    drops, and ``max_rounds=1`` opts it out of the token flow's retries."""
+    eid = torch.arange(e, dtype=_I32, device=device)
+    return plan.add((eid % e_loc)[:, None], eid // e_loc, e_loc, reply_lanes=1,
+                    op_name="moe.stats", max_rounds=1)
+
+
+def _stats_reply(committed, handle: int, served: torch.Tensor) -> None:
+    """Owner side: answer each stats request with its expert's count."""
+    sv = committed.view(handle)
+    lid = torch.where(sv.valid, sv.payload[:, 0], 0).long()
+    committed.set_reply(handle, torch.where(sv.valid, served[lid], 0))
+
+
+def _served(ids, ok, e_loc: int) -> torch.Tensor:
+    """Tokens each local expert served (post-capacity), int32 (e_loc,)."""
+    return _counts(torch.where(ok, ids, e_loc).long(), e_loc + 1)[:e_loc].to(_I32)
+
+
+def _expert_ffn(binned, wg, wi, wo, activation: str) -> torch.Tensor:
+    """Batched expert FFN: (E, C, D) rows through each expert's MLP."""
+    if activation in ("swiglu", "geglu"):
+        act = F.silu if activation == "swiglu" else L.activation_fn("gelu")
+        h = act(torch.bmm(binned, wg)) * torch.bmm(binned, wi)
+    else:
+        h = L.activation_fn(activation)(torch.bmm(binned, wi))
+    return torch.bmm(h, wo)
+
+
+def router_topk(params, x, cfg):
+    """Router over x (B, T, D): ``(top_w (B,T,K), top_idx (B,T,K),
+    gate_logits (B,T,E), scores (B,T,E))``; ``scores`` are what top-k
+    picks from (softmax probabilities, or sigmoid + ``moe_bias``)."""
+    k = cfg.moe.top_k
+    gate_logits = torch.einsum("btd,de->bte", x.float(), params["router"])
+    if "moe_bias" in params:
+        scores = torch.sigmoid(gate_logits) + params["moe_bias"]
+        top_idx = torch.topk(scores, k, dim=-1).indices
+        top_p = torch.gather(torch.sigmoid(gate_logits), -1, top_idx)
+        top_w = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    else:
+        scores = torch.softmax(gate_logits, dim=-1)
+        top_w, top_idx = torch.topk(scores, k, dim=-1)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    return top_w, top_idx, gate_logits, scores
+
+
+def _commit(plan, bk, cfg, transport, impl, xl, extras):
+    """Commit the plan; under split-phase dispatch the always-on MLPs
+    (shared/dense) run between ``commit_async`` and ``finish``.  Returns
+    ``(committed, window output | None)``."""
+    if not cfg.moe_async_dispatch:
+        return plan.commit(bk, impl=impl, max_rounds=cfg.moe_dispatch_rounds,
+                           transport=transport), None
+    pend = plan.commit_async(bk, impl=impl, max_rounds=cfg.moe_dispatch_rounds,
+                             transport=transport)
+    win = None
+    for p in extras:
+        o = L.mlp(p, xl, cfg.activation)
+        win = o if win is None else win + o
+    return pend.finish(bk), win
+
+
+def _dispatch(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport, impl):
+    """One exchange row per (token, expert) pair."""
+    mo = cfg.moe
+    d, k, e = xl.shape[2], mo.top_k, mo.n_experts
+    bl, tl = xl.shape[0], xl.shape[1]
+    wg, wi, wo = experts["w_gate"], experts["w_in"], experts["w_out"]
+    cap = max(1, int(bl * tl * k / nm * cfg.moe_capacity_slack) + 1)
+    # expert bins scale with retry rounds (see _dispatch_dedup)
+    e_cap = max(1, int(bl * tl * k * nm / e * cfg.moe_capacity_slack)
+                + 1) * max(1, cfg.moe_dispatch_rounds)
+    xx = xl.reshape(bl * tl, d).repeat_interleave(k, dim=0)      # (n, D)
+    ee = idxl.reshape(-1).to(_I32)
+    bf16 = cfg.moe_payload_dtype == "bfloat16"
+    act_lanes = d // 2 if bf16 else d
+    payload = torch.cat([_pack_act(xx, bf16), (ee % e_loc)[:, None]], dim=1)
+    plan = ExchangePlan(name="moe.dispatch")
+    h_tok = plan.add(payload, ee // e_loc, cap, reply_lanes=act_lanes,
+                     op_name="moe.dispatch")
+    h_st = _stats_flow(plan, e, e_loc, xl.device)
+    c, win = _commit(plan, bk, cfg, transport, impl, xl, extras)
+    res = c.view(h_tok)
+
+    rows = _unpack_act(res.payload[:, :act_lanes], bf16)
+    le = torch.where(res.valid, res.payload[:, act_lanes], e_loc)
+    bin_idx, slot, okb = _bin_indices(le, res.valid, e_loc, e_cap, rows.shape[0])
+    binned = _gather_binned(rows, bin_idx, e_loc, e_cap).to(wg.dtype)
+    y = _expert_ffn(binned, wg, wi, wo, cfg.activation)          # (e_loc, e_cap, D)
+
+    flat = y.reshape(e_loc * e_cap, d)
+    take = slot.clamp(max=e_loc * e_cap - 1)
+    back = torch.where((slot < e_loc * e_cap)[:, None], flat[take], 0).float()
+    _stats_reply(c, h_st, _served(le, okb, e_loc))
+    c.set_reply(h_tok, _pack_act(back, bf16))
+    outs = c.finish(bk)
+    load = outs[h_st][0][:, 0].float()
+    yk = _unpack_act(outs[h_tok][0], bf16).reshape(bl, tl, k, d)
+    ybt = torch.einsum("btkd,btk->btd", yk, wl.float())
+    if win is not None:
+        ybt = ybt.to(xl.dtype) + win
+    return ybt, load, res.dropped
+
+
+def _dispatch_dedup(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport, impl):
+    """One exchange row per (token, distinct owner rank): the owner runs
+    all of its experts the token picked and replies their weighted sum."""
+    mo = cfg.moe
+    d, k, e = xl.shape[2], mo.top_k, mo.n_experts
+    bl, tl = xl.shape[0], xl.shape[1]
+    wg, wi, wo = experts["w_gate"], experts["w_in"], experts["w_out"]
+    n_tok = bl * tl
+    n = n_tok * k
+    exp_owners = nm * (1.0 - (1.0 - 1.0 / nm) ** k)
+    cap = max(1, int(n_tok * min(k, exp_owners) / nm * cfg.moe_capacity_slack) + 1)
+    # retry rounds admit up to rounds x cap arrivals per (src, dst), so the
+    # owner's expert bins scale with them or the rescued tokens would be
+    # zeroed at the bin stage
+    e_cap = max(1, int(n_tok * k * nm / e * cfg.moe_capacity_slack)
+                + 1) * max(1, cfg.moe_dispatch_rounds)
+    bf16 = cfg.moe_payload_dtype == "bfloat16"
+    act_lanes = d // 2 if bf16 else d
+
+    xx = xl.reshape(n_tok, d)
+    ee = idxl.reshape(n_tok, k).to(_I32)
+    ww = wl.reshape(n_tok, k).float()
+    owners = ee // e_loc                                         # (n_tok, k)
+    same = owners[:, :, None] == owners[:, None, :]              # (n_tok, j, i)
+    first = ~torch.triu(same, 1).any(dim=2)                      # j is first
+    # per (token, j) row: the local expert ids and weights of MY owner
+    ids = torch.where(same, (ee % e_loc)[:, None, :], e_loc)
+    wts = torch.where(same, ww[:, None, :], 0.0)
+    payload = torch.cat([_pack_act(xx.repeat_interleave(k, dim=0), bf16),
+                         ids.reshape(n, k).to(_I32),
+                         wts.reshape(n, k).contiguous().view(_I32)], dim=1)
+    plan = ExchangePlan(name="moe.dispatch")
+    h_tok = plan.add(payload, owners.reshape(-1), cap, reply_lanes=act_lanes,
+                     valid=first.reshape(-1), op_name="moe.dispatch")
+    h_st = _stats_flow(plan, e, e_loc, xl.device)
+    c, win = _commit(plan, bk, cfg, transport, impl, xl, extras)
+    res = c.view(h_tok)
+
+    m = res.payload.shape[0]
+    rows = _unpack_act(res.payload[:, :act_lanes], bf16)          # (M, D)
+    flat_ids = res.payload[:, act_lanes:act_lanes + k].reshape(-1)
+    flat_w = res.payload[:, act_lanes + k:act_lanes + 2 * k].contiguous() \
+        .view(_F32).reshape(-1)
+    flat_valid = res.valid.repeat_interleave(k) & (flat_ids < e_loc)
+    flat_row = torch.arange(m, device=xl.device).repeat_interleave(k)
+
+    bin_idx, slot, okb = _bin_indices(flat_ids, flat_valid, e_loc, e_cap, m * k)
+    src_row = torch.where(bin_idx >= 0, flat_row[bin_idx.clamp(min=0).long()], -1)
+    binned = _gather_binned(rows, src_row, e_loc, e_cap).to(wg.dtype)
+    y = _expert_ffn(binned, wg, wi, wo, cfg.activation)          # (e_loc, e_cap, D)
+
+    flat_y = y.reshape(e_loc * e_cap, d).float()
+    take = slot.clamp(max=e_loc * e_cap - 1)
+    part = flat_y[take] * flat_w[:, None] * okb[:, None]
+    # each arrival row owns k consecutive entries: their sum is its reply
+    out_rows = torch.where(okb[:, None], part, 0).reshape(m, k, d).sum(dim=1)
+
+    _stats_reply(c, h_st, _served(flat_ids, okb, e_loc))
+    c.set_reply(h_tok, _pack_act(out_rows, bf16))
+    outs = c.finish(bk)
+    load = outs[h_st][0][:, 0].float()
+    yk = _unpack_act(outs[h_tok][0], bf16).reshape(n_tok, k, d)
+    ybt = yk.sum(dim=1).reshape(bl, tl, d)                       # weights applied at owner
+    if win is not None:
+        ybt = ybt.to(xl.dtype) + win
+    return ybt, load, res.dropped
+
+
+def _gather_seq(bk: Backend, y: torch.Tensor) -> torch.Tensor:
+    """Every rank's (B, T/P, D) slice -> the whole (B, T, D), in rank order."""
+    wire = y.view(torch.int16) if y.dtype == torch.bfloat16 else y
+    parts = bk.all_gather(wire)
+    if y.dtype == torch.bfloat16:
+        parts = parts.view(torch.bfloat16)
+    return torch.cat(list(parts), dim=1)
+
+
+def moe_apply(params, x, cfg, backend: Backend, *, impl: str = "auto"):
+    """x (B, T, D) -> ``(y, aux, stats)``.
+
+    ``aux`` is the load-balance loss (GShard).  ``stats`` holds
+    ``expert_load``, the global post-capacity served-token count per
+    expert (E,) delivered by the stats flow, and ``dispatch_dropped``,
+    the global count of token copies the wire could not admit.  A copy
+    past its expert's bin capacity is served by no expert (its output
+    row is zero), as in the JAX package; only wire drops are counted.
+    """
+    mo = cfg.moe
+    b, t, d = x.shape
+    e = mo.n_experts
+    top_w, top_idx, gate_logits, _ = router_topk(params, x, cfg)
+
+    # load-balance aux loss (GShard)
+    probs_mean = torch.softmax(gate_logits, dim=-1).mean(dim=(0, 1))
+    hard = torch.zeros(e, dtype=_F32, device=x.device).index_add_(
+        0, top_idx.reshape(-1), torch.ones(top_idx.numel(), dtype=_F32, device=x.device))
+    hard = hard / hard.sum().clamp(min=1.0)
+    aux = mo.aux_loss_coef * e * torch.sum(probs_mean * hard)
+
+    # ---- dispatch over the model axis (the BCL exchange) ----
+    nm = backend.nprocs()
+    e_loc = -(-e // nm)
+    experts = params["experts"]
+    if experts["w_gate"].shape[0] != e_loc:
+        raise ValueError(f"moe_apply: rank {backend.rank()} of {nm} holds "
+                         f"{experts['w_gate'].shape[0]} experts, want {e_loc} "
+                         f"(interop.moe_params_for_rank slices them)")
+    transport = make_transport(cfg.exchange_transport)
+    extras = [params[kk] for kk in ("shared", "dense") if kk in params]
+    seq_split = t % nm == 0 and nm > 1
+    xl, idxl, wl = x, top_idx, top_w
+    if seq_split:
+        tl = t // nm
+        sl = slice(backend.rank() * tl, (backend.rank() + 1) * tl)
+        xl, idxl, wl = x[:, sl], top_idx[:, sl], top_w[:, sl]
+    dispatch = _dispatch_dedup if cfg.moe_dedup_dispatch else _dispatch
+    y, load, dropped = dispatch(xl, idxl, wl, experts,
+                                extras if cfg.moe_async_dispatch else [], cfg, backend,
+                                nm, e_loc, transport, impl)
+    y = y.to(x.dtype)
+    if seq_split:
+        y = _gather_seq(backend, y)
+
+    # ---- always-on paths (under async dispatch they ran in the window) ----
+    if not cfg.moe_async_dispatch:
+        for p in extras:
+            y = y + L.mlp(p, x, cfg.activation)
+    return y, aux, {"expert_load": load, "dispatch_dropped": dropped}
