@@ -20,17 +20,19 @@ Phases, each fatal on failure:
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function; flash_attention is held
-     against its plain version on eleven cases (the serving path's prefill
+     against its plain version on twelve cases (the serving path's prefill
      call, the MoE path's (arctic's 56 query heads over 8, 1024 tokens),
-     D=320 with a window, D=256, Tq=1 < Tk, non-causal with a ragged key
+     gemma3-4b's (8 query heads over 4 at D=320, 2048 tokens, a 1024-key
+     window), D=320 with a window, D=256, Tq=1 < Tk, non-causal with a ragged key
      tile: the bf16 wgmma route; float32, the 3xTF32 route
      flash_attention_f32: the kernel-phase call at D=128, D=16 at 2048
      tokens, D=320 with a window, and the float32 serve phase's prefill
      call, 4 slots of 32 tokens at D=16, without and with its 16-key
      window) elementwise
      (bf16 within one ulp of each element, float32 at 3e-5;
-     attention_close), each route's row and the MoE path's case timed
-     beside scaled_dot_product_attention (their ratio printed); a fixed
+     attention_close), each route's row and the MoE and gemma paths' cases
+     timed beside scaled_dot_product_attention (a boolean mask for the
+     window; their ratio printed); a fixed
      large-bin bin_offsets case (2**24 items into 2**20 bins, past one
      launch of its kernel: the bin_csr route) held bit for bit; the wire
      split: bin_offsets and pack_rows held bit for bit and timed at their
@@ -66,7 +68,28 @@ Phases, each fatal on failure:
      keys over the hierarchical and the dense transport, and a
      split-phase find_insert of 2**22 + 2**22 over the hierarchical
      transport against the synchronous one;
-  7. serving path: qwen3-4b at full width and depth (36 layers, 4.02 B
+  7. dedup path (data/dedup.py): the port's TokenStream (vocab 151,936,
+     qwen3-4b's tokenizer width) gives 8 batches of 4096 documents of 2048
+     tokens, from the second on 1/8 of each batch verbatim copies of
+     earlier documents and 1/8 an earlier document's first half with a
+     fresh second half; a Deduper (ngram 8, a 2**31-bit Bloom filter, a
+     2**26-slot count table) observes each batch (2**23 shingles), then
+     observe_and_probe takes a fresh batch and a probe of 1024 documents
+     (half held out, half observed), then count_of reads 256 planted
+     copies.  The oracle is exact, made from the stream with the JAX
+     package's numpy uint64 shingling (ingest order is stream order at
+     P=1): no shingle that occurred earlier reads unseen, the excess
+     stays within twice the rate that a model of the blocked scheme
+     (uniform block, k bits in arithmetic progression mod 64) gives for
+     the filter's fill before and after each batch, verbatim copies rate
+     1.0 and are flagged, the probe's observed half reads 1.0 and its
+     held-out half only what occurred (up to twice the model's rate for
+     the final filter), and count_of equals 1 + the landed insertions of each
+     shingle (its sightings but where an excess or a failed insert
+     explains the gap); the launches are exactly its eight kernels; then
+     one observe's device ms by role (torch.profiler) and the device-busy
+     share of its wall time;
+  8. serving path: qwen3-4b at full width and depth (36 layers, 4.02 B
      parameters in bf16 from the port's seeded init_params) serves 16
      requests of 2048-token prompts in slots of 8, 32 greedy tokens each,
      through repro_torch.launch.serve.serve: prefill attention runs the
@@ -75,8 +98,16 @@ Phases, each fatal on failure:
      matmuls; the first layer's attention output on wave 0's prompts
      (lm.forward of the model cut to one layer) is held kernel vs plain
      at LAYER_REL_L2, and two faults planted around the kernel's wrapper
-     must each break that check;
-  8. MoE serving path: arctic-480b at full width (d_model 7168, 56 query
+     must each break that check; then gemma3-4b the same way at full width
+     and depth (34 layers, 29 of them windowed at 1024 keys, head_dim 320,
+     4.01 B parameters): once with window_cache off and once on (the
+     second's kernel run fed the first's tokens: every prefill's logits
+     bit for bit, every decode step's within SERVE_REL_L2), and the first
+     (windowed) layer's float32 decode attention over the ring held
+     against the full cache's on the same contents at RING_REL_L2 for 4
+     steps, with two ring faults planted in the decode append (write
+     index off by one, append skipped) that must each break it;
+  9. MoE serving path: arctic-480b at full width (d_model 7168, 56 query
      heads over 8, 128 experts top-2 of d_ff 4864 beside a dense residual
      MLP, bf16 with a float32 router) cut to 2 of its 35 layers (27.7 B
      parameters from the seed, drawn expert by expert) serves 16 requests
@@ -93,7 +124,7 @@ Phases, each fatal on failure:
      SERVE_REL_L2, but for rows a near-tie routing flip (margin below
      FLIP_MARGIN) sent another way; then the device time of one prefill
      wave and one decode step by role (torch.profiler);
-  9. float32 serve phase: repro_torch.launch.serve.main, as a user runs
+  10. float32 serve phase: repro_torch.launch.serve.main, as a user runs
      it, with the JAX package's own float32 configurations (--arch
      qwen3-4b --reduced, gemma3-4b --reduced, whose local layers carry a
      16-key window, and arctic-480b --reduced, whose MoE layers dispatch
@@ -144,13 +175,14 @@ from repro_torch.containers import hashmap as hm  # noqa: E402
 from repro_torch.containers import hashmap_buffer as hb  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
 from repro_torch.core.backend import SerialBackend  # noqa: E402
-from repro_torch.core.exchange import CommittedPlan  # noqa: E402
+from repro_torch.core.exchange import CommittedPlan, ExchangePlan  # noqa: E402
 from repro_torch.core.faults import FaultInjectingTransport, FaultSpec  # noqa: E402
 from repro_torch.core.transport import DENSE  # noqa: E402
 from repro_torch.core.hashing import fmix32  # noqa: E402
 from repro_torch.core.object_container import Spec  # noqa: E402
 from repro_torch.core.promises import ConProm  # noqa: E402
 from repro_torch.core.u32 import as_u64, to_i32  # noqa: E402
+from repro_torch.data import Deduper, DedupSpec, TokenStream  # noqa: E402
 from repro_torch.data import genomics as gen  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import binning, bloom_kernel, build, hash_probe  # noqa: E402
@@ -185,9 +217,20 @@ X_FULL = dict(capacity=1 << 26, block=64, n=1 << 23, cap=1 << 20, rounds=8,
               wave=1 << 19, fi=1 << 22)
 X_REHEARSAL = dict(capacity=1 << 14, block=64, n=1 << 12, cap=1 << 9, rounds=8,
                    wave=1 << 8, fi=1 << 10)
+# dedup path: the port's TokenStream at qwen3-4b's tokenizer width, 8 observe
+# batches of 4096 documents (2**23 shingles a batch at ngram 8, the hash-map
+# path's waves), a 2**31-bit filter (256 MB) and that path's 2**26-slot table
+D_FULL = dict(vocab=151936, seq_len=2048, docs=4096, batches=8, ngram=8, nbits=1 << 31,
+              table=1 << 26, threshold=0.5, rounds=1, probe=1024, planted=256, sample=1 << 16)
+D_REHEARSAL = dict(vocab=151936, seq_len=64, docs=64, batches=4, ngram=8, nbits=1 << 19,
+                   table=1 << 12, threshold=0.5, rounds=1, probe=64, planted=8, sample=1 << 12)
 # serving path: serve.py's loop and flags at a chat-sized prompt
 V_FULL = dict(arch="qwen3-4b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32)
 V_REHEARSAL = dict(arch="qwen3-4b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4)
+# the windowed serving path: gemma3-4b at full width and depth, prompts past its
+# 1024-key window, served with window_cache off and then on
+W_FULL = dict(arch="gemma3-4b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32)
+W_REHEARSAL = dict(arch="gemma3-4b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4)
 # MoE serving path: arctic-480b at full width, cut to 2 of its 35 layers (13.6 B
 # parameters a layer: a third would not fit 80 GB), 1024-token prompts of its 4096
 M_FULL = dict(arch="arctic-480b", reduced=False, layers=2, requests=16, batch=8,
@@ -203,6 +246,12 @@ SERVE_REL_L2 = 5e-2
 #: attention outputs through the kernel and through the plain version:
 #: there they differ only by the kernel's rounding, before the drift above
 LAYER_REL_L2 = 5e-3
+#: largest relative L2 gap allowed, per (request, head) and decode step,
+#: between a windowed layer's decode attention (float32) over the ring
+#: (window_cache) and over the full cache with the same contents: the two
+#: sum the same keys' softmax in another order, so they differ by float32
+#: rounding (~1e-7); one key of the window lost or swapped moves it by ~1e-2
+RING_REL_L2 = 1e-4
 #: attention in bf16: both versions accumulate in float32 and round once,
 #: so an element differs by at most one bf16 ulp of its own size (2**-7
 #: of it) plus float32 summation noise (~1e-6)
@@ -213,6 +262,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 FLASH_FULL = {
     "serving_prefill": (8, 32, 8, 2048, 2048, 128, True, 0, BF16),
     "arctic_prefill": (8, 56, 8, 1024, 1024, 128, True, 0, BF16),
+    "gemma_prefill": (8, 8, 4, 2048, 2048, 320, True, 1024, BF16),
     "d320_window": (2, 8, 4, 2048, 2048, 320, True, 1024, BF16),
     "d256": (4, 16, 8, 2048, 2048, 256, True, 0, BF16),
     "suffix_tq1": (8, 32, 8, 1, 2048, 128, True, 0, BF16),
@@ -226,6 +276,7 @@ FLASH_FULL = {
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
     "arctic_prefill": (2, 7, 1, 24, 24, 16, True, 0, BF16),
+    "gemma_prefill": (2, 4, 2, 40, 40, 320, True, 16, BF16),
     "d320_window": (1, 2, 1, 70, 70, 320, True, 24, BF16),
     "d256": (1, 2, 1, 70, 70, 256, True, 0, BF16),
     "suffix_tq1": (2, 4, 2, 1, 40, 16, True, 0, BF16),
@@ -282,6 +333,7 @@ HASHMAP_KERNELS = ("bin_offsets", "bin_csr", "pack_rows", "place_rows", "insert_
                    "find_arrivals")
 GENOMICS_KERNELS = HASHMAP_KERNELS + ("insert", "find", "membership", "hash_words")
 EXT_KERNELS = HASHMAP_KERNELS + ("row_mix",)
+DEDUP_KERNELS = HASHMAP_KERNELS + ("hash_words", "membership")
 SERVING_KERNELS = ("flash_attention",)
 #: the exchange wire's binning and pack (the wire split's kernels)
 WIRE_KERNELS = ("bin_offsets", "pack_rows")
@@ -293,7 +345,7 @@ FLOAT_KERNELS = ("flash_attention", "flash_attention_f32")
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
 #: the flash_attention cases timed beside scaled_dot_product_attention
-SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill")
+SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill")
 
 
 def check(cond: bool, what: str) -> None:
@@ -769,6 +821,314 @@ def same_ext(a: dict, b: dict) -> None:
             check(torch.equal(a[m][f], b[m][f]), f"kernel and plain runs: {m} {f} identical")
     check(a["unreachable"] == b["unreachable"] and a["launches_faulty"] == b["launches_faulty"],
           "kernel and plain runs: the same launches and unreachable count")
+
+
+# --------------------------------------------------------------------------
+# the dedup path: LM-data dedup (data/dedup.py) over the port's token stream
+# --------------------------------------------------------------------------
+
+def dedup_corpus(dz: dict, seed: int) -> dict:
+    """The corpus, made once on the host from the port's TokenStream
+    (qwen3-4b's tokenizer width; rows cut to ``seq_len`` tokens): the
+    observe batches, from the second on with 1/8 of their rows verbatim
+    copies of earlier rows and 1/8 an earlier row's first half with a
+    fresh second half; a fresh batch for observe_and_probe; a probe of
+    half held-out, half observed documents; the planted copies for
+    count_of."""
+    stream = TokenStream(dz["vocab"], dz["seq_len"], dz["docs"] // 8, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    d, t, k = dz["docs"], dz["seq_len"], dz["docs"] // 8
+
+    def fresh(n: int) -> np.ndarray:
+        return np.concatenate([stream.next_batch(device="cpu")["tokens"][:, :t].numpy()
+                               for _ in range(n // k)])
+    corpus = np.empty((dz["batches"] * d, t), np.int32)
+    corpus[:d] = fresh(d)
+    copies = []
+    for i in range(1, dz["batches"]):
+        rows = i * d + rng.permutation(d)
+        verbatim, half = rows[:k], rows[k:2 * k]
+        corpus[rows[2 * k:]] = fresh(d - 2 * k)
+        corpus[verbatim] = corpus[rng.integers(0, i * d, k)]
+        corpus[half] = fresh(k)
+        corpus[half, :t // 2] = corpus[rng.integers(0, i * d, k), :t // 2]
+        copies.append(np.sort(verbatim))
+    copies = np.concatenate(copies)
+    probe = np.concatenate([fresh(dz["probe"] // 2),
+                            corpus[rng.integers(0, len(corpus), dz["probe"] // 2)]])
+    return dict(batches=[corpus[i * d:(i + 1) * d] for i in range(dz["batches"])],
+                fresh=fresh(d), probe=probe, copies=copies,
+                planted=corpus[copies[rng.permutation(len(copies))[:dz["planted"]]]])
+
+
+def shingle_hashes(tokens: np.ndarray, n: int) -> np.ndarray:
+    """The oracle's own shingling, as the JAX package computes it: the
+    rolling hash in numpy uint64, (B, T-n+1) values in row order."""
+    b, t = tokens.shape
+    h = np.zeros((b, t - n + 1), np.uint64)
+    for i in range(n):
+        h = h * np.uint64(1099511628211) ^ tokens[:, i:t - n + 1 + i].astype(np.uint64)
+    return h
+
+
+def dedup_oracle(dz: dict, corpus: dict, dev) -> dict:
+    """The exact facts of the stream, independent of the containers: every
+    ingested shingle (the observe batches, then the observe_and_probe
+    batch, in stream order: at P=1 with stable binning the order they
+    reach the filter), whether the same shingle occurred earlier, each
+    value's sightings, and which probe shingles occurred at all."""
+    n = dz["ngram"]
+    ingest = corpus["batches"] + [corpus["fresh"]]
+    h = torch.from_numpy(np.concatenate([shingle_hashes(b, n).reshape(-1) for b in ingest])
+                         .view(np.int64)).to(dev)
+    vals, order = torch.sort(h, stable=True)
+    first = torch.ones_like(vals, dtype=torch.bool)
+    first[1:] = vals[1:] != vals[:-1]
+    earlier = torch.empty_like(first)
+    earlier[order] = ~first
+    uniq, count = torch.unique_consecutive(vals, return_counts=True)
+
+    def lookup(tokens):
+        q = torch.from_numpy(shingle_hashes(tokens, n).reshape(-1).view(np.int64)).to(dev)
+        pos = torch.searchsorted(uniq, q).clamp(max=uniq.numel() - 1)
+        return q, pos, uniq[pos] == q
+    probe_q, _, probe_occurred = lookup(corpus["probe"])
+    planted_q, planted_pos, planted_hit = lookup(corpus["planted"])
+    return dict(h=h, order=order, first=first, earlier=earlier, uniq=uniq, count=count,
+                probe_occurred=probe_occurred, planted_pos=planted_pos,
+                planted_hit=planted_hit, shingles=h.numel())
+
+
+def _tap_dedup(record: dict):
+    """Wrap the container calls a Deduper makes so a run keeps each
+    ingest's ``seen`` flags, the probe's flags and each counting insert's
+    successes (device tensors, no host sync); returns the undo list."""
+    real = [(bl, "insert", bl.insert), (bl, "insert_find", bl.insert_find),
+            (hm, "insert", hm.insert)]
+
+    def b_insert(*a, **kw):
+        out = real[0][2](*a, **kw)
+        record["seen"].append(out[1])
+        return out
+
+    def b_insert_find(*a, **kw):
+        out = real[1][2](*a, **kw)
+        record["seen"].append(out[1])
+        record["probed"].append(out[2])
+        return out
+
+    def h_insert(*a, **kw):
+        out = real[2][2](*a, **kw)
+        record["ok"].append(out[1])
+        return out
+    bl.insert, bl.insert_find, hm.insert = b_insert, b_insert_find, h_insert
+    return real
+
+
+def dedup_path(impl: str, dz: dict, dd: dict, dev) -> dict:
+    """The port's Deduper through its entry points: every observe batch,
+    one observe_and_probe, one count_of; verdicts, state, the cost log,
+    the tapped flags and the host-clock seconds of each call."""
+    spec = DedupSpec(ngram=dz["ngram"], nbits=dz["nbits"], table_capacity=dz["table"],
+                     dup_threshold=dz["threshold"], max_rounds=dz["rounds"])
+    tap = {"seen": [], "probed": [], "ok": []}
+    out = {"observe": [], "observe_s": [], "model_rates": [0.0]}
+    undo = _tap_dedup(tap)
+    try:
+        dedup = Deduper(SerialBackend(), spec, device=dev, impl=impl)
+        with costs.recording() as log:
+            sync(dev)
+            for b in dd["batches"]:
+                t0 = time.perf_counter()
+                out["observe"].append(dedup.observe(b))
+                sync(dev)
+                out["observe_s"].append(time.perf_counter() - t0)
+                out["model_rates"].append(ap_bloom_rate(dedup.bstate.words, dedup.bspec.k, dz["sample"]))
+            t0 = time.perf_counter()
+            out["oap"] = dedup.observe_and_probe(dd["fresh"], dd["probe"])
+            sync(dev)
+            out["oap_s"] = time.perf_counter() - t0
+            out["model_rates"].append(ap_bloom_rate(dedup.bstate.words, dedup.bspec.k, dz["sample"]))
+            t0 = time.perf_counter()
+            out["counts"] = dedup.count_of(dd["planted"])
+            sync(dev)
+            out["count_s"] = time.perf_counter() - t0
+    finally:
+        for mod, attr, fn in undo:
+            setattr(mod, attr, fn)
+    out.update(dedup=dedup, costs={op: log.by_op(op).__dict__
+                                   for op in sorted({n for n, _ in log.entries})},
+               seen=torch.cat(tap["seen"]), probed=torch.cat(tap["probed"]),
+               ok=torch.cat(tap["ok"]),
+               fill=float(bl.fill_fraction(dedup.backend, dedup.bstate)),
+               occupancy=int(hm.count_ready(dedup.backend, dedup.hstate)) / dz["table"])
+    return out
+
+
+def ap_bloom_rate(words: torch.Tensor, k: int, sample: int) -> float:
+    """The false-positive rate a fresh item meets in the filter ``words``,
+    from a model of the blocked scheme written from its definition, not
+    from the program's hashing: an item's block is uniform, and its k bits
+    are b, b + s, ..., b + (k-1)s mod 64 for b uniform in [0, 64) and s
+    uniform odd (double hashing with an odd step).  The rate is the mean,
+    over ``sample`` blocks drawn uniformly (seeded), of the share of the
+    64 x 32 (b, s) pairs whose bits the block holds all of."""
+    masks = []
+    for b in range(64):
+        for step in range(1, 64, 2):
+            m = sum(1 << ((b + i * step) % 64) for i in range(k))
+            masks.append(m - (1 << 64) if m >= 1 << 63 else m)     # as int64
+    masks = torch.tensor(masks, dtype=torch.int64, device=words.device)
+    g = torch.Generator(device=words.device).manual_seed(len(masks))
+    pick = torch.randint(0, words.shape[0], (sample,), generator=g, device=words.device)
+    w = words[pick].to(torch.int64)
+    blocks = (w[:, 1] << 32) | (w[:, 0] & 0xFFFFFFFF)
+    held = 0
+    for c in range(0, sample, 1 << 12):
+        blk = blocks[c:c + (1 << 12), None]
+        held += int(((blk & masks) == masks).sum())
+    return held / (sample * len(masks))
+
+
+def check_dedup(r: dict, dz: dict, dd: dict, oracle: dict) -> None:
+    """The exact oracle: no ingested shingle that occurred earlier in the
+    stream goes unseen; the excess (new shingles read seen) stays within
+    twice the rate the scheme's model (:func:`ap_bloom_rate`) gives for
+    the fill the ingest saw, each batch's new shingles at the mean of the
+    model's rates before and after that batch; verbatim copies rate 1.0
+    and are flagged; the probe's observed half reads 1.0 and its held-out
+    half sees only shingles that occurred, up to twice the model's rate
+    for the final filter; and count_of equals 1 + the landed insertions
+    of each shingle exactly, which is its sightings except where an
+    excess or a failed insert explains the gap."""
+    seen, earlier = r["seen"], oracle["earlier"]
+    check(seen.shape == earlier.shape, f"dedup: {seen.numel()} seen flags for "
+                                       f"{earlier.numel()} ingested shingles")
+    missed = int((earlier & ~seen).sum())
+    check(missed == 0, f"dedup: {missed} shingles seen earlier in the stream read unseen")
+    excess = seen & ~earlier
+    new = int((~earlier).sum())
+    rate = int(excess.sum()) / max(1, new)
+    # each ingest batch's new shingles at the mean of the model's rates
+    # before and after it (the observe batches, then observe_and_probe's)
+    mr = r["model_rates"]
+    per = earlier.numel() // (len(mr) - 1)
+    check(per * (len(mr) - 1) == earlier.numel(), "dedup: equal ingest batches")
+    want = sum(int((~earlier[i * per:(i + 1) * per]).sum()) * (mr[i] + mr[i + 1]) / 2
+               for i in range(len(mr) - 1))
+    predicted = want / max(1, new)
+    r["excess_rate"], r["predicted_rate"], r["final_model_rate"] = rate, predicted, mr[-1]
+    print(f"dedup: excess rate {rate} against the model's {predicted} for the ingest's "
+          f"fill (ratio {rate / predicted if predicted else float('nan')}); the model's rate "
+          f"after each batch {mr[1:]}", flush=True)
+    check(rate <= 2 * predicted, f"dedup: excess rate {rate} within twice the model's "
+                                 f"{predicted} for the fill the ingest saw")
+    frac = torch.cat([f for f, _ in r["observe"]])
+    dup = torch.cat([x for _, x in r["observe"]])
+    copies = torch.from_numpy(dd["copies"]).to(frac.device)
+    check(bool((frac[copies] == 1.0).all()) and bool(dup[copies].all()),
+          "dedup: every verbatim copy has dup_frac 1.0 and is flagged")
+    n_sh = dz["seq_len"] - dz["ngram"] + 1
+    pf = r["oap"][2]
+    half = dz["probe"] // 2
+    check(bool((pf[half:] == 1.0).all()), "dedup: the probe's observed half reads 1.0")
+    probed, occurred = r["probed"], oracle["probe_occurred"]
+    check(not bool((occurred & ~probed).any()), "dedup: every probe shingle that occurred "
+                                                "reads seen")
+    held = probed[:half * n_sh] & ~occurred[:half * n_sh]
+    held_rate = int(held.sum()) / max(1, int((~occurred[:half * n_sh]).sum()))
+    r["probe_excess_rate"] = held_rate
+    check(held_rate <= 2 * mr[-1], f"dedup: the held-out probe's excess rate {held_rate} "
+                                   f"within twice the model's {mr[-1]} for the final filter")
+    # count_of: 1 + the insertions of each shingle that landed in the table
+    check(r["ok"].shape == seen.shape, "dedup: one insert success per ingested shingle")
+    landed = seen & r["ok"]
+    nu = oracle["uniq"].numel()
+    seg = torch.cumsum(oracle["first"].to(torch.int64), 0) - 1     # sorted -> value id
+    lsum = torch.zeros(nu, dtype=torch.int64, device=seen.device)
+    lsum.index_add_(0, seg, landed[oracle["order"]].to(torch.int64))
+    pos, hit = oracle["planted_pos"], oracle["planted_hit"]
+    check(bool(hit.all()), "dedup: every planted shingle occurred in the stream")
+    got = r["counts"].reshape(-1)
+    want = 1 + lsum[pos]
+    check(torch.equal(got, want), f"dedup: count_of equals 1 + landed insertions "
+                                  f"({int((got != want).sum())} differ)")
+    flag = torch.zeros(nu, dtype=torch.int64, device=seen.device)
+    flag.index_add_(0, seg, (excess | (seen & ~r["ok"]))[oracle["order"]].to(torch.int64))
+    off = got != oracle["count"][pos]
+    r["count_off"], r["count_explained"] = int(off.sum()), int((off & (flag[pos] > 0)).sum())
+    check(r["count_off"] == r["count_explained"],
+          f"dedup: count_of equals the sightings but on {r['count_explained']} shingles "
+          f"an excess or a failed insert explains ({r['count_off']} differ)")
+
+
+def same_dedup(a: dict, b: dict) -> None:
+    """Kernel and plain runs equal bit for bit: verdicts, fractions,
+    counts, taps, the filter's words, the table's arrays, the cost log."""
+    pairs = [(f"observe {i} {what}", x[j], y[j]) for i, (x, y) in
+             enumerate(zip(a["observe"], b["observe"])) for j, what in
+             enumerate(("dup_frac", "is_duplicate"))]
+    pairs += [(f"observe_and_probe {what}", a["oap"][j], b["oap"][j]) for j, what in
+              enumerate(("dup_frac", "is_duplicate", "probe fraction"))]
+    pairs += [(name, a[name], b[name]) for name in ("counts", "seen", "probed", "ok")]
+    pairs.append(("filter words", a["dedup"].bstate.words, b["dedup"].bstate.words))
+    pairs += [(f"table {f}", getattr(a["dedup"].hstate, f), getattr(b["dedup"].hstate, f))
+              for f in ("tkeys", "tvals", "status")]
+    for what, x, y in pairs:
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"kernel and plain runs: dedup {what} bit-identical")
+    check(a["costs"] == b["costs"], "kernel and plain runs: the same dedup cost log")
+
+
+def dedup_roles() -> dict:
+    """Roles of an observe's device time: the calls, callees included,
+    each takes (the innermost role wins)."""
+    return {"shingle hashing": (Deduper, "shingles"),
+            "key hashing (hash_lanes_u64)": [(hm, "hash_lanes_u64"), (bl, "hash_lanes_u64")],
+            "read bits (torch.bincount)": (hm, "_read_bits"),
+            "bloom_insert (argsort, OR-scan)": (ops, "bloom_insert"),
+            "insert_arrivals (copies, CSR, probe)": (ops, "bulk_insert_arrivals"),
+            "exchange plan (commit, finish)": [(ExchangePlan, "commit"),
+                                               (CommittedPlan, "finish")],
+            "counting insert": (hm, "insert"), "bloom insert": (bl, "insert")}
+
+
+#: the wire kernels' device functions by role: their C entry points launch
+#: them (and their memsets) outside any PyTorch op, so the profiler links
+#: them to no host call and they are told apart by name
+WIRE_DEVICE_NAMES = (("bo_rank_tiles", "bin_offsets"), ("pack_rows_kernel", "pack_rows"),
+                     ("place_rows_kernel", "place_rows"), ("copy_words", "place_rows"),
+                     ("Memset", "wire memsets"))
+
+
+#: the ctypes-launched kernels of an observe by name (the profiler links
+#: them to no op): the wire's, the probes' CSR and probe, the Bloom words
+DEDUP_DEVICE_NAMES = WIRE_DEVICE_NAMES + (
+    ("csr_", "bin_csr"), ("probe_insert_blocks", "insert_arrivals kernel"),
+    ("probe_find", "find_arrivals kernel"), ("hash_words_kernel", "hash_words"),
+    ("membership_kernel", "membership"))
+
+
+def dedup_split(r: dict, dd: dict) -> dict:
+    """One observe of a batch on the kernel run's Deduper under
+    torch.profiler: its device ms by role and by kernel, and the share of
+    that same call's wall time the device was busy (the profiler's host
+    cost is in that wall; the unprofiled observes' mean is printed beside
+    it)."""
+    trace: dict = {}
+    roles = role_split(lambda: r["dedup"].observe(dd["batches"][1]), dedup_roles(),
+                       DEDUP_DEVICE_NAMES, trace)
+    busy = sum(trace["by_name"].values())
+    by_kernel: dict[str, float] = {}
+    for name, ms in list(trace["by_name"].items())[:10]:
+        by_kernel[name[:60]] = by_kernel.get(name[:60], 0.0) + ms
+    out = dict(wall_ms=trace["wall_ms"], device_ms=busy,
+               device_busy_share=busy / trace["wall_ms"],
+               unprofiled_observe_ms=1e3 * sum(r["observe_s"]) / len(r["observe_s"]),
+               device_ms_by_role={k: v for k, v in roles.items() if v},
+               device_ms_by_kernel=by_kernel)
+    print("dedup split (one observe of 4096 documents): " + json.dumps(out), flush=True)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1374,8 +1734,15 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
         bytes_ms = _nbytes(q, k, v, got) / HBM_BYTES_PER_S * 1e3
         library_ms = None
         if case in SDPA_CASES:
+            mask = None
+            if window:      # the window as a boolean mask (the library has no window)
+                qpos = torch.arange(tq, device=dev)[:, None] + (tk - tq)
+                kpos = torch.arange(tk, device=dev)[None, :]
+                mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+
             def library():
-                return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      is_causal=causal and mask is None,
                                                       enable_gqa=True)
             attention_close(library(), want, f"flash_attention {case}: the library call",
                             per_element=False)
@@ -1426,7 +1793,7 @@ def serving_setup(vz: dict, dev, seed: int) -> dict:
     n_params = _numel(params)
     print(f"serving model: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters ({cfg.dtype}), init {init_s:.2f}s", flush=True)
-    return dict(cfg=cfg, params=params, n_params=n_params,
+    return dict(cfg=cfg, params=params, n_params=n_params, label=f"{cfg.name} serving",
                 prompts=torch.from_numpy(prompts).to(dev))
 
 
@@ -1436,7 +1803,8 @@ def serving_path(impl: str, vz: dict, sv: dict, forced=None) -> dict:
     tokens = serve(sv["params"], sv["cfg"], sv["prompts"], vz["batch"], vz["gen"], impl,
                    forced=forced, on_logits=lambda w, st, lg: logits.__setitem__((w, st), lg),
                    timings=timings)
-    return dict(tokens=tokens, logits=logits, timings=timings, impl=impl)
+    return dict(tokens=tokens, logits=logits, timings=timings, impl=impl,
+                window_cache=sv["cfg"].window_cache)
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1466,7 +1834,7 @@ def check_serving(r: dict, vz: dict, sv: dict) -> None:
         _, last = lm.prefill(sv["params"], cfg, {"tokens": seq}, cache_len=seq.shape[1],
                              impl=r["impl"])
         r["consistency"][n] = rel_l2(r["logits"][0, n][rows, :vocab], last[:, :vocab])
-    print(f"serving path ({r['impl']}): decode step n vs prefill of prompt + n tokens, "
+    print(f"{sv['label']} ({r['impl']}): decode step n vs prefill of prompt + n tokens, "
           f"relative L2 {r['consistency']}", flush=True)
     for n, err in r["consistency"].items():
         check(err <= SERVE_REL_L2, f"serving: decode step {n} vs prefill of prompt + "
@@ -1502,7 +1870,8 @@ def first_layer_gap(sv: dict, tokens: torch.Tensor) -> float:
 
 def _lose_oldest_tile(real):
     def fault(q, k, v, causal=True, window=0):
-        return real(q, k, v, causal=causal, window=window or max(1, k.shape[2] - 64))
+        return real(q, k, v, causal=causal,
+                    window=window - 64 if window > 64 else max(1, k.shape[2] - 64))
     return fault
 
 
@@ -1514,13 +1883,14 @@ def _see_next_key(real):
 
 
 #: faults planted around the kernel's wrapper: what the serving checks see
-PLANTED_FAULTS = {"the last 64 rows lose up to one 64-key tile": _lose_oldest_tile,
+PLANTED_FAULTS = {"rows lose up to one 64-key tile (the oldest of a full window, or "
+                  "the last 64 rows' first tile)": _lose_oldest_tile,
                   "causal off by one (each row sees the next key)": _see_next_key}
 
 
 def planted_faults(sv: dict, tokens: torch.Tensor, plain_logits: torch.Tensor) -> None:
     """Each planted fault must break the first-layer check; the gap of
-    the 36-layer prefill logits to the plain run's is printed beside
+    the whole model's prefill logits to the plain run's is printed beside
     SERVE_REL_L2."""
     real, vocab = fa.flash_attention, sv["cfg"].vocab
     for name, plant in PLANTED_FAULTS.items():
@@ -1532,7 +1902,7 @@ def planted_faults(sv: dict, tokens: torch.Tensor, plain_logits: torch.Tensor) -
         finally:
             fa.flash_attention = real
         err = rel_l2(lg[:, :vocab], plain_logits[:, :vocab])
-        print(f"serving path: planted fault '{name}': first-layer gap {gap:.6f} "
+        print(f"{sv['label']}: planted fault '{name}': first-layer gap {gap:.6f} "
               f"(limit {LAYER_REL_L2}); prefill logits relative L2 {err:.6f} "
               f"({'above' if err > SERVE_REL_L2 else 'within'} {SERVE_REL_L2})", flush=True)
         check(gap > LAYER_REL_L2, f"serving: the first-layer check catches '{name}'")
@@ -1553,7 +1923,7 @@ def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
                 for (w, st) in b["logits"] if st < gen
                 for j in range(batch) if w * batch + j in a["tokens"])
     total = sum(len(t) for t in a["tokens"].values())
-    print(f"serving path: kernel vs plain logits, relative L2: max {errs[worst]:.6f} at "
+    print(f"{sv['label']}: kernel vs plain logits, relative L2: max {errs[worst]:.6f} at "
           f"(wave, step) {worst}, prefill waves {prefill}, mean "
           f"{sum(errs.values()) / len(errs):.6f}; plain greedy picks equal to the kernel "
           f"run's tokens {agree}/{total}", flush=True)
@@ -1561,15 +1931,116 @@ def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
           f"serving: kernel and plain logits within relative L2 {SERVE_REL_L2}")
     tokens = sv["prompts"][:batch]
     gap = first_layer_gap(sv, tokens)
-    print(f"serving path: first layer, kernel vs plain attention output, largest relative "
+    print(f"{sv['label']}: first layer, kernel vs plain attention output, largest relative "
           f"L2 over positions {gap:.6f} (limit {LAYER_REL_L2})", flush=True)
     check(gap <= LAYER_REL_L2,
           f"serving: first-layer attention outputs within relative L2 {LAYER_REL_L2}")
     if tokens.is_cuda:
         planted_faults(sv, tokens, b["logits"][0, 0])
     else:
-        print("serving path: planted faults not run (the CPU has only the plain version)",
+        print(f"{sv['label']}: planted faults not run (the CPU has only the plain version)",
               flush=True)
+
+
+def same_window_cache(full: dict, ring: dict, sv: dict) -> None:
+    """The kernel runs with window_cache off and on (the second fed the
+    first's tokens): every prefill's logits bit for bit (the same
+    attention; only the cache's layout differs), every decode step's
+    within SERVE_REL_L2 (the ring's decode sums the same keys' softmax in
+    another order)."""
+    vocab = sv["cfg"].vocab
+    for key in full["logits"]:
+        if key[1] == 0:
+            check(torch.equal(full["logits"][key], ring["logits"][key]),
+                  f"window_cache on and off: prefill logits of wave {key[0]} bit-identical")
+    errs = {key: rel_l2(ring["logits"][key][:, :vocab], full["logits"][key][:, :vocab])
+            for key in full["logits"] if key[1] > 0}
+    worst = max(errs, key=errs.get)
+    print(f"{sv['label']}: window_cache on vs off, kernel runs: prefill logits bit-identical; "
+          f"decode logits relative L2 max {errs[worst]:.6f} at (wave, step) {worst}, mean "
+          f"{sum(errs.values()) / len(errs):.6f} (limit {SERVE_REL_L2})", flush=True)
+    check(errs[worst] <= SERVE_REL_L2,
+          f"window_cache on vs off: decode logits within relative L2 {SERVE_REL_L2}")
+
+
+def ring_decode_gap(sv: dict, prompts: torch.Tensor, fed: torch.Tensor, fault=None) -> float:
+    """The first layer (a windowed one) alone: prefill ``prompts`` with
+    window_cache off and on, then decode ``fed``'s tokens a step each;
+    the largest relative L2 gap, per (request, head) and step, between
+    the two runs' decode attention outputs, taken in float32 where
+    ``decode_attention`` computes them.  ``fault`` (a wrapper of
+    ``attention._cache_append``) is planted in the ring's run only."""
+    cfg = dataclasses.replace(sv["cfg"], n_layers=1)
+    check(lm.kind_at(cfg, 0) == "l" and 0 < cfg.sliding_window < prompts.shape[1],
+          f"{sv['label']}: the first layer is windowed and the prompts pass its window")
+    params = dict(sv["params"], layers=sv["params"]["layers"][:1])
+    real_attn, real_append = lm.attn_mod.decode_attention, lm.attn_mod._cache_append
+    outs = {}
+    for ring in (False, True):
+        seen = outs[ring] = []
+
+        def tap(q, k, v, kv_len, lo=None):
+            o = real_attn(q.float(), k, v, kv_len, lo=lo)    # its float32 result
+            seen.append(o)
+            return o.to(q.dtype)
+        lm.attn_mod.decode_attention = tap
+        if ring and fault is not None:
+            lm.attn_mod._cache_append = fault(real_append)
+        try:
+            c = dataclasses.replace(cfg, window_cache=ring)
+            cache, _ = lm.prefill(params, c, {"tokens": prompts},
+                                  cache_len=prompts.shape[1] + fed.shape[1])
+            check(cache["layers"][0]["k"].shape[2] == (cfg.sliding_window if ring else
+                                                       prompts.shape[1] + fed.shape[1]),
+                  f"{sv['label']}: window_cache {'on' if ring else 'off'} sizes the cache")
+            for n in range(fed.shape[1]):
+                _, cache = lm.decode_step(params, c, cache, fed[:, n:n + 1])
+        finally:
+            lm.attn_mod.decode_attention, lm.attn_mod._cache_append = real_attn, real_append
+    return max(float((torch.linalg.vector_norm(a - b, dim=-1)
+                      / torch.linalg.vector_norm(b, dim=-1)).max())
+               for a, b in zip(outs[True], outs[False]))
+
+
+def _ring_write_off_by_one(real):
+    def fault(buf, x, pos):
+        return real(buf, x, (pos + 1) % buf.shape[2])
+    return fault
+
+
+def _ring_write_skipped(real):
+    def fault(buf, x, pos):
+        return buf
+    return fault
+
+
+#: faults planted in the ring's decode append: what the ring check sees
+RING_FAULTS = {"write index off by one (the oldest key of the window lost, one past it "
+               "kept)": _ring_write_off_by_one,
+               "append skipped (a stale slot: the newest key lost, one past the window "
+               "kept)": _ring_write_skipped}
+
+
+def ring_decode_check(sv: dict, vz: dict, tokens: dict) -> None:
+    """The ring's decode held against the full cache's in the first
+    windowed layer, on wave 0's prompts and served tokens, within
+    RING_REL_L2; each planted ring fault must break it."""
+    rows = list(range(min(vz["batch"], vz["requests"])))
+    steps = min(4, vz["gen"])
+    prompts = sv["prompts"][rows]
+    fed = torch.tensor([tokens[i][:steps] for i in rows], device=prompts.device,
+                       dtype=prompts.dtype)
+    gap = ring_decode_gap(sv, prompts, fed)
+    print(f"{sv['label']}: first layer's decode attention, ring vs full cache, largest "
+          f"relative L2 per (request, head) over {steps} steps {gap:.3e} "
+          f"(limit {RING_REL_L2})", flush=True)
+    check(gap <= RING_REL_L2, f"window_cache: the ring's decode attention within relative L2 "
+                              f"{RING_REL_L2} of the full cache's")
+    for name, plant in RING_FAULTS.items():
+        bad = ring_decode_gap(sv, prompts, fed, plant)
+        print(f"{sv['label']}: planted ring fault '{name}': gap {bad:.3e} "
+              f"(limit {RING_REL_L2})", flush=True)
+        check(bad > RING_REL_L2, f"window_cache: the ring check catches '{name}'")
 
 
 # --------------------------------------------------------------------------
@@ -1895,39 +2366,39 @@ def moe_roles() -> dict:
             "attention": (lm.attn_mod, "attention")}
 
 
-#: the wire kernels' device functions by role: their C entry points launch
-#: them (and their memsets) outside any PyTorch op, so the profiler links
-#: them to no host call and they are told apart by name
-WIRE_DEVICE_NAMES = (("bo_rank_tiles", "bin_offsets"), ("pack_rows_kernel", "pack_rows"),
-                     ("place_rows_kernel", "place_rows"), ("copy_words", "place_rows"),
-                     ("Memset", "wire memsets"))
-
-
-def role_split(fn) -> dict:
-    """Device ms of each role of :func:`moe_roles` in one call of ``fn``
-    (torch.profiler).  A kernel, memset or copy that a PyTorch op launched
-    goes to the innermost role around that op, or to "the rest"; the
-    device time the profiler links to no op goes by name
-    (:data:`WIRE_DEVICE_NAMES`), or to "unlinked"."""
+def role_split(fn, roles: dict, names=WIRE_DEVICE_NAMES, trace: dict | None = None) -> dict:
+    """Device ms of each role of ``roles`` (role -> the (owner, attribute)
+    whose calls, callees included, it takes; or a list of them) in one
+    call of ``fn`` (torch.profiler).  A kernel, memset or copy that a
+    PyTorch op launched goes to the innermost role around that op, or to
+    "the rest"; the device time the profiler links to no op goes by name
+    (``names``: the ctypes-launched kernels), or to "unlinked".  Given a
+    ``trace`` dict, the same call's wall ms (host clock, synchronised on
+    both sides, the profiler on) and device ms by name go into it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     originals = []
-    for role, (mod, attr) in moe_roles().items():
-        real = getattr(mod, attr)
-        originals.append((mod, attr, real))
+    for role, targets in roles.items():
+        for mod, attr in (targets if isinstance(targets, list) else [targets]):
+            real = getattr(mod, attr)
+            originals.append((mod, attr, real))
 
-        def wrapped(*args, _real=real, _role=role, **kwargs):
-            with record_function("role:" + _role):
-                return _real(*args, **kwargs)
-        setattr(mod, attr, wrapped)
+            def wrapped(*args, _real=real, _role=role, **kwargs):
+                with record_function("role:" + _role):
+                    return _real(*args, **kwargs)
+            setattr(mod, attr, wrapped)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         for mod, attr, real in originals:
             setattr(mod, attr, real)
-    out = {role: 0.0 for role in (*moe_roles(), "wire memsets", "the rest", "unlinked")}
+    out = {role: 0.0 for role in (*roles, *dict.fromkeys(r for _, r in names), "the rest",
+                                  "unlinked")}
     device, linked = {}, {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -1948,8 +2419,10 @@ def role_split(fn) -> dict:
     for name, ms in device.items():
         left = ms - linked.get(name, 0.0)
         if left > 1e-6:
-            out[next((r for key, r in WIRE_DEVICE_NAMES if key in name), "unlinked")] += left
+            out[next((r for key, r in names if key in name), "unlinked")] += left
     out["total"] = sum(out.values())
+    if trace is not None:
+        trace.update(wall_ms=wall_ms, by_name=dict(sorted(device.items(), key=lambda kv: -kv[1])))
     return out
 
 
@@ -1970,7 +2443,8 @@ def moe_split(mz: dict, mv: dict) -> dict:
     prefill()
     decode()
     torch.cuda.synchronize()
-    out = {"prefill wave": role_split(prefill), "decode step": role_split(decode)}
+    out = {"prefill wave": role_split(prefill, moe_roles()),
+           "decode step": role_split(decode, moe_roles())}
     for what, split in out.items():
         print(f"MoE split {what} (device ms by role): "
               + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
@@ -2159,6 +2633,24 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
             sync_find_insert_ops_per_s=2 * fi / t["sync_find_insert_s"],
             fault_launches=r["launches_faulty"], seconds=t, total_s=r["total_s"],
             peak_mem_bytes=r["peak_bytes"], launches=r["launches"])
+    elif path == "dedup path":               # vz: the path's sizes
+        n_sh = vz["seq_len"] - vz["ngram"] + 1
+        n_obs, n_oap = vz["docs"] * vz["batches"], vz["docs"] + vz["probe"]
+        line = dict(
+            card=smi, documents=n_obs + n_oap + vz["planted"], shingles_per_document=n_sh,
+            observe_docs_per_s=n_obs / sum(r["observe_s"]),
+            observe_shingles_per_s=n_obs * n_sh / sum(r["observe_s"]),
+            observe_batch_s=r["observe_s"],
+            observe_and_probe_docs_per_s=n_oap / r["oap_s"],
+            observe_and_probe_shingles_per_s=n_oap * n_sh / r["oap_s"],
+            count_of_docs_per_s=vz["planted"] / r["count_s"],
+            count_of_shingles_per_s=vz["planted"] * n_sh / r["count_s"],
+            filter_fill=r["fill"], table_occupancy=r["occupancy"],
+            excess_rate=r["excess_rate"], predicted_rate=r["predicted_rate"],
+            final_model_rate=r["final_model_rate"],
+            probe_excess_rate=r["probe_excess_rate"], count_off=r["count_off"],
+            total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
+            launches={k: n for k, n in r["launches"].items() if n})
     elif path.startswith("f32 serve"):
         cfg = r["cfg"]
         line = dict(
@@ -2167,7 +2659,7 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
             gen=r["gen"], total_s=r["total_s"], peak_mem_bytes=r["peak_bytes"],
             rel_l2_max=r.get("rel_l2_max"), control_rel_l2_max=r.get("control_rel_l2_max"),
             launches={k: n for k, n in r["launches"].items() if n})
-    elif path in ("serving path", "MoE serving path"):    # vz: the path's sizes
+    elif "serving path" in path:            # vz: the path's sizes
         t = r["timings"]
         n_tok = vz["requests"] * vz["gen"]
         dec = sorted(t["decode_s"])
@@ -2175,7 +2667,8 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
         print(f"served {vz['requests']} requests, {n_tok} tokens in {serve_s:.2f}s "
               f"({n_tok / serve_s:.1f} tok/s)", flush=True)
         line = dict(
-            card=smi, arch=vz["arch"], requests=vz["requests"], slots=vz["batch"],
+            card=smi, arch=vz["arch"], window_cache=r.get("window_cache"),
+            requests=vz["requests"], slots=vz["batch"],
             prompt_len=vz["prompt_len"], gen=vz["gen"],
             prefill_tokens_per_s=[vz["batch"] * vz["prompt_len"] / x for x in t["prefill_s"]],
             ttft_s=t["prefill_s"], decode_ms_per_step_mean=1e3 * sum(dec) / len(dec),
@@ -2282,7 +2775,7 @@ def main(argv=None) -> int:
     for name, case in FLASH_ROWS.items():
         krows[name] = frows[case]
 
-    # 4.-7. each path: kernels, then plain versions
+    # 4.-10. each path: kernels, then plain versions
     vz = V_REHEARSAL if rehearsal else V_FULL
     launched = {}
 
@@ -2312,6 +2805,7 @@ def main(argv=None) -> int:
               f"the plain run of the {path} launched no kernel: {runs['torch']['launches']}")
         for impl in ("auto", "torch"):
             report(path, impl, runs[impl], sz, gz, gdata, xz, sizes or vz, smi)
+        return runs
 
     run_path("hash-map path", lambda impl, _: main_path(impl, sz, data, dev),
              lambda r: check_oracle(r, data, sz), same_results, HASHMAP_KERNELS)
@@ -2323,29 +2817,81 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 7. the serving path: the plain run is fed the kernel run's tokens
-    sv = serving_setup(vz, dev, args.seed)
+    # 7. the dedup path: the corpus and the oracle's facts first (host and
+    # card, outside every timed region), then the Deduper with the kernels
+    # and with the plain versions
+    dz = D_REHEARSAL if rehearsal else D_FULL
+    t0 = time.perf_counter()
+    corpus = dedup_corpus(dz, args.seed)
+    t1 = time.perf_counter()
+    oracle = dedup_oracle(dz, corpus, dev)
+    sync(dev)
+    print(f"dedup corpus: {dz['batches']} batches of {dz['docs']} documents of "
+          f"{dz['seq_len']} tokens ({len(corpus['copies'])} verbatim copies), a fresh batch, "
+          f"a probe of {dz['probe']}, {dz['planted']} planted copies; made in "
+          f"{t1 - t0:.1f}s on the host; oracle over {oracle['shingles']} ingested shingles "
+          f"({oracle['uniq'].numel()} distinct) in {time.perf_counter() - t1:.1f}s",
+          flush=True)
+    dd = {k: v if k == "copies" else
+          [torch.from_numpy(b).to(dev) for b in v] if k == "batches" else
+          torch.from_numpy(v).to(dev) for k, v in corpus.items()}
+    del corpus
+    druns = run_path("dedup path", lambda impl, _: dedup_path(impl, dz, dd, dev),
+                     lambda r: check_dedup(r, dz, dd, oracle), same_dedup, DEDUP_KERNELS,
+                     sizes=dz)
+    if not rehearsal:
+        counts = {k: n for k, n in launched["dedup path", "auto"].items() if n}
+        check(set(counts) == set(DEDUP_KERNELS),
+              f"dedup path: launches exactly {sorted(DEDUP_KERNELS)}: {counts}")
+        dedup_split(druns["auto"], dd)
+    del druns, dd, oracle
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
+    # 8. the serving paths: the plain run is fed the kernel run's tokens
     def forced(runs):
         toks = runs["auto"]["tokens"]
         return torch.tensor([toks[i] for i in range(len(toks))], device=dev)
-    run_path("serving path",
-             lambda impl, runs: serving_path(impl, vz, sv,
-                                             None if impl == "auto" else forced(runs)),
-             lambda r: check_serving(r, vz, sv), lambda a, b: same_serving(a, b, vz, sv),
-             SERVING_KERNELS)
-    n_waves = -(-vz["requests"] // vz["batch"])
-    if not rehearsal:
-        counts = launched["serving path", "auto"]
-        check(counts["flash_attention"] == sv["cfg"].n_layers * n_waves
-              and all(n == 0 for name, n in counts.items() if name not in SERVING_KERNELS),
-              f"serving path: the bf16 flash_attention route once per layer and wave, "
-              f"no other kernel (flash_attention_f32 included): {counts}")
+
+    def serving_cell(path, vz_, sv_, feed=None):
+        """``serve`` with the kernels (fed ``feed`` if given) and with the
+        plain versions; on the card the bf16 flash route must run once
+        per layer and wave, and no other kernel."""
+        runs = run_path(path, lambda impl, runs: serving_path(
+            impl, vz_, sv_, feed if impl == "auto" else forced(runs)),
+            lambda r: check_serving(r, vz_, sv_), lambda a, b: same_serving(a, b, vz_, sv_),
+            SERVING_KERNELS, sizes=vz_)
+        n_waves = -(-vz_["requests"] // vz_["batch"])
+        if not rehearsal:
+            counts = launched[path, "auto"]
+            check(counts["flash_attention"] == sv_["cfg"].n_layers * n_waves
+                  and all(n == 0 for name, n in counts.items() if name not in SERVING_KERNELS),
+                  f"{path}: the bf16 flash_attention route once per layer and wave, "
+                  f"no other kernel (flash_attention_f32 included): {counts}")
+        return runs
+
+    sv = serving_setup(vz, dev, args.seed)
+    serving_cell("serving path", vz, sv)
     del sv
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 8. the MoE serving path: the wire kernels at its shapes, then serve
+    # 8b. the windowed serving path: gemma3-4b, window_cache off, then on (its
+    # kernel run fed the first run's tokens, so every step's logits compare)
+    wz = W_REHEARSAL if rehearsal else W_FULL
+    wv = serving_setup(wz, dev, args.seed)
+    off = serving_cell(f"{wz['arch']} serving path", wz, wv)
+    wv_ring = dict(wv, cfg=dataclasses.replace(wv["cfg"], window_cache=True),
+                   label=f"{wz['arch']} serving, window_cache")
+    ring = serving_cell(f"{wz['arch']} serving path, window_cache", wz, wv_ring,
+                        feed=forced(off))
+    same_window_cache(off["auto"], ring["auto"], wv)
+    ring_decode_check(wv, wz, off["auto"]["tokens"])
+    del wv, wv_ring, off, ring
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 9. the MoE serving path: the wire kernels at its shapes, then serve
     # (the plain run fed the kernel run's tokens), then its device split
     mz = M_REHEARSAL if rehearsal else M_FULL
     mv = moe_setup(mz, dev, args.seed)
@@ -2368,7 +2914,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 9. the float32 serve phase: serve.py's main, plain run teacher-forced
+    # 10. the float32 serve phase: serve.py's main, plain run teacher-forced
     for arch in F32_SERVE_ARCHS:
         run_path(f"f32 serve {arch}",
                  lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),

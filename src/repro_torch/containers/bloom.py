@@ -190,8 +190,10 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 def fill_fraction(backend: Backend, state: BloomState) -> torch.Tensor:
     """Fraction of set bits (diagnostic for false-positive estimation);
-    a float32 scalar, as the JAX package's int32 division gives."""
-    tot = backend.psum(_popcount32(state.words).sum().to(_I32))
-    nbits = backend.psum(torch.tensor(state.words.numel() * 32, dtype=_I32,
+    a float32 scalar.  The bits are counted in int64, so a filter of
+    2**31 bits or more a rank counts right; below that the quotient is
+    the JAX package's int32 one."""
+    tot = backend.psum(_popcount32(state.words).sum())
+    nbits = backend.psum(torch.tensor(state.words.numel() * 32, dtype=torch.int64,
                                       device=state.words.device))
     return tot.to(torch.float32) / nbits.to(torch.float32)

@@ -371,3 +371,19 @@ def test_async_raises_naming_the_roadmap():
     a = tbl.insert_find(X.bk, bspec, bst, items, items, 2, 2, async_=True).finish()
     b = tbl.insert_find(X.bk, bspec, bst, items, items, 2, 2)
     assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+
+class _ThousandRanks(TSerial):
+    """A serial backend whose psum adds 1024 copies of the rank's value:
+    1024 ranks that hold the same filter shard."""
+
+    def psum(self, x):
+        return x * 1024
+
+
+def test_fill_fraction_counts_past_int32():
+    """``fill_fraction`` counts its bits in int64: 1024 ranks of 2**21 bits
+    hold 2**31 bits, one past int32, and half of them are set."""
+    words = torch.full((1 << 15, 2), 0x0F0F0F0F, dtype=torch.int32)
+    fill = tbl.fill_fraction(_ThousandRanks(), tbl.BloomState(words))
+    assert fill.dtype == torch.float32 and float(fill) == 0.5

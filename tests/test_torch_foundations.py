@@ -204,7 +204,9 @@ def _imports(path: pathlib.Path):
 
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_hashmap.py",
-                 ROOT / "examples" / "torch_quickstart.py"])
+                 ROOT / "examples" / "torch_quickstart.py",
+                 ROOT / "examples" / "torch_isx_sort.py",
+                 ROOT / "examples" / "torch_genome_assembly.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

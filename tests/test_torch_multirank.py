@@ -1,5 +1,5 @@
-"""The port's hash map, Bloom filter, HashMapBuffer and exchange extensions
-on 4 gloo ranks against the JAX package at P=4.
+"""The port's hash map, Bloom filter, HashMapBuffer, exchange extensions
+and LM-data dedup on 4 gloo ranks against the JAX package at P=4.
 
 ``tests/torch_multirank_run.py`` runs the same op sequence (insert with
 two attempts, speculative and sequential find, find_insert, a
@@ -7,12 +7,18 @@ small-capacity insert with retry rounds and drops, count_ready, a
 dropping ``route``, a Bloom insert + find and two HashMapBuffer
 flushes, one of them dropping on the wire; a 2 x 2 hierarchical insert and
 find, a corrupt + kill fault spec under integrity and its heal, a
-degraded insert with rank 3 dead, a split-phase find_insert) once under
+degraded insert with rank 3 dead, a split-phase find_insert; a
+``Deduper``'s ``observe``, ``observe_and_probe`` and ``count_of`` over
+each rank's documents, against the same container calls composed in the
+``shard_map``) once under
 JAX ``shard_map`` over 4 fake CPU
 devices (``impl="jnp"``) and once on 4 gloo ranks of the port; each run
 is a subprocess with its own timeout.  Every rank's table shard and
 results must be bit-identical to the JAX rank's, and each rank's cost
-log equal to the JAX trace-time log.
+log equal to the JAX trace-time log.  Dedup's fractions are computed
+from the reference's gathered ``seen`` flags as ``Deduper._count_seen``
+does (float64 means of each document's row), its counts as ``count_of``
+does.
 """
 
 import json
@@ -27,7 +33,7 @@ import pytest
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
-from torch_multirank_run import NLOC, NPROCS  # noqa: E402
+from torch_multirank_run import DEDUP_DOCS, NLOC, NPROCS  # noqa: E402
 
 RUN_TIMEOUT_S = 120
 
@@ -111,3 +117,56 @@ def test_multirank_run_exercised_the_exchange(runs):
     assert ref["x_ok"].all() and 0 < ref["x_found"].sum() < ref["x_found"].size
     assert (~ref["x_ok1"]).any() and (ref["x_ok1"] | ref["x_ok2"]).all()
     assert (~ref["x_ok3"]).any() and ref["x_ok3"].any() and ref["x_fok"].all()
+
+
+def _dedup_reference(ref) -> dict:
+    """The reference's dedup verdicts, as the Deduper derives them from
+    its container calls' results (rows of every rank's documents)."""
+    docs = NPROCS * DEDUP_DOCS
+
+    def frac(flags):
+        return flags.reshape(docs, -1).mean(axis=1)
+    out = {"d_frac1": frac(ref["d_seen1"]), "d_frac2": frac(ref["d_seen2"]),
+           "d_probe_frac": frac(ref["d_probed"]),
+           "d_counts": np.where(ref["d_found"], ref["d_v"].astype(np.int64) + 1, 1)
+           .reshape(docs, -1)}
+    out["d_dup1"], out["d_dup2"] = out["d_frac1"] > 0.5, out["d_frac2"] > 0.5
+    out.update({k: ref[k] for k in ("d_words", "d_tkeys", "d_tvals", "d_status")})
+    return out
+
+
+DEDUP = ["d_frac1", "d_dup1", "d_frac2", "d_dup2", "d_probe_frac", "d_counts", "d_words",
+         "d_tkeys", "d_tvals", "d_status"]
+
+
+@pytest.mark.parametrize("field", DEDUP)
+def test_dedup_ranks_equal_composed_reference(runs, field):
+    """Each rank's Deduper verdicts, filter shard and table shard."""
+    ref, ranks = runs
+    want_all = _dedup_reference(ref)[field]
+    for r, got in enumerate(ranks):
+        want, have = _shard(want_all, r), got[field]
+        if have.dtype != want.dtype and have.dtype.itemsize == want.dtype.itemsize \
+                and have.dtype.kind in "iu":
+            have = have.view(want.dtype)
+        assert want.dtype == have.dtype and want.shape == have.shape, (field, r)
+        assert np.array_equal(want, have), f"rank {r}: {field}"
+
+
+def test_dedup_cost_logs_equal_trace_time_log(runs):
+    ref, ranks = runs
+    want = json.loads(str(ref["dedup_costs"]))
+    assert "bloom.insert_find.retry" in want and "hashmap.insert.retry" in want
+    for r, got in enumerate(ranks):
+        assert json.loads(str(got["dedup_costs"])) == want, f"rank {r}"
+
+
+def test_dedup_run_is_not_vacuous(runs):
+    """Copies across ranks and within a batch are flagged, fresh documents
+    are not, the probe sees the observed half only, and counts reach 2."""
+    ref, _ = runs
+    want = _dedup_reference(ref)
+    assert want["d_dup1"].any() and not want["d_dup1"].all()
+    assert want["d_dup2"][::2].all() and not want["d_dup2"][1::2].any()
+    assert (want["d_probe_frac"][::2] == 1).all() and (want["d_probe_frac"][1::2] < 0.1).all()
+    assert (want["d_counts"] >= 2).any()

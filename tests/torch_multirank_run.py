@@ -1,5 +1,5 @@
-"""Four-rank hash-map, Bloom filter, HashMapBuffer and exchange-extension
-run for tests/test_torch_multirank.py.
+"""Four-rank hash-map, Bloom filter, HashMapBuffer, exchange-extension and
+LM-data dedup run for tests/test_torch_multirank.py.
 
     python tests/torch_multirank_run.py jax OUT.npz
         the JAX package under shard_map over 4 fake CPU devices, with the
@@ -12,6 +12,12 @@ run for tests/test_torch_multirank.py.
 Both run the same op sequences on the same numpy inputs (rank r holds
 rows [r*NLOC, (r+1)*NLOC) of every batch) and save every per-rank
 result, the table, filter and ring shards, and the cost log as JSON.
+The dedup case: each port rank runs a ``repro_torch.data.Deduper`` over
+its DEDUP_DOCS documents of every batch (``observe``, ``observe_and_probe``,
+``count_of``); JAX's ``Deduper`` reads the host between container calls,
+so the reference composes the same container calls with the same
+arguments inside the ``shard_map``, on shingles from JAX's
+``Deduper.shingles``.  Its cost log is kept apart (``dedup_costs``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ import numpy as np
 
 NPROCS, NLOC, CAP, BLOCK = 4, 64, 4096, 16
 RANKS_TIMEOUT_S = 100
+#: the dedup case: documents per rank and batch, tokens per document, and
+#: the DedupSpec (two retry rounds, so the wire rounds cross ranks too)
+DEDUP_DOCS, DEDUP_LEN = 2, 24
+DEDUP_SPEC = dict(ngram=4, nbits=1 << 12, table_capacity=1 << 10, max_rounds=2)
+DEDUP_BATCHES = ("dd_a", "dd_c", "dd_probe")
 
 
 def inputs() -> dict:
@@ -49,6 +60,54 @@ def inputs() -> dict:
         "probes": np.stack([pool[n // 2:3 * n // 2], pool[n // 2:3 * n // 2]], axis=1)
                   ^ np.uint32(0x5A5A5A5A) * np.arange(2, dtype=np.uint32),
     }
+
+
+def dedup_inputs() -> dict:
+    """Documents of three batches, rank r holding rows [r*DEDUP_DOCS,
+    (r+1)*DEDUP_DOCS): copies within a rank and across ranks, and a probe
+    of half observed, half fresh documents."""
+    rng = np.random.default_rng(1)
+    n, t = NPROCS * DEDUP_DOCS, DEDUP_LEN
+    a = rng.integers(0, 500, (n, t)).astype(np.int32)
+    a[1] = a[0]                                   # within rank 0's batch
+    a[3::2] = a[0:-2:2]                           # rank r holds rank r-1's first doc
+    c = rng.integers(1000, 1500, (n, t)).astype(np.int32)
+    c[::2] = a[np.arange(3, n + 3, 2) % n]        # documents another rank observed
+    probe = rng.integers(3000, 3500, (n, t)).astype(np.int32)
+    probe[::2] = a[np.arange(5, n + 5, 2) % n]
+    return {"dd_a": a, "dd_c": c, "dd_probe": probe}
+
+
+def dedup_reference(bl, hm, bk, kspec, vspec, d, u32_ones, kw) -> dict:
+    """The container calls of ``observe``, ``observe_and_probe`` and
+    ``count_of`` on one rank's shingles (``d[name + "_hi"|"_lo"]``), as
+    the JAX Deduper makes them (``kw``: impl)."""
+    r = DEDUP_SPEC["max_rounds"]
+
+    def cap(m):
+        return max(1, -(-m // r))
+
+    def flat(name):
+        return {"hi": d[name + "_hi"], "lo": d[name + "_lo"]}
+
+    bspec, bst = bl.bloom_create(bk, DEDUP_SPEC["nbits"], kspec, k=4, **kw)
+    hspec, hst = hm.hashmap_create(bk, DEDUP_SPEC["table_capacity"], kspec, vspec,
+                                   block_size=64, **kw)
+    out = {}
+    a, c, p = flat("dd_a"), flat("dd_c"), flat("dd_probe")
+    m = a["hi"].shape[0]
+    bst, seen1 = bl.insert(bk, bspec, bst, a, capacity=cap(m), max_rounds=r)
+    hst, _ = hm.insert(bk, hspec, hst, a, u32_ones(m), capacity=cap(m), valid=seen1,
+                       mode=1, attempts=3, max_rounds=r)
+    bst, seen2, probed = bl.insert_find(bk, bspec, bst, c, p, capacity_ins=cap(m),
+                                        capacity_find=cap(m), max_rounds=r)
+    hst, _ = hm.insert(bk, hspec, hst, c, u32_ones(m), capacity=cap(m), valid=seen2,
+                       mode=1, attempts=3, max_rounds=r)
+    hst, v, found = hm.find(bk, hspec, hst, a, capacity=cap(m), max_rounds=r)
+    out.update(d_seen1=seen1, d_seen2=seen2, d_probed=probed, d_v=v, d_found=found,
+               d_words=bst.words, d_tkeys=hst.tkeys, d_tvals=hst.tvals,
+               d_status=hst.status)
+    return out
 
 
 def scenario(hm, ex, bk, spec, st, d) -> dict:
@@ -135,10 +194,16 @@ def run_jax(out_path: str) -> None:
     import repro.core as core
     from repro.core import costs, exchange as ex
     from repro.core.backend import get_backend
+    from repro.data.dedup import Deduper, DedupSpec
 
     mesh = make_mesh((NPROCS,), ("bcl",))
     d = {k: jnp.asarray(v) for k, v in inputs().items()}
+    shingler = Deduper(get_backend(None), DedupSpec(**DEDUP_SPEC))
+    for name, docs in dedup_inputs().items():
+        for lane, words in shingler.shingles(docs).items():
+            d[f"{name}_{lane}"] = words.reshape(-1)      # rank-major, as the docs
     names = sorted(d)
+    dedup_log = []
 
     def body(*arrays):
         bk = get_backend("bcl")
@@ -151,6 +216,12 @@ def run_jax(out_path: str) -> None:
         out.update(scenario_ext(hm, core, bk, lambda: hm.hashmap_create(
             bk, CAP, SDS((), jnp.uint32), SDS((), jnp.uint32), block_size=BLOCK,
             impl="jnp"), dd))
+        with costs.recording() as dlog:
+            out.update(dedup_reference(
+                bl, hm, bk, {"hi": SDS((), jnp.uint32), "lo": SDS((), jnp.uint32)},
+                SDS((), jnp.uint32), dd, lambda m: jnp.ones((m,), jnp.uint32),
+                {"impl": "jnp"}))
+        dedup_log.append(dlog)
         return tuple(out[k] for k in sorted(out)), sorted(out)
 
     keys_out = []
@@ -166,6 +237,7 @@ def run_jax(out_path: str) -> None:
         outs = f(*(d[k] for k in names))
     res = {k: np.asarray(v) for k, v in zip(keys_out, outs)}
     res["costs"] = np.asarray(json.dumps(cost_summary(log)))
+    res["dedup_costs"] = np.asarray(json.dumps(cost_summary(dedup_log[0])))
     np.savez(out_path, **res)
 
 
@@ -181,6 +253,7 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
     from repro_torch.core import costs, exchange as ex
     from repro_torch.core.backend import ProcessGroupBackend
     from repro_torch.core.object_container import Spec
+    from repro_torch.data import Deduper, DedupSpec
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -199,8 +272,19 @@ def _rank(rank: int, port: int, out_dir: str) -> None:
             out.update(scenario_ext(hm, core, bk, lambda: hm.hashmap_create(
                 bk, CAP, Spec((), torch.uint32), Spec((), torch.uint32), block_size=BLOCK,
                 impl="torch", device="cpu"), d))
+        dsl = slice(rank * DEDUP_DOCS, (rank + 1) * DEDUP_DOCS)
+        docs = {k: v[dsl] for k, v in dedup_inputs().items()}
+        dd = Deduper(bk, DedupSpec(**DEDUP_SPEC), device="cpu", impl="torch")
+        with costs.recording() as dlog:
+            out["d_frac1"], out["d_dup1"] = dd.observe(docs["dd_a"])
+            out["d_frac2"], out["d_dup2"], out["d_probe_frac"] = dd.observe_and_probe(
+                docs["dd_c"], docs["dd_probe"])
+            out["d_counts"] = dd.count_of(docs["dd_a"])
+        out.update(d_words=dd.bstate.words, d_tkeys=dd.hstate.tkeys,
+                   d_tvals=dd.hstate.tvals, d_status=dd.hstate.status)
         res = {k: v.numpy() for k, v in out.items()}
         res["costs"] = np.asarray(json.dumps(cost_summary(log)))
+        res["dedup_costs"] = np.asarray(json.dumps(cost_summary(dlog)))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
