@@ -9,7 +9,8 @@ Phases, each fatal on failure:
   2. build the kernels from the four sources in src/repro_torch/csrc, one
      nvcc per source, all at once (ptxas registers and spills of every
      kernel; registers, local bytes and shared memory of each instance of
-     both flash_attention routes as the card reports them, and the count
+     both flash_attention routes, without and with probs_bf16, as the card
+     reports them, and the count
      of tensor-core instructions in the float32 route's SASS, from
      cuobjdump);
   3. kernel phase: a short probe of the paths records each kernel's
@@ -20,7 +21,7 @@ Phases, each fatal on failure:
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function; flash_attention is held
-     against its plain version on twelve cases (the serving path's prefill
+     against its plain version on fifteen cases (the serving path's prefill
      call, the MoE path's (arctic's 56 query heads over 8, 1024 tokens),
      gemma3-4b's (8 query heads over 4 at D=320, 2048 tokens, a 1024-key
      window), D=320 with a window, D=256, Tq=1 < Tk, non-causal with a ragged key
@@ -28,11 +29,21 @@ Phases, each fatal on failure:
      flash_attention_f32: the kernel-phase call at D=128, D=16 at 2048
      tokens, D=320 with a window, and the float32 serve phase's prefill
      call, 4 slots of 32 tokens at D=16, without and with its 16-key
-     window) elementwise
+     window; then deepseek-v3's MLA prefill call (128 heads, 1024 tokens,
+     D=192 with V's 128 columns zero-padded to 192, as mla_attention pads
+     them), the same with probs_bf16 (the bf16 route's instance without
+     the P_lo pass), and the float32 kernel-phase call with probs_bf16
+     (one exact TF32 P V pass)) elementwise
      (bf16 within one ulp of each element, float32 at 3e-5;
-     attention_close), each route's row and the MoE and gemma paths' cases
+     attention_close; a probs_bf16 call also 2**-8 of the attention-weighted
+     mean of |V|, since each side rounds P against its own running max, so
+     each call's launched instance is read back and must carry its flag,
+     and a flagged output must differ from the same kernel's unflagged one),
+     each route's row, the MoE and gemma paths' cases and the new three
      timed beside scaled_dot_product_attention (a boolean mask for the
-     window; their ratio printed); a fixed
+     window; their ratio printed; the MLA case also beside it on V at its
+     real 128 columns), the MLA cases' bound reckoned on the real work
+     (Dv = 128); a fixed
      large-bin bin_offsets case (2**24 items into 2**20 bins, past one
      launch of its kernel: the bin_csr route) held bit for bit; the wire
      split: bin_offsets and pack_rows held bit for bit and timed at their
@@ -124,13 +135,37 @@ Phases, each fatal on failure:
      SERVE_REL_L2, but for rows a near-tie routing flip (margin below
      FLIP_MARGIN) sent another way; then the device time of one prefill
      wave and one decode step by role (torch.profiler);
+  9b. deepseek-v3 serving path: deepseek-v3-671b at full width (d_model
+     7168, 128 heads of MLA: q_lora 1536, kv_lora 512, nope 128, rope 64,
+     v 128; 256 experts top-8 of d_ff 2048 with one shared expert and
+     sigmoid + bias routing; vocab 129,280 padded to 129,536, an untied
+     head; bf16 with a float32 router; the MTP head carried, unused in
+     serving) cut to 4 of its 61 layers, the three first_k_dense layers
+     (d_ff 18432) and one MoE layer (15.8 B parameters; the whole model's
+     exact and active counts printed beside the cut's), with the MoE
+     path's traffic and checks (a prefill wave's dispatch is one plan of
+     65,536 rows of 7,170 words); served with mla_absorb off and then on,
+     the second's kernel run fed the first's tokens: every prefill's
+     logits bit for bit, every decode step's within SERVE_REL_L2; the
+     first layer's prefill attention kernel vs plain at LAYER_REL_L2, and
+     the two planted flash faults must each break it; the first layer's
+     float32 decode attention on the same cache contents for 4 steps, per
+     (request, head), absorbed vs expanded (K and V rounded to bf16 by the
+     expansion) within LAYER_REL_L2 (mla_cp_decode selects the absorbed
+     form on one rank), and two faults planted in the absorbed form (the
+     rope term dropped from the score; the W_uk / W_uv split shifted by
+     one column) must each break it; then the device time of one prefill wave and one
+     decode step by role (MLA projections, K/V expansion, flash, decode
+     attention, router, the wire kernels, expert bmm, shared expert, dense
+     MLP, the rest) with mla_absorb off and on, and the cell's seconds;
   10. float32 serve phase: repro_torch.launch.serve.main, as a user runs
      it, with the JAX package's own float32 configurations (--arch
      qwen3-4b --reduced, gemma3-4b --reduced, whose local layers carry a
-     16-key window, and arctic-480b --reduced, whose MoE layers dispatch
-     over the exchange): its prefills run flash_attention_f32 once per
-     layer and wave and never the bf16 route (arctic's dispatch also
-     launches the wire kernels, counted exactly); each layer's prefill
+     16-key window, arctic-480b --reduced, whose MoE layers dispatch
+     over the exchange, and deepseek-v3-671b --reduced, MLA at D=24 with
+     V padded from 16 and MoE): its prefills run flash_attention_f32 once
+     per layer and wave and never the bf16 route (the MoE models' dispatch
+     also launches the wire kernels, counted exactly); each layer's prefill
      call of wave 0, captured as the run made it, is held against the
      plain version on its inputs elementwise at 3e-5 (attention_close);
      a plain run of the same model and prompts, teacher-forced with its
@@ -237,6 +272,13 @@ M_FULL = dict(arch="arctic-480b", reduced=False, layers=2, requests=16, batch=8,
               prompt_len=1024, gen=16)
 M_REHEARSAL = dict(arch="arctic-480b", reduced=True, layers=2, requests=4, batch=2,
                    prompt_len=24, gen=4)
+# deepseek-v3 serving path: full width, cut to 4 of its 61 layers (the three
+# first_k_dense layers and one MoE layer: ~15.8 B parameters; a second MoE layer
+# adds 11.5 B), arctic's traffic
+DS_FULL = dict(arch="deepseek-v3-671b", reduced=False, layers=4, requests=16, batch=8,
+               prompt_len=1024, gen=16)
+DS_REHEARSAL = dict(arch="deepseek-v3-671b", reduced=True, layers=2, requests=4, batch=2,
+                    prompt_len=24, gen=4)
 #: relative L2 error allowed between two bf16 runs' logits.  Two bf16
 #: computations of the 36-layer model that differ in any rounding drift
 #: apart to ~2.3e-2 (kernel vs plain prefill with identical GEMMs, the
@@ -256,6 +298,10 @@ RING_REL_L2 = 1e-4
 #: so an element differs by at most one bf16 ulp of its own size (2**-7
 #: of it) plus float32 summation noise (~1e-6)
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+#: probs_bf16: the kernel rounds each probability to bf16 against its running
+#: max, the plain version against the row's max (each at most 2**-9 of it),
+#: so an element may move by 2**-8 of the attention-weighted mean of |V|
+PROBS_BF16_RTOL = 2.0 ** -8
 # flash_attention's kernel-phase cases: (b, hq, hkv, tq, tk, d, causal, window, dtype);
 # the first is the serving path's prefill call, the one its JSON row reports
 BF16, F32 = torch.bfloat16, torch.float32
@@ -272,6 +318,9 @@ FLASH_FULL = {
     "f32_d320_window": (2, 8, 4, 2048, 2048, 320, True, 1024, F32),
     "f32_serve_prefill": (4, 4, 4, 32, 32, 16, True, 0, F32),
     "f32_serve_prefill_window": (4, 4, 4, 32, 32, 16, True, 16, F32),
+    "deepseek_prefill": (8, 128, 128, 1024, 1024, 192, True, 0, BF16),
+    "deepseek_prefill_probs_bf16": (8, 128, 128, 1024, 1024, 192, True, 0, BF16),
+    "f32_probs_bf16": (2, 16, 4, 777, 777, 128, True, 0, F32),
 }
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
@@ -286,6 +335,17 @@ FLASH_REHEARSAL = {
     "f32_d320_window": (1, 2, 1, 70, 70, 320, True, 24, F32),
     "f32_serve_prefill": (4, 4, 4, 32, 32, 16, True, 0, F32),
     "f32_serve_prefill_window": (4, 4, 4, 32, 32, 16, True, 16, F32),
+    "deepseek_prefill": (2, 4, 4, 24, 24, 24, True, 0, BF16),
+    "deepseek_prefill_probs_bf16": (2, 4, 4, 24, 24, 24, True, 0, BF16),
+    "f32_probs_bf16": (1, 4, 2, 37, 37, 16, True, 0, F32),
+}
+#: cases' options: ``v_cols``, V's real columns (MLA pads V with zeros to
+#: the qk head dim, as ``attention.mla_attention`` does: deepseek-v3's 128 of
+#: 192, the reduced config's 16 of 24); ``probs_bf16``, the flag's instances
+FLASH_OPTIONS = {
+    "deepseek_prefill": dict(v_cols=2 / 3),
+    "deepseek_prefill_probs_bf16": dict(v_cols=2 / 3, probs_bf16=True),
+    "f32_probs_bf16": dict(probs_bf16=True),
 }
 
 # name -> (module, wrapper, plain, source, TPU kernel it replaces)
@@ -345,7 +405,7 @@ FLOAT_KERNELS = ("flash_attention", "flash_attention_f32")
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
 #: the flash_attention cases timed beside scaled_dot_product_attention
-SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill")
+SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill", *FLASH_OPTIONS)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1674,10 +1734,13 @@ def f32_within(got: torch.Tensor, want: torch.Tensor) -> bool:
 
 
 def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
-                    per_element: bool = True) -> tuple[float, str]:
+                    per_element: bool = True, weighted: torch.Tensor | None = None
+                    ) -> tuple[float, str]:
     """Fail unless ``got`` is within the attention tolerance of ``want``:
     float32 at atol = rtol = 3e-5 elementwise (the online softmax sums in
     another order); bf16 elementwise at rtol BF16_RTOL, atol BF16_ATOL.
+    ``weighted`` (a ``probs_bf16`` call: the attention-weighted mean of
+    |V|, float32) adds PROBS_BF16_RTOL of it to each element's tolerance.
     ``per_element=False`` holds the output only at one bf16 ulp of its
     scale, 1e-2 * max|want|: for the library call, a yardstick that
     rounds the probabilities to bf16 before multiplying by V (and may
@@ -1691,6 +1754,11 @@ def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
     if not per_element:
         scale = 1e-2 * float(w.abs().max())
         tol, ok = f"atol={scale:.4g}", err <= scale
+    elif weighted is not None:
+        atol, rtol, tol = ((3e-5, 3e-5, "atol=rtol=3e-5") if got.dtype == torch.float32 else
+                           (BF16_ATOL, BF16_RTOL, f"atol={BF16_ATOL:g} rtol=2**-7"))
+        tol += " + 2**-8 * (P |V|)"
+        ok = bool((diff <= atol + rtol * w.abs() + PROBS_BF16_RTOL * weighted).all())
     elif got.dtype == torch.float32:
         tol, ok = "atol=rtol=3e-5", f32_within(got, want)
     else:
@@ -1700,27 +1768,66 @@ def attention_close(got: torch.Tensor, want: torch.Tensor, what: str,
     return err, tol
 
 
+def flash_instance_check(case: str, dtype, d: int, pb: bool) -> None:
+    """The instance the wrapper reports it launched takes head dim ``d``
+    and has the call's probs_bf16 flag (launch counts are kept by route,
+    not by instance)."""
+    route = "bf16" if dtype == BF16 else "f32"
+    rows = fa.bf16_instances() if dtype == BF16 else fa.f32_instances()
+    i = fa.last_instance[route]
+    check(0 <= i < len(rows) and rows[i]["probs_bf16"] == pb and rows[i]["max_d"] >= d,
+          f"flash_attention {case}: the {route} route launched an instance with "
+          f"probs_bf16={pb} for D={d} (instance {i}: {rows[i] if 0 <= i < len(rows) else None})")
+
+
+def flag_changes_output(case: str, flagged: torch.Tensor, unflagged: torch.Tensor) -> None:
+    """A probs_bf16 call's kernel output against the same kernel's without
+    the flag: float32 must differ beyond the route's own gate (bf16 V alone
+    moves an element by up to 2**-9 of it); bf16 (inputs already bf16, only
+    P's rounding differs, mostly inside the output's own bf16 rounding) must
+    not be bit-identical."""
+    diff = float((flagged.float() - unflagged.float()).abs().max())
+    if flagged.dtype == torch.float32:
+        ok = not f32_within(flagged, unflagged)
+        what = "beyond atol=rtol=3e-5"
+    else:
+        ok = not torch.equal(flagged, unflagged)
+        what = "not bit-identical"
+    print(f"flash_attention {case}: probs_bf16 vs the same kernel without it, max |difference| "
+          f"{diff} ({what} required)", flush=True)
+    check(ok, f"flash_attention {case}: probs_bf16 changes the kernel's output ({what})")
+
+
 def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
     """flash_attention against its plain version on each case; kernel,
-    plain and (the cases the JSON rows report) scaled_dot_product_attention
-    times, and on the card the kernel's device time (torch.profiler: the
-    wrapper's host time left out); the bound from the pairs the mask
-    keeps (4 D flops each) at the route's peak (bf16: one pass at the
-    bf16 rate; float32: three TF32 passes at the TF32 rate, with the
-    CUDA-core floor, one pass at the float32 rate, beside it as
-    cuda_core_ms) and from the bytes (q, k, v read once, the output
-    written once)."""
+    plain and (the cases the JSON rows report, and the MLA and probs_bf16
+    cases) scaled_dot_product_attention times, and on the card the
+    kernel's device time (torch.profiler: the wrapper's host time left
+    out); the bound from the pairs the mask keeps (2 D flops each for S,
+    2 Dv for P V, Dv the columns of V that are real) at the route's peak
+    (bf16: one pass at the bf16 rate; float32: three TF32 passes at the
+    TF32 rate, with the CUDA-core floor, one pass at the float32 rate,
+    beside it as cuda_core_ms; a probs_bf16 P V at the bf16 rate) and from
+    the bytes (q, k and the real columns of v read once, the output's
+    real columns written once).  A case with ``v_cols`` (FLASH_OPTIONS)
+    has V's columns past them zero, as MLA pads them, and is also timed
+    beside the library call on V at its real width."""
     rows = {}
     for i, (case, (b, hq, hkv, tq, tk, d, causal, window, dtype)) in enumerate(cases.items()):
+        opts = FLASH_OPTIONS.get(case, {})
+        pb = opts.get("probs_bf16", False)
+        dv = round(d * opts.get("v_cols", 1))
         g = torch.Generator(device=dev).manual_seed(seed + 100 + i)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                    for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+        v[..., dv:] = 0
 
         def kern():
-            return fa.flash_attention(q, k, v, causal=causal, window=window)
+            return fa.flash_attention(q, k, v, causal=causal, window=window, probs_bf16=pb)
 
         def plain():
-            return fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                            probs_bf16=pb)
         before = build.launch_counts()
         got, want = kern(), plain()
         sync(dev)
@@ -1728,10 +1835,25 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
             route = "flash_attention" if dtype == BF16 else "flash_attention_f32"
             ran = {n: c - before[n] for n, c in build.launch_counts().items() if c != before[n]}
             check(ran == {route: 1}, f"flash_attention {case}: one launch of {route}, {ran}")
-        err, tol = attention_close(got, want, f"flash_attention {case}: kernel vs plain")
-        flops = 4 * b * hq * d * attention_pairs(tq, tk, causal, window)
-        ops_ms = (flops / BF16_OPS_PER_S if dtype == BF16 else 3 * flops / TF32_OPS_PER_S) * 1e3
-        bytes_ms = _nbytes(q, k, v, got) / HBM_BYTES_PER_S * 1e3
+            flash_instance_check(case, dtype, d, pb)
+        weighted = (fa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                             causal=causal, window=window) if pb else None)
+        err, tol = attention_close(got, want, f"flash_attention {case}: kernel vs plain",
+                                   weighted=weighted)
+        del weighted
+        if pb and dev.type == "cuda":
+            flag_changes_output(case, got, fa.flash_attention(q, k, v, causal=causal,
+                                                              window=window))
+        check(not bool(got[..., dv:].any()), f"flash_attention {case}: V's zero columns stay 0")
+        pairs = b * hq * attention_pairs(tq, tk, causal, window)
+        s_flops, pv_flops = 2 * d * pairs, 2 * dv * pairs
+        if dtype == BF16:
+            ops_ms = (s_flops + pv_flops) / BF16_OPS_PER_S * 1e3
+        else:
+            ops_ms = (3 * s_flops / TF32_OPS_PER_S + (pv_flops / BF16_OPS_PER_S if pb else
+                                                      3 * pv_flops / TF32_OPS_PER_S)) * 1e3
+        bytes_ms = (_nbytes(q, k) + (v.numel() + got.numel()) * dv // d * v.element_size()
+                    ) / HBM_BYTES_PER_S * 1e3
         library_ms = None
         if case in SDPA_CASES:
             mask = None
@@ -1752,10 +1874,23 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
             plain_ms=time_ms(plain, max(1, reps // 5), dev),
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=library_ms,
-            shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], causal=causal, window=window,
-                       dtype=str(dtype)))
+            shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], v_cols=dv, causal=causal,
+                       window=window, dtype=str(dtype), probs_bf16=pb))
+        if dv < d and case in SDPA_CASES:
+            # the library call on V at its real width (a fused backend may take Dv < D)
+            v_real = v[..., :dv].contiguous()
+
+            def library_real():
+                return F.scaled_dot_product_attention(q, k, v_real, is_causal=causal,
+                                                      enable_gqa=True)
+            attention_close(library_real(), want[..., :dv].contiguous(),
+                            f"flash_attention {case}: the library call at Dv={dv}",
+                            per_element=False)
+            row["library_real_v_ms"] = time_ms(library_real, reps, dev)
+            row["sdpa_real_v_ratio"] = row["ms"] / row["library_real_v_ms"]
+            del v_real
         if dtype == F32:
-            row["cuda_core_ms"] = flops / OPS_PER_S * 1e3
+            row["cuda_core_ms"] = (s_flops + pv_flops) / OPS_PER_S * 1e3
         if dev.type == "cuda":   # the kernel alone, without the wrapper's host time
             row["device_ms"] = sum(v["ms"] for v in device_ms(kern, reps).values())
         if library_ms is not None:
@@ -1843,20 +1978,22 @@ def check_serving(r: dict, vz: dict, sv: dict) -> None:
 
 def first_attention(sv: dict, tokens: torch.Tensor, impl: str) -> torch.Tensor:
     """The first layer's attention output (B, T, d_model), tapped where
-    ``lm.forward`` of the model cut to that layer calls the attention."""
+    ``lm.forward`` of the model cut to that layer calls the attention
+    (``mla_attention`` for an MLA model)."""
     cfg = dataclasses.replace(sv["cfg"], n_layers=1)
     params = dict(sv["params"], layers=sv["params"]["layers"][:1])
-    real, seen = lm.attn_mod.attention, []
+    name = "mla_attention" if cfg.mla is not None else "attention"
+    real, seen = getattr(lm.attn_mod, name), []
 
     def tap(*args, **kwargs):
         out = real(*args, **kwargs)
         seen.append(out[0])
         return out
-    lm.attn_mod.attention = tap
+    setattr(lm.attn_mod, name, tap)
     try:
         lm.forward(params, cfg, tokens, impl=impl)
     finally:
-        lm.attn_mod.attention = real
+        setattr(lm.attn_mod, name, real)
     return seen[0].float()
 
 
@@ -1869,16 +2006,16 @@ def first_layer_gap(sv: dict, tokens: torch.Tensor) -> float:
 
 
 def _lose_oldest_tile(real):
-    def fault(q, k, v, causal=True, window=0):
+    def fault(q, k, v, causal=True, window=0, **kw):
         return real(q, k, v, causal=causal,
-                    window=window - 64 if window > 64 else max(1, k.shape[2] - 64))
+                    window=window - 64 if window > 64 else max(1, k.shape[2] - 64), **kw)
     return fault
 
 
 def _see_next_key(real):
-    def fault(q, k, v, causal=True, window=0):
+    def fault(q, k, v, causal=True, window=0, **kw):
         return real(q, torch.cat([k, k[:, :, -1:]], 2), torch.cat([v, v[:, :, -1:]], 2),
-                    causal=causal, window=window)
+                    causal=causal, window=window, **kw)
     return fault
 
 
@@ -2074,11 +2211,12 @@ def moe_wire_launches(cfg, passes: int) -> dict:
 
 
 def moe_setup(mz: dict, dev, seed: int) -> dict:
-    """arctic-480b cut to ``layers`` layers (seeded init_params on the card,
-    expert by expert) and serve.py's prompts."""
+    """The MoE model cut to ``layers`` layers (seeded init_params on the
+    card, expert by expert) and serve.py's prompts."""
     cfg = get_config(mz["arch"])
     if mz["reduced"]:
         cfg = reduced(cfg)
+    depth = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=mz["layers"])
     sync(dev)
     t0 = time.perf_counter()
@@ -2090,11 +2228,16 @@ def moe_setup(mz: dict, dev, seed: int) -> dict:
                                                    dtype=np.int32)
     n_params = _numel(params)
     mo = cfg.moe
-    print(f"MoE model: {cfg.name}, {cfg.n_layers} of 35 layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, {mo.n_experts} experts top-{mo.top_k} "
-          f"(d_ff {mo.expert_d_ff}), dense residual d_ff {cfg.d_ff}, {n_params} parameters "
+    attn = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, nope "
+            f"{cfg.mla.qk_nope_head_dim}, rope {cfg.mla.qk_rope_head_dim}, v "
+            f"{cfg.mla.v_head_dim})" if cfg.mla else f"over {cfg.n_kv_heads}")
+    dense = "dense residual" if mo.dense_residual else f"{mo.first_k_dense} dense layers"
+    print(f"MoE model: {cfg.name}, {cfg.n_layers} of {depth} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads {attn}, {mo.n_experts} experts top-{mo.top_k} "
+          f"(d_ff {mo.expert_d_ff}), {mo.shared_experts} shared, {dense} d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab} (padded {cfg.padded_vocab}), {n_params} parameters "
           f"({cfg.dtype}, router float32), init {init_s:.2f}s", flush=True)
-    return dict(cfg=cfg, params=params, n_params=n_params,
+    return dict(cfg=cfg, params=params, n_params=n_params, label=f"{cfg.name} serving",
                 prompts=torch.from_numpy(prompts).to(dev))
 
 
@@ -2452,12 +2595,240 @@ def moe_split(mz: dict, mv: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the deepseek-v3 serving path: MLA and top-8 MoE at full width
+# --------------------------------------------------------------------------
+
+def ds_setup(dz: dict, dev, seed: int) -> dict:
+    """deepseek-v3 cut to ``layers`` layers, as :func:`moe_setup` cuts
+    arctic, with the whole model's exact and active parameter counts
+    (``lm.param_count_exact`` on the meta device) beside the cut model's."""
+    full = get_config(dz["arch"])
+    if dz["reduced"]:
+        full = reduced(full)
+    dv = moe_setup(dz, dev, seed)
+    cut = dv["cfg"]
+    counts = dict(model=lm.param_count_exact(full), model_active=lm.active_param_count_exact(full),
+                  cut=lm.param_count_exact(cut), cut_active=lm.active_param_count_exact(cut))
+    check(counts["cut"] == dv["n_params"], f"{cut.name}: the cut model's exact count "
+                                           f"{counts['cut']} equals its tensors' {dv['n_params']}")
+    print(f"{cut.name} parameters: whole model ({full.n_layers} layers) {counts['model']} exact, "
+          f"{counts['model_active']} active a token; cut to {cut.n_layers} layers "
+          f"{counts['cut']} exact, {counts['cut_active']} active; MTP head carried, unused "
+          f"in serving", flush=True)
+    dv["counts"] = counts
+    return dv
+
+
+def same_deepseek_serving(a: dict, b: dict, dz: dict, dv: dict) -> None:
+    """The MoE path's checks (each MoE call on wave 0 bit for bit, the
+    teacher-forced plain run's logits rows within SERVE_REL_L2 but for
+    near-tie routing flips), then the first layer's prefill attention,
+    kernel vs plain, within LAYER_REL_L2, and on the card each planted
+    flash fault must break that check."""
+    same_moe_serving(a, b, dz, dv)
+    tokens = dv["prompts"][:dz["batch"]]
+    gap = first_layer_gap(dv, tokens)
+    print(f"{dv['label']}: first layer (MLA), kernel vs plain attention output, largest "
+          f"relative L2 over positions {gap:.6f} (limit {LAYER_REL_L2})", flush=True)
+    check(gap <= LAYER_REL_L2,
+          f"{dv['label']}: first-layer attention outputs within relative L2 {LAYER_REL_L2}")
+    if tokens.is_cuda:
+        planted_faults(dv, tokens, b["logits"][0, 0])
+
+
+def same_mla_absorb(off: dict, on: dict, dv: dict) -> None:
+    """The kernel runs with mla_absorb off and on (the second fed the
+    first's tokens): every prefill's logits bit for bit (the flag touches
+    only decode), every decode step's within SERVE_REL_L2."""
+    vocab = dv["cfg"].vocab
+    for key in off["logits"]:
+        if key[1] == 0:
+            check(torch.equal(off["logits"][key], on["logits"][key]),
+                  f"mla_absorb on and off: prefill logits of wave {key[0]} bit-identical")
+    errs = {key: rel_l2(on["logits"][key][:, :vocab], off["logits"][key][:, :vocab])
+            for key in off["logits"] if key[1] > 0}
+    worst = max(errs, key=errs.get)
+    print(f"{dv['label']}: mla_absorb on vs off, kernel runs: prefill logits bit-identical; "
+          f"decode logits relative L2 max {errs[worst]:.6f} at (wave, step) {worst}, mean "
+          f"{sum(errs.values()) / len(errs):.6f} (limit {SERVE_REL_L2})", flush=True)
+    check(errs[worst] <= SERVE_REL_L2,
+          f"mla_absorb on vs off: decode logits within relative L2 {SERVE_REL_L2}")
+
+
+def _rope_dropped(real):
+    """Fault: the absorbed score without its rope term."""
+    def fault(params, cfg, q_nope, q_rope):
+        q_lat, qr, w_uv, scale = real(params, cfg, q_nope, q_rope)
+        return q_lat, torch.zeros_like(qr), w_uv, scale
+    return fault
+
+
+def _split_shifted(real):
+    """Fault: ``w_ukv``'s W_uk / W_uv split read one column late (each head's
+    W_uk from column 1, W_uv from column nope + 1 with a zero last column)."""
+    def fault(params, cfg, q_nope, q_rope):
+        m, h = cfg.mla, q_nope.shape[1]
+        nope = m.qk_nope_head_dim
+        w = params["w_ukv"].reshape(m.kv_lora_rank, h, nope + m.v_head_dim)
+        shifted = torch.cat([w[:, :, 1:], torch.zeros_like(w[:, :, :1])], dim=-1)
+        _, qr, _, scale = real(params, cfg, q_nope, q_rope)
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, :, 0].float(),
+                             shifted[:, :, :nope].float())
+        return q_lat, qr, shifted[:, :, nope:].float(), scale
+    return fault
+
+
+#: faults planted in the absorbed decode: what the absorbed-vs-expanded check sees
+MLA_FAULTS = {"the rope term dropped from the score": _rope_dropped,
+              "the W_uk / W_uv split shifted by one column": _split_shifted}
+
+
+def mla_decode_forms(dv: dict, prompts: torch.Tensor, fed: torch.Tensor, fault=None) -> dict:
+    """The first layer (MLA) alone: prefill ``prompts``, then decode
+    ``fed``'s tokens a step each, and at each step run the layer's decode
+    twice on the same cache contents (the step writes the same slot each
+    time): expanded (``mla_absorb`` off) and absorbed, each tapped for its
+    float32 attention output (B, H, v) before ``wo``.  ``fault`` wraps
+    ``attention._absorbed`` in the absorbed run.  Returns the largest
+    relative L2 gap between the two over (request, head) and step."""
+    cfg = dataclasses.replace(dv["cfg"], n_layers=1)
+    params = dict(dv["params"], layers=dv["params"]["layers"][:1])
+    att = lm.attn_mod
+    h, vdim = cfg.n_heads, cfg.mla.v_head_dim
+    forms = {"expanded": dict(mla_absorb=False), "absorbed": dict(mla_absorb=True)}
+    outs = {f: [] for f in forms}
+    real = {n: getattr(att, n) for n in ("decode_attention", "_mla_absorbed_decode",
+                                         "_absorbed")}
+
+    def tap(form, name):
+        def fn(*args, **kwargs):
+            if name == "decode_attention":
+                q, k, v, kv_len = args
+                o = real[name](q.float(), k, v, kv_len)              # (B, H, 1, v) float32
+                outs[form].append(o[:, :, 0])
+                return o.to(q.dtype)
+            params_, cfg_, q_nope, q_rope, c_kv, k_rope, pos = args
+            o = real[name](params_, cfg_, q_nope.float(), q_rope.float(), c_kv, k_rope, pos)
+            outs[form].append(o.reshape(o.shape[0], h, vdim))
+            return o.to(q_nope.dtype)
+        return fn
+
+    cache, _ = lm.prefill(params, cfg, {"tokens": prompts},
+                          cache_len=prompts.shape[1] + fed.shape[1])
+    try:
+        for n in range(fed.shape[1]):
+            for form, over in forms.items():
+                att.decode_attention = tap(form, "decode_attention")
+                att._mla_absorbed_decode = tap(form, "_mla_absorbed_decode")
+                att._absorbed = (fault(real["_absorbed"]) if fault is not None
+                                 and form == "absorbed" else real["_absorbed"])
+                c = dataclasses.replace(cfg, **over)
+                _, nxt = lm.decode_step(params, c, dict(cache), fed[:, n:n + 1])
+            cache = nxt
+    finally:
+        for name, fn in real.items():
+            setattr(att, name, fn)
+    check(all(len(v) == fed.shape[1] for v in outs.values()),
+          f"{dv['label']}: each decode form ran once a step {[len(v) for v in outs.values()]}")
+
+    return max(float((torch.linalg.vector_norm(x - y, dim=-1)
+                      / torch.linalg.vector_norm(y, dim=-1)).max())
+               for x, y in zip(outs["expanded"], outs["absorbed"]))
+
+
+def mla_decode_check(dv: dict, dz: dict, tokens: dict) -> dict:
+    """The first layer's float32 decode attention two ways on wave 0's
+    prompts and served tokens for 4 steps: the expanded form (K and V
+    rounded to bf16 by the expansion) within LAYER_REL_L2 of the absorbed
+    one; each planted fault in the absorbed form must break that check.
+    (``mla_cp_decode`` selects the absorbed form on one rank.)"""
+    rows = list(range(min(dz["batch"], dz["requests"])))
+    steps = min(4, dz["gen"])
+    prompts = dv["prompts"][rows]
+    fed = torch.tensor([tokens[i][:steps] for i in rows], device=prompts.device,
+                       dtype=prompts.dtype)
+    gap = mla_decode_forms(dv, prompts, fed)
+    print(f"{dv['label']}: first layer's decode attention (float32, per (request, head), "
+          f"{steps} steps), largest relative L2: absorbed vs expanded {gap:.3e} "
+          f"(limit {LAYER_REL_L2})", flush=True)
+    check(gap <= LAYER_REL_L2,
+          f"MLA decode: the expanded form within {LAYER_REL_L2} of the absorbed one")
+    faults = {}
+    for name, plant in MLA_FAULTS.items():
+        bad = mla_decode_forms(dv, prompts, fed, plant)
+        faults[name] = bad
+        print(f"{dv['label']}: planted MLA fault '{name}': absorbed vs expanded {bad:.3e} "
+              f"(limit {LAYER_REL_L2})", flush=True)
+        check(bad > LAYER_REL_L2, f"MLA decode: the absorbed-vs-expanded check catches '{name}'")
+    return dict(gap=gap, faults=faults)
+
+
+def ds_roles() -> dict:
+    """Roles of the deepseek path's device time (see :func:`role_split`);
+    ``shared expert`` is ``L.mlp`` as ``models/moe.py`` calls it (the
+    caller installs :func:`_moe_layers_view`), ``dense MLP`` as the dense
+    layers call it."""
+    att = lm.attn_mod
+    return {"MLA projections": (att, "mla_attention"), "K/V expansion": (att, "_expand_kv"),
+            "flash": (ops, "flash_attention"),
+            "decode attention": [(att, "decode_attention"), (att, "_mla_absorbed_decode")],
+            "router": (moe_mod, "router_topk"), "bin_offsets": (binning, "bin_offsets"),
+            "pack_rows": (binning, "pack_rows"), "place_rows": (binning, "place_rows"),
+            "expert bmm": (moe_mod, "_expert_ffn"), "shared expert": (moe_mod.L, "mlp"),
+            "dense MLP": (layers_mod, "mlp")}
+
+
+def _moe_layers_view():
+    """A copy of the layers module for ``models/moe.py`` alone, so that its
+    ``L.mlp`` calls (the shared expert) take a role of their own."""
+    import types
+    view = types.ModuleType("layers_for_moe")
+    view.__dict__.update({k: v for k, v in vars(layers_mod).items() if not k.startswith("__")})
+    return view
+
+
+#: the flash kernels as the profiler names them, beside the wire's
+DS_DEVICE_NAMES = WIRE_DEVICE_NAMES + (("flash_fwd", "flash"),)
+
+
+def ds_split(dz: dict, dv: dict, absorb: bool) -> dict:
+    """The device split by role of one prefill wave and one decode step
+    through the kernels (after a warm wave and step), with ``mla_absorb``
+    as given."""
+    cfg = dataclasses.replace(dv["cfg"], mla_absorb=absorb)
+    params, prompts = dv["params"], dv["prompts"][:dz["batch"]]
+    state = {}
+
+    def prefill():
+        state["cache"], lg = lm.prefill(params, cfg, {"tokens": prompts},
+                                        cache_len=dz["prompt_len"] + dz["gen"])
+        state["tok"] = lg.argmax(-1)[:, None]
+
+    def decode():
+        lm.decode_step(params, cfg, dict(state["cache"]), state["tok"])
+    real_l = moe_mod.L
+    moe_mod.L = _moe_layers_view()
+    try:
+        prefill()
+        decode()
+        torch.cuda.synchronize()
+        out = {"prefill wave": role_split(prefill, ds_roles(), names=DS_DEVICE_NAMES)}
+        out["decode step"] = role_split(decode, ds_roles(), names=DS_DEVICE_NAMES)
+    finally:
+        moe_mod.L = real_l
+    for what, split in out.items():
+        print(f"deepseek split, mla_absorb {'on' if absorb else 'off'}, {what} (device ms by "
+              f"role): " + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the float32 serve phase: serve.py's main with the reduced configurations
 # --------------------------------------------------------------------------
 
 #: the JAX package's own float32 configurations (configs.reduced), served
 #: by serve.py's main at its default flags (16 requests, 4 slots)
-F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b")
+F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b", "deepseek-v3-671b")
 #: relative L2 gap allowed between the kernel run's logits and the plain
 #: run's at every step: both run in float32 (matmuls too: TF32 off) and
 #: differ only in the attention's summation order and the kernel's 3xTF32
@@ -2475,9 +2846,9 @@ def tf32_rounded(x: torch.Tensor) -> torch.Tensor:
 
 
 def _one_tf32_pass(real):
-    def control(q, k, v, causal=True, window=0, impl="auto"):
+    def control(q, k, v, causal=True, window=0, impl="auto", **kw):
         return real(*(tf32_rounded(t) for t in (q, k, v)), causal=causal, window=window,
-                    impl=impl)
+                    impl=impl, **kw)
     return control
 
 
@@ -2500,7 +2871,8 @@ def _serve_tapped(arch: str, dev, plant=None, forced=None) -> dict:
                                     forced=forced, **kwargs)
         return seen["tokens"]
 
-    def tap_attn(q, k, v, causal=True, window=0, impl="auto"):
+    def tap_attn(q, k, v, causal=True, window=0, impl="auto", probs_bf16=False):
+        check(not probs_bf16, "the float32 serve phase runs without probs_bf16")
         out = attn(q, k, v, causal=causal, window=window, impl=impl)
         if len(calls) < seen["cfg"].n_layers:
             calls.append((q.clone(), k.clone(), v.clone(), causal, window, out.clone()))
@@ -2570,9 +2942,14 @@ def same_f32_serve(a: dict, b: dict, dev) -> None:
     step).  Then a control: serve.main again with Q, K and V rounded to
     TF32 before the kernel, fed the kernel run's tokens; both checks must
     catch it."""
-    name = a["cfg"].name
+    name, m = a["cfg"].name, a["cfg"].mla
     check(len(a["calls"]) == a["cfg"].n_layers,
           f"f32 serve {name}: wave 0's prefill calls captured, one per layer")
+    if m is not None:   # MLA: D = nope + rope, V zero past v_head_dim
+        dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+        check(all(q.shape[-1] == v.shape[-1] == dq and not bool(v[..., m.v_head_dim:].any())
+                  for q, _, v, *_ in a["calls"]),
+              f"f32 serve {name}: MLA prefill calls at D={dq}, V zero past {m.v_head_dim}")
     for i, (q, k, v, causal, window, out) in enumerate(a["calls"]):
         err, _ = attention_close(out, fa.flash_attention_plain(q, k, v, causal=causal,
                                                                window=window),
@@ -2911,6 +3288,43 @@ def main(argv=None) -> int:
     print("MoE wire rows: " + json.dumps({k: {f: v[f] for f in ("ms", "bound_ms")}
                                           for k, v in mrows.items()}), flush=True)
     del mv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 9b. the deepseek-v3 serving path: the wire kernels at its shapes, then
+    # serve with mla_absorb off and on (the second's kernel run fed the first's
+    # tokens), the first layer's decode forms, and the device split
+    t_ds = time.perf_counter()
+    dz = DS_REHEARSAL if rehearsal else DS_FULL
+    dv = ds_setup(dz, dev, args.seed)
+    dsrows = moe_wire_phase(dz, dv, sz["reps"], dev)
+    ds_waves = -(-dz["requests"] // dz["batch"])
+    ds_runs = {}
+    for absorb in (False, True):
+        dv_ = dv if not absorb else dict(
+            dv, cfg=dataclasses.replace(dv["cfg"], mla_absorb=True),
+            label=f"{dv['cfg'].name} serving, mla_absorb")
+        path = "deepseek serving path" + (", mla_absorb" if absorb else "")
+        feed = forced(ds_runs[False]) if absorb else None
+        ds_runs[absorb] = run_path(
+            path, lambda impl, runs, dv_=dv_, feed=feed: moe_serving_path(
+                impl, dz, dv_, feed if impl == "auto" else forced(runs)),
+            lambda r, dv_=dv_: check_moe_serving(r, dz, dv_),
+            lambda a, b, dv_=dv_: same_deepseek_serving(a, b, dz, dv_), MOE_KERNELS, sizes=dz)
+        if not rehearsal:
+            counts = {k: n for k, n in launched[path, "auto"].items() if n}
+            want = moe_wire_launches(dv_["cfg"], ds_waves * (dz["gen"] + 1))
+            want["flash_attention"] = dz["layers"] * ds_waves
+            check(counts == want, f"{path}: launches {counts}, want {want}")
+    same_mla_absorb(ds_runs[False]["auto"], ds_runs[True]["auto"], dv)
+    mla_decode_check(dv, dz, ds_runs[False]["auto"]["tokens"])
+    if not rehearsal:
+        for absorb in (False, True):
+            ds_split(dz, dv, absorb)
+    print("deepseek wire rows: " + json.dumps({k: {f: v[f] for f in ("ms", "bound_ms")}
+                                               for k, v in dsrows.items()}), flush=True)
+    print(f"deepseek cell: {time.perf_counter() - t_ds:.1f}s", flush=True)
+    del dv, dv_, ds_runs
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 

@@ -113,6 +113,11 @@ def ragged_offsets(widths) -> tuple[list[int], int]:
     return starts, off
 
 
+#: words of rows ``scatter_rows`` places at a time: its int64 index array of
+#: a chunk stays at 256 MB however many rows an MoE wave sends
+_SCATTER_WORDS = 1 << 25
+
+
 def scatter_rows(flat: torch.Tensor, base: torch.Tensor, rows: torch.Tensor,
                  widths: torch.Tensor | None = None) -> torch.Tensor:
     """Pack (N, W) u32 rows into a copy of a flat word buffer.
@@ -125,13 +130,16 @@ def scatter_rows(flat: torch.Tensor, base: torch.Tensor, rows: torch.Tensor,
     """
     total = flat.shape[0]
     w = rows.shape[1]
+    lanes = _to_u32(rows)
     lane = torch.arange(w, dtype=torch.int64, device=flat.device)[None, :]
-    idx = base.to(torch.int64)[:, None] + lane
-    keep = (idx >= 0) & (idx < total)
-    if widths is not None:
-        keep &= lane < widths.to(torch.int64)[:, None]
     out = flat.clone()
-    out[idx[keep]] = _to_u32(rows)[keep]
+    step = max(1, _SCATTER_WORDS // max(w, 1))   # rows at a time: bounded int64 indices
+    for r0 in range(0, rows.shape[0], step):
+        idx = base[r0:r0 + step].to(torch.int64)[:, None] + lane
+        keep = (idx >= 0) & (idx < total)
+        if widths is not None:
+            keep &= lane < widths[r0:r0 + step].to(torch.int64)[:, None]
+        out[idx[keep]] = lanes[r0:r0 + step][keep]
     return out
 
 

@@ -61,6 +61,11 @@
 //     split O's columns (three boxes and two); each computes S for those
 //     rows itself (2 D more flops a pair) rather than passing P through
 //     shared memory.
+//   * probs_bf16 (a compile-time flag, instances of their own): P goes
+//     through wgmma as P_hi = bf16(P) alone, V as loaded, into the same
+//     float32 accumulator: the JAX package's blockwise_attention(probs_bf16)
+//     arithmetic, one PV pass instead of two (4 D flops a pair on the
+//     tensor cores, the function's own count).  l still sums P in float32.
 //   * Epilogue: O / l rounded to bf16 (round to nearest even) into the
 //     consumer's part of the Q tile in the same swizzled layout, then a
 //     TMA store into the head-merged output; rows >= Tq and columns >= D
@@ -299,8 +304,9 @@ struct Tile {
 
 // A consumer warpgroup: query rows [row_off, row_off + 64) of the tile and
 // OB O boxes from box B0.  Tile j's S = Q K^T is issued before tile j-1's
-// O += P V, and its softmax runs while that product is in flight.
-template <int NB, int BK, bool SPLIT, int OB, int B0>
+// O += P V, and its softmax runs while that product is in flight.  PB: P
+// enters P V as bf16(P) alone (probs_bf16), with no P_lo pass.
+template <int NB, int BK, bool SPLIT, int OB, int B0, bool PB>
 __device__ __forceinline__ void consume(const Maps& maps, const Shape& p, const Tile& c,
                                         int row_off, int cw) {
   using C = Cfg<NB, BK, SPLIT>;
@@ -339,7 +345,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Shape& p, const 
         const uint32_t va = c.sV + stage * C::kKVBytes + (B0 + x) * C::kKVBox + kk * 16 * kRow;
         const uint64_t dv = desc(va, C::kKVBox, 1024);
         wgmma_rs_n64(o[x], ph[kk], dv);
-        wgmma_rs_n64(o[x], pl[kk], dv);
+        if constexpr (!PB) wgmma_rs_n64(o[x], pl[kk], dv);
       }
     wg_commit();
 #pragma unroll
@@ -351,7 +357,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Shape& p, const 
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       keep(ph[kk]);
-      keep(pl[kk]);
+      if constexpr (!PB) keep(pl[kk]);
     }
   };
   // s: raw scores of the tile at key k0 -> probabilities against the new
@@ -395,7 +401,8 @@ __device__ __forceinline__ void consume(const Maps& maps, const Shape& p, const 
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];   // this thread's part
   };
-  // P = P_hi + P_lo as A fragments: k16 step kk holds s[8 kk .. 8 kk + 7]
+  // P = P_hi + P_lo as A fragments (PB: P_hi alone): k16 step kk holds
+  // s[8 kk .. 8 kk + 7]
   auto split_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
@@ -403,9 +410,11 @@ __device__ __forceinline__ void consume(const Maps& maps, const Shape& p, const 
       for (int j = 0; j < 4; ++j) {
         const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
         const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(hi);
         ph[kk][j] = bits(hi);
-        pl[kk][j] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+        if constexpr (!PB) {
+          const float2 hf = __bfloat1622float2(hi);
+          pl[kk][j] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+        }
       }
   };
 
@@ -483,7 +492,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Shape& p, const 
   }
 }
 
-template <int NB, int BK, bool SPLIT>
+template <int NB, int BK, bool SPLIT, bool PB>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ Maps maps, const Shape p) {
   using C = Cfg<NB, BK, SPLIT>;
@@ -552,11 +561,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     const int cw = tid / 128 - 1;                     // consumer 0 or 1
     if constexpr (!SPLIT) {
-      consume<NB, BK, SPLIT, NB, 0>(maps, p, c, 64 * cw, cw);
+      consume<NB, BK, SPLIT, NB, 0, PB>(maps, p, c, 64 * cw, cw);
     } else if (cw == 0) {
-      consume<NB, BK, SPLIT, C::kOB, 0>(maps, p, c, 0, cw);
+      consume<NB, BK, SPLIT, C::kOB, 0, PB>(maps, p, c, 0, cw);
     } else {
-      consume<NB, BK, SPLIT, NB - C::kOB, C::kOB>(maps, p, c, 0, cw);
+      consume<NB, BK, SPLIT, NB - C::kOB, C::kOB, PB>(maps, p, c, 0, cw);
     }
   }
 }
@@ -606,24 +615,36 @@ struct Args {
   void* o;
   long long qs[3], ks[3], vs[3], os[3];   // element strides of dims b, h, t
   int batch, dt;                          // dt: the head dim the maps cover
+  int probs_bf16;
   Shape shape;
 };
 
-// instance i (head dims up to 64 (i + 1)): f(its Cfg, its kernel)
-template <typename F>
-int with_instance(int i, F&& f) {
-  switch (i) {
-    case 0: return f(Cfg<1, 128, false>{}, flash_fwd_wgmma<1, 128, false>);
-    case 1: return f(Cfg<2, 128, false>{}, flash_fwd_wgmma<2, 128, false>);
-    case 2: return f(Cfg<3, 64, false>{}, flash_fwd_wgmma<3, 64, false>);
-    case 3: return f(Cfg<4, 64, false>{}, flash_fwd_wgmma<4, 64, false>);
-    case 4: return f(Cfg<5, 64, true>{}, flash_fwd_wgmma<5, 64, true>);
+constexpr int kWidths = 5;                // instances of one flag value
+
+// width w (head dims up to 64 (w + 1)) with flag PB: f(its Cfg, its kernel)
+template <bool PB, typename F>
+int with_width(int w, F&& f) {
+  switch (w) {
+    case 0: return f(Cfg<1, 128, false>{}, flash_fwd_wgmma<1, 128, false, PB>);
+    case 1: return f(Cfg<2, 128, false>{}, flash_fwd_wgmma<2, 128, false, PB>);
+    case 2: return f(Cfg<3, 64, false>{}, flash_fwd_wgmma<3, 64, false, PB>);
+    case 3: return f(Cfg<4, 64, false>{}, flash_fwd_wgmma<4, 64, false, PB>);
+    case 4: return f(Cfg<5, 64, true>{}, flash_fwd_wgmma<5, 64, true, PB>);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int dispatch(const Args& a, cudaStream_t stream) {
-  return with_instance((a.dt + kBox - 1) / kBox - 1, [&](auto cfg, auto kernel) {
+// instance i: width i % kWidths, probs_bf16 from i >= kWidths
+template <typename F>
+int with_instance(int i, F&& f) {
+  return i < kWidths ? with_width<false>(i, f) : with_width<true>(i - kWidths, f);
+}
+
+// launch the instance that takes the call; *instance: its index (-1: none)
+int dispatch(const Args& a, int* instance, cudaStream_t stream) {
+  const int w = (a.dt + kBox - 1) / kBox - 1;
+  *instance = w < 0 || w >= kWidths ? -1 : w + kWidths * (a.probs_bf16 != 0);
+  return with_instance(*instance, [&](auto cfg, auto kernel) {
     using C = decltype(cfg);
     const Shape& p = a.shape;
     Maps maps;
@@ -699,6 +720,14 @@ int dispatch(const Args& a, cudaStream_t stream) {
 //     the tiles that the diagonal, the window edge or Tk cuts, key tiles
 //     visited only where the mask leaves them non-empty, m_ref = 0 while a
 //     row has seen no key, l >= 1e-30.
+//   * probs_bf16 (a compile-time flag, instances of their own): P and V
+//     are rounded to bf16 (to nearest even) and O += P V takes one TF32
+//     pass: a bf16 value is a TF32 value, so the products are exact and
+//     only the float32 accumulation rounds, as in the JAX package's
+//     blockwise_attention(probs_bf16).  S = Q K^T stays 3xTF32 and l sums
+//     P in float32.  (Rounding before the usual split gives the same sums,
+//     lo = 0, but runs the two zero passes: 20% slower on an H100 at the
+//     kernel-phase call, scripts/torch_flash_ab.py.)
 namespace f32 {
 
 constexpr int kBQ = 64;   // query rows a CTA, 16 a warp
@@ -708,16 +737,18 @@ struct Params {
   float* o;
   long long qs[3], ks[3], vs[3], os[3];   // element strides of dims b, h, t
   int batch, hq, hkv, tq, tk, dt, d, causal, window;   // dt: columns read (d % 4 padded)
+  int probs_bf16;
   float scale_log2;                       // log2(e) / sqrt(D)
 };
 
 // DP: the widest head dim (a multiple of 16); BK keys a tile; SPLIT: two
-// warps on each 16 rows, each with half of O's columns
-template <int DP, int BK, bool SPLIT>
+// warps on each 16 rows, each with half of O's columns; PB: probs_bf16
+template <int DP, int BK, bool SPLIT, bool PB>
 struct Cfg {
   static constexpr int kDP = DP;
   static constexpr int kBK = BK;
   static constexpr bool kSplit = SPLIT;
+  static constexpr bool kProbsBf16 = PB;
   static constexpr int kThreads = SPLIT ? 256 : 128;
   static constexpr int kLdK = DP + (DP % 32 ? 32 : 16);   // Q and K rows (floats)
   static constexpr int kLdV = DP + 4;   // V rows
@@ -756,6 +787,11 @@ __device__ __forceinline__ void mma3(float (&d)[M][4], int n0, const uint32_t (&
   for (int n = 0; n < N; ++n) mma(d[n0 + n], ah, bl[n][0], bl[n][1]);
 #pragma unroll
   for (int n = 0; n < N; ++n) mma(d[n0 + n], ah, bh[n][0], bh[n][1]);
+}
+
+// x rounded to bf16 (to nearest even), as the bits of a float32: exact in TF32
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
 }
 
 __device__ __forceinline__ void split4(float x0, float x1, float x2, float x3,
@@ -939,19 +975,38 @@ __global__ void __launch_bounds__(C::kThreads, 1) flash_fwd_tf32(const Params p)
     // V's column blocks CH at a time (columns past dt read V's zero pad)
 #pragma unroll
     for (int kk = 0; kk < NB; ++kk) {
-      uint32_t ah[4], al[4];
-      split4(s[kk][0], s[kk][2], s[kk][1], s[kk][3], ah, al);
+      if constexpr (C::kProbsBf16) {     // bf16(P) bf16(V), one exact TF32 pass
+        const uint32_t a[4] = {bf16_bits(s[kk][0]), bf16_bits(s[kk][2]), bf16_bits(s[kk][1]),
+                               bf16_bits(s[kk][3])};
 #pragma unroll
-      for (int n0 = 0; n0 < NJ; n0 += CH) {
-        if (c0 + 8 * n0 < p.dt) {
-          uint32_t bh[CH][2], bl[CH][2];
+        for (int n0 = 0; n0 < NJ; n0 += CH) {
+          if (c0 + 8 * n0 < p.dt) {       // CH blocks' loads first, then their mmas
+            uint32_t b[CH][2];
 #pragma unroll
-          for (int j = 0; j < CH; ++j) {
-            const float* vp = vb + 8 * kk * LV + 8 * (n0 + j);
-            split(vp[0], bh[j][0], bl[j][0]);
-            split(vp[LV], bh[j][1], bl[j][1]);
+            for (int j = 0; j < CH; ++j) {
+              const float* vp = vb + 8 * kk * LV + 8 * (n0 + j);
+              b[j][0] = bf16_bits(vp[0]);
+              b[j][1] = bf16_bits(vp[LV]);
+            }
+#pragma unroll
+            for (int j = 0; j < CH; ++j) mma(o[n0 + j], a, b[j][0], b[j][1]);
           }
-          mma3(o, n0, ah, al, bh, bl);
+        }
+      } else {
+        uint32_t ah[4], al[4];
+        split4(s[kk][0], s[kk][2], s[kk][1], s[kk][3], ah, al);
+#pragma unroll
+        for (int n0 = 0; n0 < NJ; n0 += CH) {
+          if (c0 + 8 * n0 < p.dt) {
+            uint32_t bh[CH][2], bl[CH][2];
+#pragma unroll
+            for (int j = 0; j < CH; ++j) {
+              const float* vp = vb + 8 * kk * LV + 8 * (n0 + j);
+              split(vp[0], bh[j][0], bl[j][0]);
+              split(vp[LV], bh[j][1], bl[j][1]);
+            }
+            mma3(o, n0, ah, al, bh, bl);
+          }
         }
       }
     }
@@ -975,36 +1030,47 @@ __global__ void __launch_bounds__(C::kThreads, 1) flash_fwd_tf32(const Params p)
     }
 }
 
-// instance i: f(its Cfg, its kernel); head dims up to 16, 32, 64, 128,
-// 192, 256, 320 (past the last, cudaErrorInvalidValue)
-template <typename F>
-int with_instance(int i, F&& f) {
-  switch (i) {
-    case 0: return f(Cfg<16, 64, false>{}, flash_fwd_tf32<Cfg<16, 64, false>>);
-    case 1: return f(Cfg<32, 64, false>{}, flash_fwd_tf32<Cfg<32, 64, false>>);
-    case 2: return f(Cfg<64, 64, false>{}, flash_fwd_tf32<Cfg<64, 64, false>>);
-    case 3: return f(Cfg<128, 64, false>{}, flash_fwd_tf32<Cfg<128, 64, false>>);
-    case 4: return f(Cfg<192, 32, false>{}, flash_fwd_tf32<Cfg<192, 32, false>>);
-    case 5: return f(Cfg<256, 32, true>{}, flash_fwd_tf32<Cfg<256, 32, true>>);
-    case 6: return f(Cfg<320, 32, true>{}, flash_fwd_tf32<Cfg<320, 32, true>>);
+constexpr int kWidths = 7;   // instances of one flag value
+
+// width w with flag PB: f(its Cfg, its kernel); head dims up to 16, 32,
+// 64, 128, 192, 256, 320 (past the last, cudaErrorInvalidValue)
+template <bool PB, typename F>
+int with_width(int w, F&& f) {
+  switch (w) {
+    case 0: return f(Cfg<16, 64, false, PB>{}, flash_fwd_tf32<Cfg<16, 64, false, PB>>);
+    case 1: return f(Cfg<32, 64, false, PB>{}, flash_fwd_tf32<Cfg<32, 64, false, PB>>);
+    case 2: return f(Cfg<64, 64, false, PB>{}, flash_fwd_tf32<Cfg<64, 64, false, PB>>);
+    case 3: return f(Cfg<128, 64, false, PB>{}, flash_fwd_tf32<Cfg<128, 64, false, PB>>);
+    case 4: return f(Cfg<192, 32, false, PB>{}, flash_fwd_tf32<Cfg<192, 32, false, PB>>);
+    case 5: return f(Cfg<256, 32, true, PB>{}, flash_fwd_tf32<Cfg<256, 32, true, PB>>);
+    case 6: return f(Cfg<320, 32, true, PB>{}, flash_fwd_tf32<Cfg<320, 32, true, PB>>);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// the first instance that takes head dim d (-1: none)
-int instance_of(int d) {
+// instance i: width i % kWidths, probs_bf16 from i >= kWidths
+template <typename F>
+int with_instance(int i, F&& f) {
+  return i < kWidths ? with_width<false>(i, f) : with_width<true>(i - kWidths, f);
+}
+
+// the first width that takes head dim d (-1: none)
+int width_of(int d) {
   int dp = 0;
   const auto widest = [&](auto cfg, auto) {
     dp = decltype(cfg)::kDP;
     return 0;
   };
-  for (int i = 0; with_instance(i, widest) == 0; ++i)
-    if (d <= dp) return i;
+  for (int w = 0; with_width<false>(w, widest) == 0; ++w)
+    if (d <= dp) return w;
   return -1;
 }
 
-int dispatch(const Params& p, cudaStream_t stream) {
-  return with_instance(instance_of(p.d), [&](auto cfg, auto kernel) {
+// launch the instance that takes the call; *instance: its index (-1: none)
+int dispatch(const Params& p, int* instance, cudaStream_t stream) {
+  const int w = width_of(p.d);
+  *instance = w < 0 ? -1 : w + kWidths * (p.probs_bf16 != 0);
+  return with_instance(*instance, [&](auto cfg, auto kernel) {
     using C = decltype(cfg);
     const long long blocks = (long long)((p.tq + kBQ - 1) / kBQ) * p.hq * p.batch;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -1030,14 +1096,17 @@ const char* kernel_error_string(int code) {
 // dt): element strides of dims b, h, t, the last dim contiguous; 16-byte
 // aligned base pointers and strides (TMA); 1 <= d <= dt <= 320 with
 // columns d..dt zero (d sets the scale), Hq % Hkv == 0, Tk >= 1, and
-// Tq <= Tk when causal (the wrapper checks).
+// Tq <= Tk when causal (the wrapper checks).  *instance: the index of the
+// instance launched, as flash_attention_bf16_instance numbers them (-1: none).
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v, void* o,
                                 long long qsb, long long qsh, long long qst,
                                 long long ksb, long long ksh, long long kst,
                                 long long vsb, long long vsh, long long vst,
                                 long long osb, long long osh, long long ost,
                                 int batch, int hq, int hkv, int tq, int tk, int dt, int d,
-                                int causal, int window, void* stream) {
+                                int causal, int window, int probs_bf16, int* instance,
+                                void* stream) {
+  *instance = -1;
   if (batch == 0 || hq == 0 || tq == 0) return (int)cudaGetLastError();
   tc::Args a;
   a.q = q;
@@ -1051,6 +1120,7 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v, voi
     for (int j = 0; j < 3; ++j) dst[i][j] = strides[i][j];
   a.batch = batch;
   a.dt = dt;
+  a.probs_bf16 = probs_bf16;
   a.shape.hq = hq;
   a.shape.hkv = hkv;
   a.shape.tq = tq;
@@ -1058,18 +1128,21 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v, voi
   a.shape.causal = causal;
   a.shape.window = window;
   a.shape.scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
-  return tc::dispatch(a, (cudaStream_t)stream);
+  return tc::dispatch(a, instance, (cudaStream_t)stream);
 }
 
-// Instance i of the bf16 route (i < 5): the widest head dim it takes, its
-// registers a thread at launch, local (spill) bytes and dynamic shared memory.
-int flash_attention_bf16_instance(int i, int* max_d, int* regs, int* local_bytes, int* smem) {
+// Instance i of the bf16 route (i < 10): the widest head dim it takes, its
+// probs_bf16 flag, its registers a thread at launch, local (spill) bytes and
+// dynamic shared memory.
+int flash_attention_bf16_instance(int i, int* max_d, int* probs_bf16, int* regs,
+                                  int* local_bytes, int* smem) {
   return tc::with_instance(i, [&](auto cfg, auto kern) {
     using C = decltype(cfg);
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, kern);
     if (err != cudaSuccess) return (int)err;
-    *max_d = (i + 1) * tc::kBox;
+    *max_d = (i % tc::kWidths + 1) * tc::kBox;
+    *probs_bf16 = i >= tc::kWidths;
     *regs = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
     *smem = C::kSmem;
@@ -1080,14 +1153,16 @@ int flash_attention_bf16_instance(int i, int* max_d, int* regs, int* local_bytes
 // The float32 route (flash_fwd_tf32).  q, k, v as above with 16-byte
 // aligned rows: 16-byte aligned bases, row, head and batch strides that
 // are multiples of 4 elements, 1 <= d <= dt <= 320, dt % 4 == 0, columns
-// d..dt zero; o (B, Hq, Tq, d) at its own strides.
+// d..dt zero; o (B, Hq, Tq, d) at its own strides; *instance as above.
 int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* o,
                                long long qsb, long long qsh, long long qst,
                                long long ksb, long long ksh, long long kst,
                                long long vsb, long long vsh, long long vst,
                                long long osb, long long osh, long long ost,
                                int batch, int hq, int hkv, int tq, int tk, int dt, int d,
-                               int causal, int window, void* stream) {
+                               int causal, int window, int probs_bf16, int* instance,
+                               void* stream) {
+  *instance = -1;
   if (batch == 0 || hq == 0 || tq == 0) return (int)cudaGetLastError();
   f32::Params p;
   p.q = (const float*)q;
@@ -1108,19 +1183,22 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v, void
   p.d = d;
   p.causal = causal;
   p.window = window;
+  p.probs_bf16 = probs_bf16;
   p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
-  return f32::dispatch(p, (cudaStream_t)stream);
+  return f32::dispatch(p, instance, (cudaStream_t)stream);
 }
 
 // Instance i of the float32 route, as flash_attention_bf16_instance
 // (cudaErrorInvalidValue past the last).
-int flash_attention_f32_instance(int i, int* max_d, int* regs, int* local_bytes, int* smem) {
+int flash_attention_f32_instance(int i, int* max_d, int* probs_bf16, int* regs,
+                                 int* local_bytes, int* smem) {
   return f32::with_instance(i, [&](auto cfg, auto kern) {
     using C = decltype(cfg);
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, kern);
     if (err != cudaSuccess) return (int)err;
     *max_d = C::kDP;
+    *probs_bf16 = C::kProbsBf16;
     *regs = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
     *smem = C::kSmem;

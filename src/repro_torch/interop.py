@@ -15,8 +15,9 @@ across": both packages can start from the same populated containers.
 And the LM's parameters: ``lm_params_from_numpy`` takes the JAX
 package's ``lm.init_params`` pytree (``np.asarray`` on each leaf) and
 unstacks its scanned units into the port's per-layer list (an MoE
-layer's ``moe`` tree too: the float32 router, the bf16 expert stacks);
-``lm_params_to_numpy`` goes back (bf16 leaves come back as float32
+layer's ``moe`` tree too: the float32 router, the bf16 expert stacks; an
+MLA layer's six ``attn`` leaves; the MTP head's ``mtp_block``,
+``mtp_norm`` and ``mtp_proj``); ``lm_params_to_numpy`` goes back (bf16 leaves come back as float32
 arrays of the same values: numpy has no bfloat16 of its own).
 ``moe_params_for_rank`` gives rank ``r`` of a ``P``-rank model axis an
 MoE layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's
@@ -108,6 +109,10 @@ def tree_from_numpy(tree: dict, device="cuda") -> dict:
     return _tree(lambda a: _tensor(a, device), tree)
 
 
+#: the LM's parameters outside the layer stack
+_TOP = ("embed", "final_norm", "lm_head", "mtp_block", "mtp_norm", "mtp_proj")
+
+
 def lm_params_from_numpy(params_np: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The JAX LM pytree -> the port's parameters on ``device``: the layers
     in order (``prefix_i``, then each unit's ``p0..p{u-1}`` from
@@ -120,8 +125,7 @@ def lm_params_from_numpy(params_np: dict, cfg: ArchConfig, device="cuda") -> dic
             layers.append(_tree(lambda a: _tensor(np.asarray(a)[u], device),
                                 params_np["stack"][f"p{i}"]))
     layers += [tree_from_numpy(params_np[f"rem_{i}"], device) for i in range(n_rem)]
-    out = {k: _tensor(params_np[k], device) for k in ("embed", "final_norm", "lm_head")
-           if k in params_np}
+    out = {k: tree_from_numpy(params_np[k], device) for k in _TOP if k in params_np}
     out["layers"] = layers
     return out
 
@@ -136,7 +140,7 @@ def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
     prefix, n_units, n_rem = _layout(cfg)
     pat = len(cfg.layer_pattern)
     layers = [_tree(_array, bp) for bp in params["layers"]]
-    out = {k: _array(params[k]) for k in ("embed", "final_norm", "lm_head") if k in params}
+    out = {k: _tree(_array, params[k]) for k in _TOP if k in params}
     for i in range(prefix):
         out[f"prefix_{i}"] = layers[i]
     if n_units:

@@ -17,6 +17,14 @@ head h reads kv head ``h // (Hq // Hkv)``).  Keys at ``kpos >= Tk`` never
 count, whatever ``causal`` is (the Pallas kernel lets zero-padded keys
 into a non-causal call when ``Tk`` is not a multiple of its key block;
 the port follows the oracle).
+
+``probs_bf16`` is ``blockwise_attention(probs_bf16=True)``
+(``repro/models/attention.py:95-101``): the probabilities and V are
+rounded to bf16 for the P V product, which accumulates in float32; the
+normaliser sums the float32 probabilities.  Each route has instances of
+its own for it (the bf16 route drops its P_lo pass, the float32 route
+takes P V in one exact TF32 pass); ``last_instance`` says which instance
+a call launched.
 """
 
 from __future__ import annotations
@@ -31,10 +39,14 @@ _P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 _FLASH = register("flash_attention", Kernel(
     "flash_attention", "flash_attention_bf16_launch",
-    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 9))
+    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 10 + [ctypes.POINTER(_INT)]))
 _FLASH_F32 = register("flash_attention_f32", Kernel(
     "flash_attention", "flash_attention_f32_launch",
-    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 9))
+    [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 10 + [ctypes.POINTER(_INT)]))
+
+#: the instance each route launched last, as an index into ``bf16_instances()``
+#: or ``f32_instances()`` (the launcher reports it; -1 before any launch)
+last_instance = {"bf16": -1, "f32": -1}
 
 #: the widest head the kernel takes (gemma3-4b: 2560 / 8)
 MAX_HEAD_DIM = 320
@@ -54,18 +66,27 @@ def _mask(tq: int, tk: int, causal: bool, window: int, device) -> torch.Tensor:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: int = 0) -> torch.Tensor:
+                          causal: bool = True, window: int = 0,
+                          probs_bf16: bool = False) -> torch.Tensor:
     """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) -> (B,Hq,Tq,D) in ``q.dtype``.
 
     The whole softmax at once in float32, on a grouped view of the query
     heads (K/V are not repeated).  A row with no key to see is NaN, as in
-    the oracle.
+    the oracle.  ``probs_bf16``: the unnormalised probabilities (against
+    the row's max) and V rounded to bf16 for P V, divided by the float32
+    sum of the probabilities.
     """
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, tq, d).float()
     logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * (1.0 / d ** 0.5)
     logits.masked_fill_(~_mask(tq, tk, causal, window, q.device), float("-inf"))
+    if probs_bf16:
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        del logits
+        out = torch.einsum("bgrqk,bgkd->bgrqd", p.to(torch.bfloat16).float(),
+                           v.to(torch.bfloat16).float()) / p.sum(dim=-1, keepdim=True)
+        return out.reshape(b, hq, tq, d).to(q.dtype)
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bgrqk,bgkd->bgrqd", probs, v.float())
@@ -117,7 +138,8 @@ def _head_merged(b: int, tq: int, hq: int, d: int, like: torch.Tensor) -> torch.
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    probs_bf16: bool = False) -> torch.Tensor:
     """Attention forward on the card; the plain version for CPU tensors.
 
     Dispatch by dtype: bf16 runs the wgmma kernel (one CTA per batch,
@@ -134,23 +156,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     merging the heads back after it copies nothing.
     """
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     probs_bf16=probs_bf16)
     _check(q, k, v, causal)
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    flags = (int(causal), max(int(window), 0))
+    flags = (int(causal), max(int(window), 0), int(probs_bf16))
+    inst = _INT(-1)
     if q.dtype == torch.float32:
         dt = -(-d // 4) * 4
         q, k, v = (_aligned_operand(t, dt) for t in (q, k, v))
         out = _head_merged(b, tq, hq, d, q)
         _FLASH_F32(q, k, v, out, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                   *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags)
+                   *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags, ctypes.byref(inst))
+        last_instance["f32"] = inst.value
         return out
     dt = -(-d // 8) * 8
     q, k, v = (_aligned_operand(t, dt) for t in (q, k, v))
     out = _head_merged(b, tq, hq, dt, q)
     _FLASH(q, k, v, out, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags)
+           *out.stride()[:3], b, hq, hkv, tq, tk, dt, d, *flags, ctypes.byref(inst))
+    last_instance["bf16"] = inst.value
     if dt != d:
         out = _head_merged(b, tq, hq, d, q).copy_(out[..., :d])
     return out
@@ -166,27 +192,30 @@ def _instances(route: str) -> list[dict]:
     at launch, local (spill) bytes and dynamic shared memory."""
     lib = library(_FLASH.source)
     fn = getattr(lib, f"flash_attention_{route}_instance")
-    fn.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 4
+    fn.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 5
     fn.restype = _INT
     rows = []
     while True:
-        vals = [_INT() for _ in range(4)]
+        vals = [_INT() for _ in range(5)]
         rc = fn(len(rows), *(ctypes.byref(x) for x in vals))
         if rc == _NO_INSTANCE and rows:
             return rows
         if rc != 0:
             raise RuntimeError(f"flash_attention_{route}_instance({len(rows)}): CUDA error {rc} "
                                f"({lib.kernel_error_string(rc).decode()})")
-        rows.append(dict(zip(("max_d", "registers", "local_bytes", "smem_bytes"),
-                             (x.value for x in vals))))
+        row = dict(zip(("max_d", "probs_bf16", "registers", "local_bytes", "smem_bytes"),
+                       (x.value for x in vals)))
+        row["probs_bf16"] = bool(row["probs_bf16"])
+        rows.append(row)
 
 
 def bf16_instances() -> list[dict]:
-    """The bf16 kernel's instances, one per 64 columns of head dim."""
+    """The bf16 kernel's instances, one per 64 columns of head dim,
+    without ``probs_bf16`` and then with it."""
     return _instances("bf16")
 
 
 def f32_instances() -> list[dict]:
     """The float32 kernel's instances (head dims up to 16, 32, 64, 128,
-    192, 256 and 320)."""
+    192, 256 and 320), without ``probs_bf16`` and then with it."""
     return _instances("f32")

@@ -299,9 +299,12 @@ def bloom_find(filter_words, qblock, qwords, qvalid, impl: str = "auto"):
 # flash attention
 # --------------------------------------------------------------------------
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0, impl: str = "auto"):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0, impl: str = "auto",
+                    probs_bf16: bool = False):
     """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) -> (B,Hq,Tq,D): suffix-aligned
-    causal / sliding-window GQA attention (see ``kernels/flash_attention``)."""
+    causal / sliding-window GQA attention, ``probs_bf16`` rounding P and V
+    to bf16 for P V (see ``kernels/flash_attention``)."""
     if resolve(impl, q) == "torch":
-        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         probs_bf16=probs_bf16)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, probs_bf16=probs_bf16)

@@ -1,25 +1,35 @@
-"""Attention: GQA/MQA with qk-norm, sliding windows and KV caches.
+"""Attention: GQA/MQA with qk-norm, sliding windows, MLA and KV caches.
 
-The port of ``repro/models/attention.py:116-233``.  Prefill attends
+The port of ``repro/models/attention.py:116-438``.  Prefill attends
 through ``ops.flash_attention``: the hand-written CUDA kernel on the card,
 its plain version on the CPU (the JAX package runs the same function as
 the XLA ``blockwise_attention`` there; its ``q_block``/``k_block`` are XLA
-tiling and mean nothing here).  Decode attends one query against the
-cache with a plain matmul, as in JAX (that step is bound by reading the
-cache, not by compute).
+tiling and mean nothing here), with ``cfg.attn_probs_bf16`` passed down.
+Decode attends one query against the cache with a plain matmul, as in
+JAX (that step is bound by reading the cache, not by compute).
 
 Caches are updated in place: the prefill writes the cache ``cache_init``
 allocated, and each decode step writes its one slot of the same buffers
 (the JAX package returns updated copies; here a copy of every layer's
 cache per token would cost more than the step).
 
-MLA (``cfg.mla``) and ``cfg.attn_probs_bf16`` wait for ROADMAP Queue 1
-item 6.
+MLA (DeepSeek multi-head latent attention) keeps the compressed cache
+``c_kv`` (B, S, kv_lora_rank) and a shared-head ``k_rope`` (B, S, rope).
+Prefill expands K and V through ``w_ukv`` and attends through the flash
+kernel, V zero-padded to the qk head dim (the kernel takes one head dim;
+zero columns add nothing, and the output is sliced back).  Decode expands
+the whole cache (``mla_absorb`` off) or attends in the latent space
+(``mla_absorb``).  ``mla_cp_decode`` (the JAX package's context-parallel
+decode, the cache's sequence sharded over the model axis) selects the
+latent-space decode: the port serves on one rank, where the two-pass
+combine's pmax and psum are identities and it computes the same function.
+The combine comes with the multi-rank LM (ROADMAP Queue 1 item 6.2).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal, rms_norm, rotary
@@ -72,9 +82,6 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
     cache) and attends over the cache; otherwise it is a prefill that
     attends over x and writes its keys into the cache.
     """
-    if cfg.mla is not None or cfg.attn_probs_bf16:
-        raise NotImplementedError(
-            "MLA and attn_probs_bf16 attention wait for ROADMAP Queue 1 item 6")
     b, t, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
@@ -104,7 +111,8 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
         lo = max(pos + 1 - window, 0) if (window > 0 and not ring) else None
         out = decode_attention(q, ck, cv, kv_len, lo=lo)
     else:
-        out = ops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window, impl=impl,
+                                  probs_bf16=cfg.attn_probs_bf16)
         if cache is not None:   # prefill into the cache
             ck, cv = cache["k"], cache["v"]
             s = ck.shape[2]
@@ -127,3 +135,122 @@ def _cache_append(buf, x, pos: int):
     """Write x (B,H,1,hd) at slot ``pos`` of buf (B,H,S,hd), in place."""
     buf[:, :, pos:pos + 1] = x
     return buf
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg, dtype, device) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    s = d ** -0.5
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kvh = m.qk_nope_head_dim + m.v_head_dim
+    return {
+        "w_dq": normal(gen, (d, m.q_lora_rank), s, dtype, device),
+        "w_uq": normal(gen, (m.q_lora_rank, h * qh), m.q_lora_rank ** -0.5, dtype, device),
+        "w_dkv": normal(gen, (d, m.kv_lora_rank), s, dtype, device),
+        "w_kr": normal(gen, (d, m.qk_rope_head_dim), s, dtype, device),
+        "w_ukv": normal(gen, (m.kv_lora_rank, h * kvh), m.kv_lora_rank ** -0.5, dtype, device),
+        "wo": normal(gen, (h * m.v_head_dim, d), (h * m.v_head_dim) ** -0.5, dtype, device),
+    }
+
+
+def mla_attention(params, x, cfg, *, positions, cache=None, cache_len=None, impl="auto"):
+    """MLA over the compressed (c_kv, k_rope) cache. Returns (out, new_cache | None).
+
+    cache: dict(c_kv (B,S,r), k_rope (B,S,rope)).  With T == 1 the step
+    appends at ``cache_len`` and attends over the cache; otherwise it is a
+    prefill that attends over x and writes its c_kv and k_rope into the
+    cache."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    q = ((x @ params["w_dq"]) @ params["w_uq"]).reshape(b, t, h, nope + rope).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rotary(q_rope, positions[:, None, :], cfg.rope_theta)
+
+    c_kv = x @ params["w_dkv"]                          # (B,T,r)
+    k_rope = rotary((x @ params["w_kr"])[:, None], positions[:, None, :],
+                    cfg.rope_theta)[:, 0]               # (B,T,rope), one shared head
+
+    new_cache = None
+    if cache is not None and t == 1:
+        pos = cache_len
+        c_full, r_full = cache["c_kv"], cache["k_rope"]
+        c_full[:, pos:pos + 1] = c_kv
+        r_full[:, pos:pos + 1] = k_rope
+        new_cache = {"c_kv": c_full, "k_rope": r_full}
+        if cfg.mla_absorb:      # mla_cp_decode too: one rank, the same function
+            out = _mla_absorbed_decode(params, cfg, q_nope, q_rope, c_full, r_full, pos)
+            return out @ params["wo"], new_cache
+        c_kv, k_rope = c_full, r_full
+    elif cache is not None:     # prefill into the cache
+        cache["c_kv"][:, :t] = c_kv
+        cache["k_rope"][:, :t] = k_rope
+        new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}
+
+    k, v = _expand_kv(params, cfg, c_kv, k_rope)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+
+    if t == 1 and cache is not None:
+        out = decode_attention(q_full, k, v, cache_len + 1)
+    else:
+        if vdim > nope + rope:
+            raise NotImplementedError(f"MLA prefill: v_head_dim {vdim} wider than the qk "
+                                      f"head dim {nope + rope}")
+        # one head dim for the kernel: V's zero columns add nothing to O
+        v = F.pad(v, (0, nope + rope - vdim))
+        out = ops.flash_attention(q_full, k, v, causal=True, impl=impl,
+                                  probs_bf16=cfg.attn_probs_bf16)[..., :vdim]
+    out = out.transpose(1, 2).reshape(b, t, h * vdim)
+    return out @ params["wo"], new_cache
+
+
+def _expand_kv(params, cfg, c_kv, k_rope):
+    """K (B,H,S,nope+rope) and V (B,H,S,v) of every head, expanded from the
+    compressed c_kv (B,S,r) through ``w_ukv`` in the model's dtype, with
+    the shared k_rope (B,S,rope) broadcast over the heads."""
+    m = cfg.mla
+    b, s_len, _ = c_kv.shape
+    h, nope = cfg.n_heads, m.qk_nope_head_dim
+    kv = (c_kv @ params["w_ukv"]).reshape(b, s_len, h, nope + m.v_head_dim).transpose(1, 2)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, None].expand(b, h, s_len, m.qk_rope_head_dim)], dim=-1)
+    return k, v
+
+
+def _absorbed(params, cfg, q_nope, q_rope):
+    """The per-head weights split out of ``w_ukv`` and the queries taken
+    into the latent space, in float32: (q_lat (B,H,r), q_rope (B,H,rope),
+    W_uv (r,H,v), the score scale)."""
+    m = cfg.mla
+    h, nope = q_nope.shape[1], q_nope.shape[3]
+    w_full = params["w_ukv"].reshape(m.kv_lora_rank, h, nope + m.v_head_dim)
+    w_uk, w_uv = w_full[:, :, :nope], w_full[:, :, nope:]
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, :, 0].float(), w_uk.float())
+    return (q_lat, q_rope[:, :, 0].float(), w_uv.float(),
+            (nope + m.qk_rope_head_dim) ** -0.5)
+
+
+def _mla_absorbed_decode(params, cfg, q_nope, q_rope, c_kv, k_rope, pos: int):
+    """Latent-space MLA decode (weight absorption), the port of
+    ``repro/models/attention.py:407-438``.
+
+    q_nope (B,H,1,nope), q_rope (B,H,1,rope); cache c_kv (B,S,r), k_rope
+    (B,S,rope) holding slots ``0..pos``.  Scores: q_nope^T (W_uk c) =
+    (W_uk^T q_nope)^T c, so the queries are projected down once and the
+    cache is used as it is; the context is accumulated in the latent space
+    and expanded once.  Returns (B, 1, H*vdim)."""
+    q_lat, qr, w_uv, scale = _absorbed(params, cfg, q_nope, q_rope)
+    cf = c_kv.float()
+    s = torch.einsum("bhr,bsr->bhs", q_lat, cf)
+    s = s + torch.einsum("bhp,bsp->bhs", qr, k_rope.float())
+    seen = torch.arange(c_kv.shape[1], device=c_kv.device) <= pos
+    s = (s * scale).masked_fill(~seen, _NEG)
+    ctx = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), cf)
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
+    return out.reshape(q_nope.shape[0], 1, -1).to(q_nope.dtype)

@@ -54,7 +54,10 @@ def mlp(params: dict, x: torch.Tensor, activation: str = "swiglu") -> torch.Tens
 
 
 def normal(gen: torch.Generator, shape: tuple, scale: float, dtype, device) -> torch.Tensor:
-    """``N(0, 1) * scale`` drawn in float32 from ``gen``, then cast."""
+    """``N(0, 1) * scale`` drawn in float32 from ``gen``, then cast (on the
+    ``meta`` device, the shape and dtype alone)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 

@@ -1,12 +1,13 @@
-"""Model assembly: the dense decoder-only LM and its serving path.
+"""Model assembly: the decoder-only LM and its serving path.
 
 The port of ``repro/models/lm.py`` for the layer kinds ``g`` (global
-attention) and ``l`` (sliding-window attention), dense or MoE
+attention) and ``l`` (sliding-window attention), GQA or MLA, dense or MoE
 (``models/moe.py``, after the ``first_k_dense`` prefix): ``init_params``,
-``cache_init``, ``forward``, ``prefill`` and ``decode_step``, with the
-JAX package's quirks kept (the ``sqrt(d_model)`` embedding scale taken in
-the model's dtype, the padded vocab rows masked to ``-1e30``, the cache's
-``pos`` bookkeeping).
+``abstract_params`` and the two exact parameter counts, ``cache_init``,
+``forward``, ``prefill`` and ``decode_step``, with the JAX package's
+quirks kept (the ``sqrt(d_model)`` embedding scale taken in the model's
+dtype, the padded vocab rows masked to ``-1e30``, the cache's ``pos``
+bookkeeping).
 
 Parameters are a dict: ``embed`` (padded_vocab, D), ``final_norm``,
 ``lm_head`` when the embeddings are untied, and ``layers``, one dict per
@@ -15,11 +16,15 @@ JAX package stacks its repeating units on a leading axis for ``scan``;
 ``repro_torch.interop.lm_params_from_numpy`` unstacks them.  The layer
 loop is a Python loop (no scan, no remat).  MoE layers dispatch on a
 ``SerialBackend`` (one rank): a model axis over several ranks waits for
-the multi-rank LM (ROADMAP Queue 3).
+the multi-rank LM (ROADMAP Queue 1 item 6.2).  An MLA layer's cache is
+``{c_kv, k_rope}``.  With ``cfg.mtp`` the parameters carry the MTP head
+(``mtp_block``, ``mtp_norm``, ``mtp_proj``); as in the JAX package only
+``loss_fn`` applies it, so serving carries it unused, and applying it
+waits for item 7 with ``loss_fn``.
 
-MLA, the SSM kinds, the shared-attention kind ``a``, encoder-decoder,
-frontends and MTP raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 6; ``loss_fn`` and training wait for item 7.
+The SSM kinds, the shared-attention kind ``a``, encoder-decoder and
+frontends raise ``NotImplementedError`` naming ROADMAP Queue 1 item 6;
+``loss_fn`` and training wait for item 7.
 """
 
 from __future__ import annotations
@@ -43,8 +48,6 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM cannot run yet."""
     waits = []
-    if cfg.mla is not None:
-        waits.append("MLA")
     if cfg.ssm is not None or set(cfg.layer_pattern) - set("gl"):
         waits.append(f"layer kinds {sorted(set(cfg.layer_pattern) - set('gl'))} (SSM, "
                      "shared attention)")
@@ -52,8 +55,6 @@ def check_supported(cfg: ArchConfig) -> None:
         waits.append("encoder-decoder")
     if cfg.frontend is not None:
         waits.append("frontends")
-    if cfg.mtp:
-        waits.append("MTP")
     if waits:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(waits)} wait for ROADMAP Queue 1 item 6")
@@ -74,8 +75,9 @@ def _layer_is_moe(cfg: ArchConfig, layer_idx: int) -> bool:
 
 def _block_init(gen, cfg, dtype, device, moe_layer: bool) -> dict:
     d = cfg.d_model
+    init = attn_mod.mla_init if cfg.mla is not None else attn_mod.attn_init
     p = {"ln1": torch.ones(d, dtype=dtype, device=device),
-         "attn": attn_mod.attn_init(gen, cfg, dtype, device),
+         "attn": init(gen, cfg, dtype, device),
          "ln2": torch.ones(d, dtype=dtype, device=device)}
     if moe_layer:
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
@@ -84,8 +86,9 @@ def _block_init(gen, cfg, dtype, device, moe_layer: bool) -> dict:
     return p
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
-    """Random parameters from ``gen`` (a generator on ``device``).
+def init_params(cfg: ArchConfig, gen: torch.Generator | None, device) -> dict:
+    """Random parameters from ``gen`` (a generator on ``device``; on the
+    ``meta`` device, shapes and dtypes only, and ``gen`` may be None).
 
     The same shapes, scales and dtypes as the JAX package's
     ``init_params``; the draws differ (carry JAX parameters across with
@@ -99,17 +102,61 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
         params["lm_head"] = L.normal(gen, (v, d), d ** -0.5, dtype, device)
     params["layers"] = [_block_init(gen, cfg, dtype, device, _layer_is_moe(cfg, i))
                         for i in range(cfg.n_layers)]
+    if cfg.mtp:
+        params["mtp_block"] = _block_init(gen, cfg, dtype, device, False)
+        params["mtp_norm"] = torch.ones(d, dtype=dtype, device=device)
+        params["mtp_proj"] = L.normal(gen, (2 * d, d), (2 * d) ** -0.5, dtype, device)
     return params
 
 
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameters' shapes and dtypes without allocation: ``init_params``
+    on the ``meta`` device."""
+    return init_params(cfg, None, torch.device("meta"))
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, (*path, k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, (*path, i))
+    else:
+        yield path, tree
+
+
+def param_count_exact(cfg: ArchConfig) -> int:
+    return sum(t.numel() for _, t in _leaves(abstract_params(cfg)))
+
+
+def active_param_count_exact(cfg: ArchConfig) -> int:
+    """Active per-token params: non-expert params + top_k+shared experts."""
+    leaves = list(_leaves(abstract_params(cfg)))
+    total = sum(t.numel() for _, t in leaves)
+    if not cfg.moe:
+        return total
+    expert_total = sum(t.numel() for path, t in leaves if "experts" in path)
+    mo = cfg.moe
+    return int(total - expert_total * (1 - mo.top_k / mo.n_experts))
+
+
 def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
-    """Zeroed K/V caches, one per layer; ``window_cache`` caps an ``l``
-    layer's cache at the window (a ring)."""
+    """Zeroed caches, one per layer: K/V, with ``window_cache`` capping an
+    ``l`` layer's at the window (a ring); an MLA layer's ``c_kv`` and
+    ``k_rope``."""
     check_supported(cfg)
     dtype = dtype_of(cfg)
     hd, nkv = cfg.head_dim, cfg.n_kv_heads
     layers = []
     for i in range(cfg.n_layers):
+        if cfg.mla is not None:
+            m = cfg.mla
+            layers.append({"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                                               device=device),
+                           "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
+                                                 dtype=dtype, device=device)})
+            continue
         s_len = cache_len
         if (cfg.window_cache and kind_at(cfg, i) == "l" and cfg.sliding_window
                 and cfg.sliding_window < cache_len):
@@ -128,9 +175,13 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, cache=None, cache_len=None
     """Pre-norm block. Returns (x, new_cache)."""
     window = cfg.sliding_window if kind == "l" else 0
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    o, new_cache = attn_mod.attention(bp["attn"], h, cfg, positions=positions, causal=True,
-                                      window=window, cache=cache, cache_len=cache_len,
-                                      impl=impl)
+    if cfg.mla is not None:
+        o, new_cache = attn_mod.mla_attention(bp["attn"], h, cfg, positions=positions,
+                                              cache=cache, cache_len=cache_len, impl=impl)
+    else:
+        o, new_cache = attn_mod.attention(bp["attn"], h, cfg, positions=positions,
+                                          causal=True, window=window, cache=cache,
+                                          cache_len=cache_len, impl=impl)
     x = x + o
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:

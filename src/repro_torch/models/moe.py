@@ -47,6 +47,8 @@ def _experts(gen, n: int, shape: tuple, scale: float, dtype, device) -> torch.Te
     preallocated tensor of ``dtype``, so the float32 draw of the whole
     stack never exists."""
     out = torch.empty((n, *shape), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for i in range(n):
         out[i] = L.normal(gen, shape, scale, dtype, device)
     return out

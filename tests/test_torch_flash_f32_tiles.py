@@ -14,8 +14,12 @@ truncation); each product is taken as ``lo*hi + hi*lo + hi*hi`` in
 float32.  It is held against the JAX oracle
 ``ref.flash_attention_ref``, the Pallas kernel in interpret mode and
 ``flash_attention_plain`` at the card's float32 gate, ``atol = rtol =
-3e-5``.  One TF32 pass alone (``passes=1``) breaks that gate.  Inputs
-come from numpy with a seed.  Run as a script, it prints the largest
+3e-5``.  One TF32 pass alone (``passes=1``) breaks that gate.  The
+``probs_bf16`` instances (P and V rounded to bf16, P V in one exact TF32
+pass) are held against ``flash_attention_plain(probs_bf16=True)`` at that
+gate plus ``2**-8`` of the attention-weighted mean of ``|V|``: each side
+rounds each probability to bf16 against its own running max (2**-9 of it
+at most).  Inputs come from numpy with a seed.  Run as a script, it prints the largest
 error against the plain version with three passes and with one.
 """
 
@@ -33,11 +37,13 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 
 TOL = 3e-5
+#: the probs_bf16 allowance, in units of the weighted mean of |V| (two bf16 roundings)
+PROBS_BF16_RTOL = 2.0 ** -8
 BQ = 64           # query rows a CTA
 # (widest head dim, keys a tile, two warps on each 16 rows): the kernel's
 # instances, in the order of the source's table (f32::with_instance)
 INSTANCES = [(int(dp), int(bk), split == "true") for dp, bk, split in re.findall(
-    r"flash_fwd_tf32<Cfg<(\d+), (\d+), (true|false)>>",
+    r"flash_fwd_tf32<Cfg<(\d+), (\d+), (true|false), PB>>",
     (Path(tfa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text())]
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on the H100
 
@@ -100,8 +106,11 @@ def _pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-def emulate(q, k, v, causal: bool = True, window: int = 0, passes: int = 3):
-    """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) float32 -> (B,Hq,Tq,D), as the kernel computes.
+def emulate(q, k, v, causal: bool = True, window: int = 0, passes: int = 3,
+            probs_bf16: bool = False):
+    """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) float32 -> (B,Hq,Tq,D), as the kernel computes
+    (``probs_bf16``: the P V product of bf16(P) and bf16(V), exact products
+    summed in float32).
 
     Also asserts the kernel's tile bookkeeping: the key tiles it skips hold
     no key a real query row sees, and the tiles it does not mask hide none.
@@ -154,7 +163,11 @@ def emulate(q, k, v, causal: bool = True, window: int = 0, passes: int = 3):
             p = torch.where(s == -math.inf, 0.0, torch.exp2(s * scale_log2 - m_ref))
             l = l * alpha + p.sum(-1, keepdim=True)
             m = m_new
-            o = o * alpha + product(p, vf[:, :, k0:k0 + bk], passes)
+            if probs_bf16:
+                pv = p.bfloat16().float() @ vf[:, :, k0:k0 + bk].bfloat16().float()
+            else:
+                pv = product(p, vf[:, :, k0:k0 + bk], passes)
+            o = o * alpha + pv
         out[:, :, q0:q0 + BQ] = o / l.clamp_min(1e-30)
     return out[:, :, :tq, :d]
 
@@ -223,6 +236,24 @@ def test_one_tf32_pass_breaks_the_gate():
     assert _close(emulate(q, k, v, causal=True), plain)[1]
     err, ok = _close(emulate(q, k, v, causal=True, passes=1), plain)
     assert not ok and err > 10 * TOL, err
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", [
+    (1, 4, 4, 150, 150, 24, True, 0),       # reduced deepseek-v3's MLA call (V padded)
+    (1, 2, 1, 200, 200, 128, True, 60)])    # a window
+def test_emulated_probs_bf16_vs_plain(b, hq, hkv, tq, tk, d, causal, window):
+    q, k, v = _inputs(b * 31 + tq + d, b, hq, hkv, tq, tk, d)
+    if d == 24:
+        v[..., 16:] = 0.0
+    got = emulate(q, k, v, causal=causal, window=window, probs_bf16=True)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window, probs_bf16=True)
+    weighted = tfa.flash_attention_plain(q, k, v.abs(), causal=causal, window=window)
+    diff = (got - want).abs()
+    assert bool((diff <= TOL + TOL * want.abs() + PROBS_BF16_RTOL * weighted).all()), \
+        float(diff.max())
+    # the flag is not the 3xTF32 function: the float32 gate alone breaks
+    assert not _close(got, tfa.flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window))[1]
 
 
 def test_tf32_rounds_to_nearest_ties_away():

@@ -10,8 +10,13 @@ P_lo``, and the zero fill of TMA past Tq, Tk and D.  It
 is held against the JAX oracle ``ref.flash_attention_ref`` and against
 ``flash_attention_plain`` at the card's elementwise bf16 gate,
 ``|x - want| <= 2**-7 |want| + 1e-4``.  Inputs come from numpy with a
-seed.  Run as a script, it prints the largest error against the plain
-version with the split of P and without it (P rounded once to bf16).
+seed.  Without the split (P rounded once to bf16) it is the
+``probs_bf16`` instance, held against
+``flash_attention_plain(probs_bf16=True)`` at that gate plus ``2**-8`` of
+the attention-weighted mean of ``|V|`` (each side rounds each probability
+to bf16 against its own running max).  Run as a script, it prints the
+largest error against the plain version with the split of P and without
+it.
 """
 
 import math
@@ -25,6 +30,8 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 
 RTOL, ATOL = 2.0 ** -7, 1e-4
+#: the probs_bf16 allowance, in units of the weighted mean of |V| (two bf16 roundings)
+PROBS_BF16_RTOL = 2.0 ** -8
 
 # (head dims up to, query rows a CTA, keys a tile): the kernel's instances
 INSTANCES = [(64, 128, 128), (128, 128, 128), (192, 128, 64), (256, 128, 64), (320, 64, 64)]
@@ -160,6 +167,20 @@ def test_rounding_p_once_breaks_the_gate():
     plain = tfa.flash_attention_plain(q, k, v, causal=True)
     assert _err(emulate(q, k, v, causal=True), plain)[1]
     assert not _err(emulate(q, k, v, causal=True, split=False), plain)[1]
+
+
+def test_emulated_probs_bf16_vs_plain():
+    """deepseek-v3's MLA prefill call in miniature: D = 192 (nope 128 +
+    rope 64), V's 128 columns zero-padded to 192, 64-key tiles."""
+    q, k, v = _inputs(19, 1, 4, 4, 300, 300, 192)
+    v[..., 128:] = 0
+    got = emulate(q, k, v, causal=True, split=False).float()
+    want = tfa.flash_attention_plain(q, k, v, causal=True, probs_bf16=True).float()
+    weighted = tfa.flash_attention_plain(q.float(), k.float(), v.float().abs(), causal=True)
+    diff = (got - want).abs()
+    assert bool((diff <= ATOL + RTOL * want.abs() + PROBS_BF16_RTOL * weighted).all()), \
+        float(diff.max())
+    assert not bool(got[..., 128:].any())
 
 
 def test_instances_cover_every_head_dim():

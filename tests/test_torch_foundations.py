@@ -132,8 +132,12 @@ def test_ragged_offsets_matches_jax():
         assert toc.ragged_offsets(widths) == joc.ragged_offsets(widths)
 
 
+@pytest.mark.parametrize("chunk_words", [1 << 25, 9], ids=["one_chunk", "two_rows_a_chunk"])
 @pytest.mark.parametrize("with_widths", [False, True])
-def test_scatter_rows_matches_jax(with_widths):
+def test_scatter_rows_matches_jax(with_widths, chunk_words, monkeypatch):
+    """Also when the rows are placed a few at a time (the plain version
+    bounds its index arrays on wide MoE waves)."""
+    monkeypatch.setattr(toc, "_SCATTER_WORDS", chunk_words)
     rng = np.random.default_rng(5)
     total, n, w = 200, 60, 4
     flat = _u32(rng, (total,))
@@ -204,6 +208,7 @@ def _imports(path: pathlib.Path):
 
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_hashmap.py",
+                 ROOT / "scripts" / "torch_flash_ab.py",
                  ROOT / "examples" / "torch_quickstart.py",
                  ROOT / "examples" / "torch_isx_sort.py",
                  ROOT / "examples" / "torch_genome_assembly.py"])

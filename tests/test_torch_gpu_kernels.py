@@ -12,6 +12,9 @@ bit equality.  Flash attention is float: float32 at ``atol = rtol = 3e-5``
 version's whole-row softmax), bf16 within one bf16 ulp of each element
 (``atol = 1e-4``, ``rtol = 2**-7``: both versions accumulate in float32 and
 round once, so an element moves by at most one ulp of its own size).
+With ``probs_bf16`` both sides round each probability to bf16 against
+their own running max, so the gate gains ``2**-8`` of the
+attention-weighted mean of ``|V|``.
 """
 
 import numpy as np
@@ -463,25 +466,35 @@ def test_histogram_unaligned(dev):
     _eq(binning.histogram(bins, 3, valid), binning.histogram_plain(bins, 3, valid))
 
 
-def _close_attention(got, want):
+def _close_attention(got, want, weighted=None):
+    """``weighted``: the attention-weighted mean of |V| (probs_bf16 calls)."""
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     g, w = got.float(), want.float()
-    if got.dtype == torch.float32:
+    if weighted is not None:
+        atol, rtol = (3e-5, 3e-5) if got.dtype == torch.float32 else (1e-4, 2.0 ** -7)
+        diff = (g - w).abs()
+        assert bool((diff <= atol + rtol * w.abs() + 2.0 ** -8 * weighted.float()).all()), \
+            float(diff.max())
+    elif got.dtype == torch.float32:
         torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
     else:
         # both accumulate in float32 and round once: one bf16 ulp of the element
         torch.testing.assert_close(g, w, atol=1e-4, rtol=2.0 ** -7)
 
 
-def _launched(dtype, call):
-    """Run ``call``; assert it launched the dtype's route once and the other never."""
-    route, other = ((fa._FLASH, fa._FLASH_F32) if dtype == torch.bfloat16
-                    else (fa._FLASH_F32, fa._FLASH))
+def _launched(dtype, call, probs_bf16=False):
+    """Run ``call``; assert it launched the dtype's route once and the other
+    never, and that the instance launched has the ``probs_bf16`` flag given."""
+    bf16 = dtype == torch.bfloat16
+    route, other = (fa._FLASH, fa._FLASH_F32) if bf16 else (fa._FLASH_F32, fa._FLASH)
     before, before_other = route.launches, other.launches
     out = call()
     assert route.launches == before + 1 and other.launches == before_other
+    rows = fa.bf16_instances() if bf16 else fa.f32_instances()
+    i = fa.last_instance["bf16" if bf16 else "f32"]
+    assert 0 <= i < len(rows) and rows[i]["probs_bf16"] == probs_bf16, (i, rows)
     return out
 
 
@@ -512,6 +525,38 @@ def test_flash_attention_kernel(dev, dtype, b, hq, hkv, tq, tk, d, causal, windo
     v = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
     got = _launched(dtype, lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
     _close_attention(got, fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", [
+    (2, 8, 8, 200, 200, 192, True, 0),       # MLA's call: nope 128 + rope 64, V padded
+    (2, 4, 4, 70, 70, 24, True, 0),          # reduced deepseek-v3's (nope 16 + rope 8)
+    (1, 8, 2, 257, 257, 128, True, 64),      # GQA with a window
+    (1, 4, 2, 150, 150, 320, False, 0)])     # the widest instance
+def test_flash_attention_probs_bf16(dev, dtype, b, hq, hkv, tq, tk, d, causal, window):
+    """``probs_bf16`` runs the flag's instances of each route once, and
+    its output is not the route's output without the flag: float32 differs
+    beyond the route's own gate, bf16 (P's rounding alone) not bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(b * 100 + tq + d)
+    q = torch.randn((b, hq, tq, d), generator=g).to(dev, dtype)
+    k = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
+    v = torch.randn((b, hkv, tk, d), generator=g).to(dev, dtype)
+    if d in (192, 24):
+        v[..., d * 2 // 3:] = 0
+    got = _launched(dtype, lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                                      probs_bf16=True), probs_bf16=True)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, probs_bf16=True)
+    weighted = fa.flash_attention_plain(q.float(), k.float(), v.float().abs(), causal=causal,
+                                        window=window)
+    _close_attention(got, want, weighted)
+    if d in (192, 24):
+        assert not bool(got[..., d * 2 // 3:].any())
+    unflagged = fa.flash_attention(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        diff = (got - unflagged).abs()
+        assert not bool((diff <= 3e-5 + 3e-5 * unflagged.abs()).all()), float(diff.max())
+    else:
+        assert not torch.equal(got, unflagged)
 
 
 def _strided_views(dev, dtype):
@@ -566,9 +611,10 @@ def test_flash_attention_f32_instances_spill_nothing(dev):
     """Every instance of the float32 route keeps its state in registers,
     and its shared memory fits a block."""
     rows = fa.f32_instances()
-    widths = [r["max_d"] for r in rows]
-    assert widths == sorted(set(widths)) and widths[-1] == fa.MAX_HEAD_DIM
-    assert all(w % 16 == 0 for w in widths)
+    for flag in (False, True):
+        widths = [r["max_d"] for r in rows if r["probs_bf16"] == flag]
+        assert widths == sorted(set(widths)) and widths[-1] == fa.MAX_HEAD_DIM
+        assert all(w % 16 == 0 for w in widths)
     for r in rows:
         assert r["local_bytes"] == 0 and 0 < r["registers"] <= 255, r
         assert r["smem_bytes"] <= 232448, r

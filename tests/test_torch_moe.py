@@ -230,12 +230,6 @@ def test_serve_cli_arctic(capsys):
     assert out[0].startswith("served 3 requests, 9 tokens in ")
 
 
-def test_mla_still_raises():
-    cfg = tcfg.reduced(tcfg.get_config("deepseek-v3-671b"))
-    with pytest.raises(NotImplementedError, match="MLA.* wait for ROADMAP Queue 1 item 6"):
-        tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_params_round_trip_and_rank_slices(dtype):
     """The MoE leaves survive JAX -> port -> JAX; each rank's slice holds
