@@ -6,7 +6,7 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build the kernels from the four sources in src/repro_torch/csrc, one
+  2. build the kernels from the five sources in src/repro_torch/csrc, one
      nvcc per source, all at once (ptxas registers and spills of every
      kernel; registers, local bytes and shared memory of each instance of
      both flash_attention routes, without and with probs_bf16, as the card
@@ -33,7 +33,9 @@ Phases, each fatal on failure:
      D=192 with V's 128 columns zero-padded to 192, as mla_attention pads
      them), the same with probs_bf16 (the bf16 route's instance without
      the P_lo pass), and the float32 kernel-phase call with probs_bf16
-     (one exact TF32 P V pass)) elementwise
+     (one exact TF32 P V pass), and zamba2-7b's shared-attention prefill
+     call (32 heads of D=112, 2048 tokens: the D<=128 bf16 instance on its
+     operands as they are, no padded copy)) elementwise
      (bf16 within one ulp of each element, float32 at 3e-5;
      attention_close; a probs_bf16 call also 2**-8 of the attention-weighted
      mean of |V|, since each side rounds P against its own running max, so
@@ -158,20 +160,44 @@ Phases, each fatal on failure:
      decode step by role (MLA projections, K/V expansion, flash, decode
      attention, router, the wire kernels, expert bmm, shared expert, dense
      MLP, the rest) with mla_absorb off and on, and the cell's seconds;
+  9c. the recurrent serving cells, each at full width and depth in bf16
+     with the qwen3-4b cell's traffic: zamba2-7b (81 layers, 68 Mamba2 and
+     13 shared-attention layers `mmmmma`, d_model 3584, d_state 64, 32
+     heads of 112; 5.62 B parameters) and rwkv6-1.6b (24 RWKV-6 layers,
+     d_model 2048, head 64; 1.58 B): serve with the kernels (each mixer's
+     scan one mamba_scan or rwkv_scan launch a layer and call, the shared
+     attention's prefill the bf16 flash route; launches counted exactly)
+     and the plain run teacher-forced, logits within SERVE_REL_L2, the
+     state carry (decode step 1 and gen against a prefill of the prompt
+     and the tokens) within SERVE_REL_L2; the first mixer layer's scan
+     calls of wave 0 (its prefill call, the largest, and its first decode
+     call) held kernel vs plain, output and final state, within
+     SCAN_REL_L2, timed beside the plain loop and the bound, with planted
+     faults (the decay applied after the update; RWKV's bonus dropped) that
+     must break that check by FAULT_FACTOR; then the device time of one
+     prefill wave and one decode step by role (in/out projections, scan
+     kernel, mixer glue, shared attention, flash, MLP, channel mix, head,
+     the rest);
   10. float32 serve phase: repro_torch.launch.serve.main, as a user runs
      it, with the JAX package's own float32 configurations (--arch
      qwen3-4b --reduced, gemma3-4b --reduced, whose local layers carry a
      16-key window, arctic-480b --reduced, whose MoE layers dispatch
-     over the exchange, and deepseek-v3-671b --reduced, MLA at D=24 with
-     V padded from 16 and MoE): its prefills run flash_attention_f32 once
-     per layer and wave and never the bf16 route (the MoE models' dispatch
-     also launches the wire kernels, counted exactly); each layer's prefill
-     call of wave 0, captured as the run made it, is held against the
-     plain version on its inputs elementwise at 3e-5 (attention_close);
-     a plain run of the same model and prompts, teacher-forced with its
-     tokens, gives logits within F32_SERVE_REL_L2 of it at every step;
-     a control run with Q, K and V rounded to TF32 before the kernel
-     (one TF32 pass) must break both checks.
+     over the exchange, deepseek-v3-671b --reduced, MLA at D=24 with V
+     padded from 16 and MoE, zamba2-7b --reduced, five Mamba2 layers and a
+     shared-attention one, and rwkv6-1.6b --reduced): its prefills run
+     flash_attention_f32 once per attention layer and wave and never the
+     bf16 route, the scans once per mixer layer and call (the MoE models'
+     dispatch also launches the wire kernels, counted exactly); each
+     attention layer's prefill call of wave 0, captured as the run made
+     it, is held against the plain version on its inputs elementwise at
+     3e-5 (attention_close); a plain run of the same model and prompts,
+     teacher-forced with its tokens, gives logits within F32_SERVE_REL_L2
+     of it at every step; a control run with Q, K and V rounded to TF32
+     before the kernel (one TF32 pass) must break both checks; for the
+     recurrent models the state carry (a prefill and a decode step against
+     a prefill of one more token) holds within F32_SERVE_REL_L2, and a
+     fault planted at decode (the conv state zeroed; RWKV's prev dropped)
+     must break it by FAULT_FACTOR.
 Each path runs through the port's entry points (the containers on a
 SerialBackend), with the kernels (launch counts reset just before, read
 just after) and with the plain versions; the two runs must pass the
@@ -220,7 +246,7 @@ from repro_torch.core.u32 import as_u64, to_i32  # noqa: E402
 from repro_torch.data import Deduper, DedupSpec, TokenStream  # noqa: E402
 from repro_torch.data import genomics as gen  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.kernels import binning, bloom_kernel, build, hash_probe  # noqa: E402
+from repro_torch.kernels import binning, bloom_kernel, build, hash_probe, ssm_scan  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ops import MODE_ADD  # noqa: E402
@@ -229,6 +255,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (float32)
@@ -279,6 +306,12 @@ DS_FULL = dict(arch="deepseek-v3-671b", reduced=False, layers=4, requests=16, ba
                prompt_len=1024, gen=16)
 DS_REHEARSAL = dict(arch="deepseek-v3-671b", reduced=True, layers=2, requests=4, batch=2,
                     prompt_len=24, gen=4)
+# the recurrent serving cells at full width and depth, the qwen3-4b cell's
+# traffic: zamba2-7b (68 Mamba2 layers, 13 shared-attention layers) and rwkv6-1.6b
+SSM_FULL = (dict(arch="zamba2-7b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32),
+            dict(arch="rwkv6-1.6b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32))
+SSM_REHEARSAL = (dict(arch="zamba2-7b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4),
+                 dict(arch="rwkv6-1.6b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4))
 #: relative L2 error allowed between two bf16 runs' logits.  Two bf16
 #: computations of the 36-layer model that differ in any rounding drift
 #: apart to ~2.3e-2 (kernel vs plain prefill with identical GEMMs, the
@@ -321,6 +354,7 @@ FLASH_FULL = {
     "deepseek_prefill": (8, 128, 128, 1024, 1024, 192, True, 0, BF16),
     "deepseek_prefill_probs_bf16": (8, 128, 128, 1024, 1024, 192, True, 0, BF16),
     "f32_probs_bf16": (2, 16, 4, 777, 777, 128, True, 0, F32),
+    "zamba2_prefill": (8, 32, 32, 2048, 2048, 112, True, 0, BF16),
 }
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
@@ -338,14 +372,18 @@ FLASH_REHEARSAL = {
     "deepseek_prefill": (2, 4, 4, 24, 24, 24, True, 0, BF16),
     "deepseek_prefill_probs_bf16": (2, 4, 4, 24, 24, 24, True, 0, BF16),
     "f32_probs_bf16": (1, 4, 2, 37, 37, 16, True, 0, F32),
+    "zamba2_prefill": (2, 4, 4, 40, 40, 112, True, 0, BF16),
 }
 #: cases' options: ``v_cols``, V's real columns (MLA pads V with zeros to
 #: the qk head dim, as ``attention.mla_attention`` does: deepseek-v3's 128 of
-#: 192, the reduced config's 16 of 24); ``probs_bf16``, the flag's instances
+#: 192, the reduced config's 16 of 24); ``probs_bf16``, the flag's instances;
+#: ``instance_d``, the head dim of the instance the call must launch, its
+#: operands read as they are (zamba2-7b's D=112, a multiple of 8: no padded copy)
 FLASH_OPTIONS = {
     "deepseek_prefill": dict(v_cols=2 / 3),
     "deepseek_prefill_probs_bf16": dict(v_cols=2 / 3, probs_bf16=True),
     "f32_probs_bf16": dict(probs_bf16=True),
+    "zamba2_prefill": dict(instance_d=128),
 }
 
 # name -> (module, wrapper, plain, source, TPU kernel it replaces)
@@ -387,6 +425,11 @@ KERNELS = {
     "flash_attention_f32": (fa, "flash_attention", "flash_attention_plain",
                             "src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:82"),
+    # no TPU kernel: the recurrent mixers' lax.scan bodies, one launch a layer and call
+    "mamba_scan": (ssm_scan, "mamba_scan", "mamba_scan_plain", "src/repro_torch/csrc/ssm_scan.cu",
+                   "src/repro/models/ssm.py:98"),
+    "rwkv_scan": (ssm_scan, "rwkv_scan", "rwkv_scan_plain", "src/repro_torch/csrc/ssm_scan.cu",
+                  "src/repro/models/ssm.py:183"),
 }
 #: the kernels each path runs
 HASHMAP_KERNELS = ("bin_offsets", "bin_csr", "pack_rows", "place_rows", "insert_arrivals",
@@ -394,18 +437,22 @@ HASHMAP_KERNELS = ("bin_offsets", "bin_csr", "pack_rows", "place_rows", "insert_
 GENOMICS_KERNELS = HASHMAP_KERNELS + ("insert", "find", "membership", "hash_words")
 EXT_KERNELS = HASHMAP_KERNELS + ("row_mix",)
 DEDUP_KERNELS = HASHMAP_KERNELS + ("hash_words", "membership")
-SERVING_KERNELS = ("flash_attention",)
 #: the exchange wire's binning and pack (the wire split's kernels)
 WIRE_KERNELS = ("bin_offsets", "pack_rows")
 #: kernels no path reaches (the kernel phase derives their inputs)
 OFF_PATH = ("ragged_slots", "histogram")
-#: the float kernels: held at a tolerance on the cases above (and the float32 serve
-#: phase's own calls), not on the paths' captured calls
-FLOAT_KERNELS = ("flash_attention", "flash_attention_f32")
+#: the recurrent mixers' scans (held on the recurrent cells' own calls)
+SCAN_KERNELS = ("mamba_scan", "rwkv_scan")
+#: the float kernels: held at a tolerance on the cases above, the float32 serve
+#: phase's own calls and the scans' calls, not on the container paths' captured calls
+FLOAT_KERNELS = ("flash_attention", "flash_attention_f32", *SCAN_KERNELS)
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
 #: the flash_attention cases timed beside scaled_dot_product_attention
 SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill", *FLASH_OPTIONS)
+#: a kernels-line row's keys that stay in the phase's own printed lines
+ROW_DETAIL = ("shape", "tol", "sdpa_ratio", "regime", "cuda_core_ms", "device_ms", "rel_l2",
+              "state_equal")
 
 
 def check(cond: bool, what: str) -> None:
@@ -1154,11 +1201,10 @@ def dedup_roles() -> dict:
 
 
 #: the wire kernels' device functions by role: their C entry points launch
-#: them (and their memsets) outside any PyTorch op, so the profiler links
-#: them to no host call and they are told apart by name
+#: them outside any PyTorch op, so they are told apart by name (their
+#: memsets count with the role around the call)
 WIRE_DEVICE_NAMES = (("bo_rank_tiles", "bin_offsets"), ("pack_rows_kernel", "pack_rows"),
-                     ("place_rows_kernel", "place_rows"), ("copy_words", "place_rows"),
-                     ("Memset", "wire memsets"))
+                     ("place_rows_kernel", "place_rows"), ("copy_words", "place_rows"))
 
 
 #: the ctypes-launched kernels of an observe by name (the profiler links
@@ -1836,6 +1882,13 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
             ran = {n: c - before[n] for n, c in build.launch_counts().items() if c != before[n]}
             check(ran == {route: 1}, f"flash_attention {case}: one launch of {route}, {ran}")
             flash_instance_check(case, dtype, d, pb)
+            if "instance_d" in opts:
+                inst = (fa.bf16_instances() if dtype == BF16 else fa.f32_instances())[
+                    fa.last_instance["bf16" if dtype == BF16 else "f32"]]
+                check(inst["max_d"] == opts["instance_d"]
+                      and all(fa._aligned_operand(t, d) is t for t in (q, k, v)),
+                      f"flash_attention {case}: the D<={opts['instance_d']} instance on the "
+                      f"operands as they are (launched {inst})")
         weighted = (fa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                              causal=causal, window=window) if pb else None)
         err, tol = attention_close(got, want, f"flash_attention {case}: kernel vs plain",
@@ -1904,12 +1957,17 @@ def flash_phase(cases: dict, reps: int, dev, seed: int) -> dict:
 # the serving path: qwen3-4b through the port's serve loop
 # --------------------------------------------------------------------------
 
-def _numel(tree) -> int:
+def _tree_sum(tree, leaf=torch.Tensor.numel) -> int:
+    """``leaf`` summed over the tensors of a tree of dicts and lists."""
     if isinstance(tree, dict):
-        return sum(_numel(v) for v in tree.values())
+        return sum(_tree_sum(v, leaf) for v in tree.values())
     if isinstance(tree, list):
-        return sum(_numel(v) for v in tree)
-    return tree.numel()
+        return sum(_tree_sum(v, leaf) for v in tree)
+    return leaf(tree)
+
+
+def _tree_bytes(tree) -> int:
+    return _tree_sum(tree, lambda t: t.numel() * t.element_size())
 
 
 def serving_setup(vz: dict, dev, seed: int) -> dict:
@@ -1925,7 +1983,7 @@ def serving_setup(vz: dict, dev, seed: int) -> dict:
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
                                                    (vz["requests"], vz["prompt_len"]),
                                                    dtype=np.int32)
-    n_params = _numel(params)
+    n_params = _tree_sum(params)
     print(f"serving model: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters ({cfg.dtype}), init {init_s:.2f}s", flush=True)
     return dict(cfg=cfg, params=params, n_params=n_params, label=f"{cfg.name} serving",
@@ -2045,11 +2103,9 @@ def planted_faults(sv: dict, tokens: torch.Tensor, plain_logits: torch.Tensor) -
         check(gap > LAYER_REL_L2, f"serving: the first-layer check catches '{name}'")
 
 
-def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
+def same_logits(a: dict, b: dict, vz: dict, sv: dict) -> None:
     """The plain run, teacher-forced with the kernel run's tokens: every
-    step's logits within SERVE_REL_L2 of the kernel run's; on wave 0's
-    prompts the first layer's attention outputs within LAYER_REL_L2, and on
-    the card each planted fault breaks that first-layer check."""
+    step's logits within SERVE_REL_L2 of the kernel run's."""
     vocab, batch, gen = sv["cfg"].vocab, vz["batch"], vz["gen"]
     errs = {key: rel_l2(b["logits"][key][:, :vocab], a["logits"][key][:, :vocab])
             for key in a["logits"]}
@@ -2066,7 +2122,14 @@ def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
           f"run's tokens {agree}/{total}", flush=True)
     check(errs[worst] <= SERVE_REL_L2,
           f"serving: kernel and plain logits within relative L2 {SERVE_REL_L2}")
-    tokens = sv["prompts"][:batch]
+
+
+def same_serving(a: dict, b: dict, vz: dict, sv: dict) -> None:
+    """:func:`same_logits`; then on wave 0's prompts the first layer's
+    attention outputs within LAYER_REL_L2, and on the card each planted
+    fault breaks that first-layer check."""
+    same_logits(a, b, vz, sv)
+    tokens = sv["prompts"][:vz["batch"]]
     gap = first_layer_gap(sv, tokens)
     print(f"{sv['label']}: first layer, kernel vs plain attention output, largest relative "
           f"L2 over positions {gap:.6f} (limit {LAYER_REL_L2})", flush=True)
@@ -2226,7 +2289,7 @@ def moe_setup(mz: dict, dev, seed: int) -> dict:
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
                                                    (mz["requests"], mz["prompt_len"]),
                                                    dtype=np.int32)
-    n_params = _numel(params)
+    n_params = _tree_sum(params)
     mo = cfg.moe
     attn = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, nope "
             f"{cfg.mla.qk_nope_head_dim}, rope {cfg.mla.qk_rope_head_dim}, v "
@@ -2509,15 +2572,27 @@ def moe_roles() -> dict:
             "attention": (lm.attn_mod, "attention")}
 
 
-def role_split(fn, roles: dict, names=WIRE_DEVICE_NAMES, trace: dict | None = None) -> dict:
+#: kernel-name fragments of the library's GEMMs (cuBLAS, cuBLASLt, CUTLASS)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def role_split(fn, roles: dict, names=WIRE_DEVICE_NAMES, trace: dict | None = None,
+               gemm_roles: dict | None = None) -> dict:
     """Device ms of each role of ``roles`` (role -> the (owner, attribute)
     whose calls, callees included, it takes; or a list of them) in one
-    call of ``fn`` (torch.profiler).  A kernel, memset or copy that a
-    PyTorch op launched goes to the innermost role around that op, or to
-    "the rest"; the device time the profiler links to no op goes by name
-    (``names``: the ctypes-launched kernels), or to "unlinked".  Given a
-    ``trace`` dict, the same call's wall ms (host clock, synchronised on
-    both sides, the profiler on) and device ms by name go into it."""
+    call of ``fn`` (torch.profiler).  Each role's calls run inside a
+    ``record_function`` range, which the profiler also lays on the device
+    as a span from the first to the last kernel the range launched; a
+    kernel, memset or copy goes to the role of the innermost span holding
+    it, or to "the rest" -- but a kernel named in ``names`` (the
+    ctypes-launched ones, told apart by name) goes to its own role, and
+    ``gemm_roles`` (role -> role) sends the GEMMs of a role to another.
+    (Linking each kernel to its launching op instead, as ``FunctionEvent.kernels``
+    does, linked some GEMMs of a zamba2-7b prefill wave to two ops: 1671
+    ms by role of 1174 on the device.)  So the roles sum to the device
+    time.  Given a ``trace`` dict, the same call's wall ms (host clock,
+    synchronised on both sides, the profiler on) and device ms by name go
+    into it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     originals = []
@@ -2540,29 +2615,27 @@ def role_split(fn, roles: dict, names=WIRE_DEVICE_NAMES, trace: dict | None = No
     finally:
         for mod, attr, real in originals:
             setattr(mod, attr, real)
-    out = {role: 0.0 for role in (*roles, *dict.fromkeys(r for _, r in names), "the rest",
-                                  "unlinked")}
-    device, linked = {}, {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            if not ev.name.startswith("role:"):      # not a role's span on the device
-                device[ev.name] = device.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    gemm_roles = gemm_roles or {}
+    out = {role: 0.0 for role in (*roles, *gemm_roles.values(),
+                                  *dict.fromkeys(r for _, r in names), "the rest")}
+    spans, device = [], {}
+    on_device = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    for ev in on_device:
+        if ev.name.startswith("role:"):
+            spans.append((ev.time_range.start, ev.time_range.end, ev.name[5:]))
+    for ev in on_device:
+        if ev.name.startswith("role:"):
             continue
-        if not ev.kernels:
-            continue
-        role, node = "the rest", ev
-        while node is not None:
-            if node.name.startswith("role:"):
-                role = node.name[5:]
-                break
-            node = node.cpu_parent
-        for k in ev.kernels:
-            out[role] += k.duration / 1e3
-            linked[k.name] = linked.get(k.name, 0.0) + k.duration / 1e3
-    for name, ms in device.items():
-        left = ms - linked.get(name, 0.0)
-        if left > 1e-6:
-            out[next((r for key, r in names if key in name), "unlinked")] += left
+        start, end = ev.time_range.start, ev.time_range.end
+        ms = (end - start) / 1e3
+        device[ev.name] = device.get(ev.name, 0.0) + ms
+        role = next((r for key, r in names if key in ev.name), None)
+        if role is None:
+            inside = [sp for sp in spans if sp[0] <= start and end <= sp[1]]
+            role = min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside else "the rest"
+            if role in gemm_roles and any(g in ev.name.lower() for g in GEMM_NAMES):
+                role = gemm_roles[role]
+        out[role] += ms
     out["total"] = sum(out.values())
     if trace is not None:
         trace.update(wall_ms=wall_ms, by_name=dict(sorted(device.items(), key=lambda kv: -kv[1])))
@@ -2823,12 +2896,273 @@ def ds_split(dz: dict, dv: dict, absorb: bool) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the recurrent serving cells: zamba2-7b and rwkv6-1.6b at full width and depth
+# --------------------------------------------------------------------------
+
+def serving_launches(cfg, n_waves: int, gen: int) -> dict:
+    """The kernel launches one ``serve`` run makes without MoE layers: the
+    flash route of the model's dtype once per attention layer (``g``, ``l``,
+    ``a``) and wave, each mixer's scan once per ``m`` or ``r`` layer and
+    call (a prefill and ``gen`` decode steps a wave)."""
+    kinds = [lm.kind_at(cfg, i) for i in range(cfg.n_layers)]
+    route = "flash_attention_f32" if cfg.dtype == "float32" else "flash_attention"
+    per_call = {route: sum(k in "gla" for k in kinds) * n_waves,
+                "mamba_scan": kinds.count("m") * n_waves * (gen + 1),
+                "rwkv_scan": kinds.count("r") * n_waves * (gen + 1)}
+    return {name: n for name, n in per_call.items() if n}
+
+
+def ssm_setup(cz: dict, dev, seed: int) -> dict:
+    """:func:`serving_setup`, with the exact parameter count (on the meta
+    device) held against the tensors', and the cache's bytes for the cell's
+    slots: the recurrent state (``m``, ``r`` layers) and the K/V (``a``)."""
+    cv = serving_setup(cz, dev, seed)
+    cfg = cv["cfg"]
+    exact = lm.param_count_exact(cfg)
+    check(exact == cv["n_params"], f"{cfg.name}: exact count {exact} equals its tensors' "
+                                   f"{cv['n_params']}")
+    cache = lm.cache_init(cfg, cz["batch"], cz["prompt_len"] + cz["gen"], "meta")
+    kinds = [lm.kind_at(cfg, i) for i in range(cfg.n_layers)]
+    cv["state_bytes"] = sum(_tree_bytes(c) for c, k in zip(cache["layers"], kinds) if k in "mr")
+    cv["kv_bytes"] = sum(_tree_bytes(c) for c, k in zip(cache["layers"], kinds) if k in "gla")
+    print(f"{cfg.name}: layers {''.join(kinds)}, {exact} parameters exact "
+          f"({_tree_bytes(cv['params'])} bytes); cache for {cz['batch']} slots: recurrent "
+          f"state {cv['state_bytes']} bytes, K/V {cv['kv_bytes']} bytes", flush=True)
+    return cv
+
+
+def scan_calls(sv: dict, vz: dict) -> tuple[str, dict]:
+    """The first mixer layer's scan calls through the kernels on wave 0's
+    prompts, tapped at ``ops`` as ``models/ssm.py`` makes them (the
+    operands themselves, strided views included): its prefill call, the
+    largest a cell makes, and its first decode call.  Returns the scan's
+    name and ``{"prefill": args, "decode": args}``."""
+    cfg, params = sv["cfg"], sv["params"]
+    name = "mamba_scan" if "m" in cfg.layer_pattern else "rwkv_scan"
+    real, seen = getattr(ops, name), []
+
+    def tap(*args, impl="auto"):
+        seen.append(args)
+        return real(*args, impl=impl)
+    setattr(ops, name, tap)
+    try:
+        cache, logits = lm.prefill(params, cfg, {"tokens": sv["prompts"][:vz["batch"]]},
+                                   cache_len=vz["prompt_len"] + vz["gen"])
+        n_prefill = len(seen)
+        lm.decode_step(params, cfg, cache, logits.argmax(-1)[:, None])
+    finally:
+        setattr(ops, name, real)
+    return name, {"prefill": seen[0], "decode": seen[n_prefill]}
+
+
+#: relative L2 gap allowed between a scan's kernel and plain outputs, and
+#: between their final states, on the same float32 operands: the state
+#: updates round each product and sum as the plain steps do, the sums over
+#: s or k run in another order (a few ulps of each)
+SCAN_REL_L2 = 1e-5
+#: a planted fault must move a tight check past this many times its limit
+FAULT_FACTOR = 100
+
+
+def _mamba_decay_after_update(real):
+    def fault(x, dt, b, c, a, h0):       # h = decay (h + b x dt): x scaled by the decay
+        return real(x * torch.exp(a[None, None] * dt)[..., None], dt, b, c, a, h0)
+    return fault
+
+
+def _rwkv_decay_after_update(real):
+    def fault(r, k, v, w, u, s0):         # s = w (s + k v): k scaled by w, the bonus's too
+        return real(r, w * k, v, w, u, s0)
+    return fault
+
+
+def _rwkv_bonus_dropped(real):
+    def fault(r, k, v, w, u, s0):
+        return real(r, k, v, w, torch.zeros_like(u), s0)
+    return fault
+
+
+#: faults planted around each scan's wrapper: what the first-mixer check sees
+SCAN_FAULTS = {
+    "mamba_scan": {"decay applied after the update": _mamba_decay_after_update},
+    "rwkv_scan": {"decay applied after the update (the bonus reads the decayed key)":
+                  _rwkv_decay_after_update, "bonus u dropped": _rwkv_bonus_dropped}}
+
+
+def scan_bound(name: str, args: tuple, outs: tuple) -> tuple[float, str]:
+    """(bound ms, what bounds it): every operand read once and both outputs
+    written once, against the float32 operations a step needs per state
+    element (mamba: h * decay, b * xdt, their sum, c h accumulated = 5;
+    rwkv: k v, u (k v), the sum, r (...) accumulated, w s, its sum = 7)."""
+    if name == "mamba_scan":
+        nb, t, nh, p = args[0].shape
+        ops_n = 5 * nb * t * nh * args[2].shape[-1] * p
+    else:
+        nb, t, nh, k = args[0].shape
+        ops_n = 7 * nb * t * nh * k * k
+    bytes_ms = _nbytes(*args, *outs) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / OPS_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def scan_check(name: str, calls: dict, reps: int, dev) -> dict:
+    """The first mixer layer's scan, kernel against plain on the same
+    operands at the prefill and the decode call: the output and the final
+    state each within SCAN_REL_L2 relative L2 (and whether the states are
+    bit-identical); kernel, plain and bound times.  On the prefill call each
+    planted fault of SCAN_FAULTS must break that check by FAULT_FACTOR.
+    Returns the prefill call's row (the kernels line's)."""
+    kern = getattr(ssm_scan, name)
+    plain = getattr(ssm_scan, name + "_plain")
+    rows = {}
+    for label, args in calls.items():
+        got, want = kern(*args), plain(*args)
+        sync(dev)
+        gaps = [rel_l2(g, w) for g, w in zip(got, want)]
+        bound_ms, bound_by = scan_bound(name, args, got)
+        rows[label] = row = dict(
+            max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            rel_l2=dict(output=gaps[0], state=gaps[1]),
+            state_equal=bool(torch.equal(got[1], want[1])),
+            ms=time_ms(lambda: kern(*args), reps, dev),
+            plain_ms=time_ms(lambda: plain(*args), max(1, reps // 5), dev),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            shape=[list(a.shape) for a in args])
+        print(f"kernel {name} {label}: " + json.dumps(row), flush=True)
+        check(max(gaps) <= SCAN_REL_L2, f"{name} {label} call: output and final state within "
+                                        f"relative L2 {SCAN_REL_L2} of the plain version: {gaps}")
+    args, want = calls["prefill"], plain(*calls["prefill"])
+    for fault, plant in SCAN_FAULTS[name].items():
+        bad = max(rel_l2(g, w) for g, w in zip(plant(kern)(*args), want))
+        print(f"{name}: planted fault '{fault}': output / state gap {bad:.3e} "
+              f"(limit {SCAN_REL_L2:g})", flush=True)
+        check(bad > FAULT_FACTOR * SCAN_REL_L2, f"{name}: the first-mixer check catches "
+                                                f"'{fault}' by {FAULT_FACTOR}x")
+    return rows["prefill"]
+
+
+def _conv_state_zeroed(real):
+    def fault(params, x, cfg, state=None, impl="auto"):
+        if state is not None and x.shape[1] == 1:
+            state = dict(state, conv=torch.zeros_like(state["conv"]))
+        return real(params, x, cfg, state, impl=impl)
+    return fault
+
+
+def _prev_dropped(real):
+    def fault(params, x, cfg, state=None, impl="auto"):
+        if state is not None and x.shape[1] == 1:
+            state = dict(state, prev=torch.zeros_like(state["prev"]))
+        return real(params, x, cfg, state, impl=impl)
+    return fault
+
+
+#: faults planted at decode in each mixer (models/ssm.py): what the state-carry
+#: check sees
+STATE_FAULTS = {"m": ("mamba_apply", "conv state zeroed at decode", _conv_state_zeroed),
+                "r": ("rwkv_apply", "prev dropped at decode (time mix)", _prev_dropped)}
+
+
+def state_carry_gap(params, cfg, prompts: torch.Tensor, fed: torch.Tensor,
+                    plant=None) -> float:
+    """Relative L2 gap between the logits of a prefill of ``prompts`` (P
+    tokens) and a decode step of ``fed`` (B, 1), and the last row's of a
+    prefill of the P + 1 tokens: what the cache carries (``conv``, ``ssd``,
+    ``s``, ``prev``, ``cm_prev``, K/V) must give the same step.  ``plant``
+    = (function of models/ssm.py, wrapper) is in place for the prefill and
+    decode step."""
+    full = torch.cat([prompts, fed.to(prompts.dtype)], dim=1)
+    _, want = lm.prefill(params, cfg, {"tokens": full}, cache_len=full.shape[1])
+    real = None
+    if plant is not None:
+        real = getattr(ssm_mod, plant[0])
+        setattr(ssm_mod, plant[0], plant[1](real))
+    try:
+        cache, _ = lm.prefill(params, cfg, {"tokens": prompts}, cache_len=full.shape[1])
+        got, _ = lm.decode_step(params, cfg, cache, fed)
+    finally:
+        if real is not None:
+            setattr(ssm_mod, plant[0], real)
+    return rel_l2(got[:, :cfg.vocab], want[:, :cfg.vocab])
+
+
+def state_carry_check(r: dict, limit: float) -> None:
+    """:func:`state_carry_gap` on wave 0's prompts and first served tokens
+    within ``limit``; each planted fault of a mixer kind the model has
+    (STATE_FAULTS) must break it by FAULT_FACTOR."""
+    cfg, batch = r["cfg"], r["batch"]
+    prompts = r["prompts"][:batch]
+    fed = torch.tensor([[r["tokens"][i][0]] for i in range(batch)], device=prompts.device)
+    gap = state_carry_gap(r["params"], cfg, prompts, fed)
+    print(f"{cfg.name}: state carry, prefill of {prompts.shape[1]} + a decode step vs a "
+          f"prefill of {prompts.shape[1] + 1}, logits relative L2 {gap:.3e} (limit {limit:g})",
+          flush=True)
+    check(gap <= limit, f"{cfg.name}: state carry within relative L2 {limit:g}")
+    for kind, (fn, fault, plant) in STATE_FAULTS.items():
+        if kind in cfg.layer_pattern:
+            bad = state_carry_gap(r["params"], cfg, prompts, fed, plant=(fn, plant))
+            print(f"{cfg.name}: planted fault '{fault}': state carry gap {bad:.3e} "
+                  f"(limit {limit:g})", flush=True)
+            check(bad > FAULT_FACTOR * limit,
+                  f"{cfg.name}: the state-carry check catches '{fault}' by {FAULT_FACTOR}x")
+
+
+def ssm_roles() -> dict:
+    """Roles of the recurrent cells' device time (see :func:`role_split`):
+    each mixer's glue (GEMMs inside it go to "in/out projections", its scan
+    kernel by name), the shared attention (its flash kernel by name), the
+    MLP, RWKV's channel mix; GEMMs outside every role are the head's."""
+    return {"mixer glue": [(ssm_mod, "mamba_apply"), (ssm_mod, "rwkv_apply")],
+            "shared attention": (lm.attn_mod, "attention"), "MLP": (layers_mod, "mlp"),
+            "channel mix": (ssm_mod, "rwkv_channel_mix")}
+
+
+#: the recurrent cells' ctypes-launched kernels as the profiler names them
+SSM_DEVICE_NAMES = (("mamba_scan_kernel", "scan kernel"), ("rwkv_scan_kernel", "scan kernel"),
+                    ("flash_fwd", "flash"))
+#: GEMMs inside a role, by the role they go to instead
+SSM_GEMM_ROLES = {"mixer glue": "in/out projections", "the rest": "head"}
+
+
+def ssm_split(cz: dict, cv: dict) -> dict:
+    """The device split by role of one prefill wave and one decode step
+    through the kernels (after a warm wave and step)."""
+    cfg, params = cv["cfg"], cv["params"]
+    prompts = cv["prompts"][:cz["batch"]]
+    state = {}
+
+    def prefill():
+        state["cache"], lg = lm.prefill(params, cfg, {"tokens": prompts},
+                                        cache_len=cz["prompt_len"] + cz["gen"])
+        state["tok"] = lg.argmax(-1)[:, None]
+
+    def decode():
+        lm.decode_step(params, cfg, state["cache"], state["tok"])
+    prefill()
+    decode()
+    torch.cuda.synchronize()
+    out = {}
+    for what, fn in (("prefill wave", prefill), ("decode step", decode)):
+        trace = {}
+        out[what] = split = role_split(fn, ssm_roles(), names=SSM_DEVICE_NAMES, trace=trace,
+                                       gemm_roles=SSM_GEMM_ROLES)
+        print(f"{cfg.name} split {what} (device ms by role; wall {trace['wall_ms']:.2f} ms, "
+              f"device {sum(trace['by_name'].values()):.2f} ms): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+        print(f"{cfg.name} split {what}: device ms by kernel "
+              + json.dumps(short_names({k: dict(ms=v) for k, v in trace["by_name"].items()})),
+              flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the float32 serve phase: serve.py's main with the reduced configurations
 # --------------------------------------------------------------------------
 
 #: the JAX package's own float32 configurations (configs.reduced), served
 #: by serve.py's main at its default flags (16 requests, 4 slots)
-F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b", "deepseek-v3-671b")
+F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b", "deepseek-v3-671b", "zamba2-7b",
+                   "rwkv6-1.6b")
 #: relative L2 gap allowed between the kernel run's logits and the plain
 #: run's at every step: both run in float32 (matmuls too: TF32 off) and
 #: differ only in the attention's summation order and the kernel's 3xTF32
@@ -2852,11 +3186,16 @@ def _one_tf32_pass(real):
     return control
 
 
+def attention_layers(cfg) -> int:
+    return sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
+
+
 def _serve_tapped(arch: str, dev, plant=None, forced=None) -> dict:
     """``serve.main(["--arch", arch, "--reduced"])`` as a user runs it,
     its ``serve`` call tapped for the model, the prompts, the tokens and
     every step's logits, and ``ops.flash_attention`` for the inputs and
-    output of each call (wave 0's prefill makes the first n_layers).
+    output of each call (wave 0's prefill makes the first, one per
+    attention layer).
     ``plant`` wraps ``ops.flash_attention``; ``forced`` feeds these tokens."""
     logits, calls, seen = {}, [], {}
     real_serve, real_attn = serve_cli.serve, ops.flash_attention
@@ -2874,7 +3213,7 @@ def _serve_tapped(arch: str, dev, plant=None, forced=None) -> dict:
     def tap_attn(q, k, v, causal=True, window=0, impl="auto", probs_bf16=False):
         check(not probs_bf16, "the float32 serve phase runs without probs_bf16")
         out = attn(q, k, v, causal=causal, window=window, impl=impl)
-        if len(calls) < seen["cfg"].n_layers:
+        if len(calls) < attention_layers(seen["cfg"]):
             calls.append((q.clone(), k.clone(), v.clone(), causal, window, out.clone()))
         return out
     serve_cli.serve, ops.flash_attention = tap_serve, tap_attn
@@ -2904,8 +3243,9 @@ def f32_serve_path(impl: str, arch: str, runs: dict, dev) -> dict:
 def check_f32_serve(r: dict) -> None:
     """A float32 model; one prefill and gen decode steps of finite logits
     per wave; gen in-vocab tokens per request; on the card, the kernel run
-    launched flash_attention_f32 once per layer and wave and nothing else
-    but, for an MoE model, the wire kernels of each layer's dispatch."""
+    launched flash_attention_f32 once per attention layer and wave, each
+    mixer's scan once per layer and call, and nothing else but, for an MoE
+    model, the wire kernels of each layer's dispatch."""
     cfg, gen = r["cfg"], r["gen"]
     n_req = r["prompts"].shape[0]
     n_waves = -(-n_req // r["batch"])
@@ -2920,13 +3260,13 @@ def check_f32_serve(r: dict) -> None:
         f"f32 serve {cfg.name}: {gen} in-vocab tokens per request")
     if r["impl"] == "auto" and r["prompts"].is_cuda:
         counts = {k: n for k, n in r["launches"].items() if n}
-        want = {"flash_attention_f32": cfg.n_layers * n_waves}
+        want = serving_launches(cfg, n_waves, gen)
         if cfg.moe is not None:
             want.update(moe_wire_launches(cfg, n_waves * (gen + 1)))
         check(counts == want,
-              f"f32 serve {cfg.name}: flash_attention_f32 once per layer ({cfg.n_layers}) "
-              f"and wave ({n_waves}), no other kernel (the bf16 route included) but the "
-              f"MoE wire's {want}: {counts}")
+              f"f32 serve {cfg.name}: flash_attention_f32 once per attention layer and wave "
+              f"({n_waves}), the scans once per mixer layer and call, no other kernel (the "
+              f"bf16 route included) but the MoE wire's: want {want}, got {counts}")
 
 
 def _logits_gap(a: dict, b: dict) -> dict:
@@ -2936,15 +3276,17 @@ def _logits_gap(a: dict, b: dict) -> dict:
 
 
 def same_f32_serve(a: dict, b: dict, dev) -> None:
-    """Each layer's prefill call of wave 0, as the kernel run made it,
-    within 3e-5 of the plain version on its inputs; the plain run's
-    logits within F32_SERVE_REL_L2 of the kernel run's at every (wave,
-    step).  Then a control: serve.main again with Q, K and V rounded to
-    TF32 before the kernel, fed the kernel run's tokens; both checks must
-    catch it."""
+    """Each attention layer's prefill call of wave 0, as the kernel run
+    made it, within 3e-5 of the plain version on its inputs; the plain
+    run's logits within F32_SERVE_REL_L2 of the kernel run's at every
+    (wave, step).  Then, for a model with attention layers, a control:
+    serve.main again with Q, K and V rounded to TF32 before the kernel, fed
+    the kernel run's tokens; both checks must catch it.  For a model with
+    mixer layers, the state carry (:func:`state_carry_check`) within
+    F32_SERVE_REL_L2, its planted faults past FAULT_FACTOR times that."""
     name, m = a["cfg"].name, a["cfg"].mla
-    check(len(a["calls"]) == a["cfg"].n_layers,
-          f"f32 serve {name}: wave 0's prefill calls captured, one per layer")
+    check(len(a["calls"]) == attention_layers(a["cfg"]),
+          f"f32 serve {name}: wave 0's prefill calls captured, one per attention layer")
     if m is not None:   # MLA: D = nope + rope, V zero past v_head_dim
         dq = m.qk_nope_head_dim + m.qk_rope_head_dim
         check(all(q.shape[-1] == v.shape[-1] == dq and not bool(v[..., m.v_head_dim:].any())
@@ -2965,6 +3307,10 @@ def same_f32_serve(a: dict, b: dict, dev) -> None:
     check(errs[worst] <= F32_SERVE_REL_L2,
           f"f32 serve {name}: kernel and plain logits within relative L2 "
           f"{F32_SERVE_REL_L2:g}")
+    if set(a["cfg"].layer_pattern) & set(STATE_FAULTS):
+        state_carry_check(a, F32_SERVE_REL_L2)
+    if not a["calls"]:
+        return
     forced = torch.tensor([a["tokens"][i] for i in range(len(a["tokens"]))], device=dev)
     c = _serve_tapped(name, dev, plant=_one_tf32_pass, forced=forced)
     missed = sum(f32_within(out, fa.flash_attention_plain(q, k, v, causal=causal,
@@ -3230,21 +3576,23 @@ def main(argv=None) -> int:
         toks = runs["auto"]["tokens"]
         return torch.tensor([toks[i] for i in range(len(toks))], device=dev)
 
-    def serving_cell(path, vz_, sv_, feed=None):
+    def serving_cell(path, vz_, sv_, feed=None, same=same_serving):
         """``serve`` with the kernels (fed ``feed`` if given) and with the
         plain versions; on the card the bf16 flash route must run once
-        per layer and wave, and no other kernel."""
+        per attention layer and wave, each mixer's scan once per layer and
+        call, and no other kernel."""
+        n_waves = -(-vz_["requests"] // vz_["batch"])
+        want = serving_launches(sv_["cfg"], n_waves, vz_["gen"])
         runs = run_path(path, lambda impl, runs: serving_path(
             impl, vz_, sv_, feed if impl == "auto" else forced(runs)),
-            lambda r: check_serving(r, vz_, sv_), lambda a, b: same_serving(a, b, vz_, sv_),
-            SERVING_KERNELS, sizes=vz_)
-        n_waves = -(-vz_["requests"] // vz_["batch"])
+            lambda r: check_serving(r, vz_, sv_), lambda a, b: same(a, b, vz_, sv_),
+            tuple(want), sizes=vz_)
         if not rehearsal:
-            counts = launched[path, "auto"]
-            check(counts["flash_attention"] == sv_["cfg"].n_layers * n_waves
-                  and all(n == 0 for name, n in counts.items() if name not in SERVING_KERNELS),
-                  f"{path}: the bf16 flash_attention route once per layer and wave, "
-                  f"no other kernel (flash_attention_f32 included): {counts}")
+            counts = {k: n for k, n in launched[path, "auto"].items() if n}
+            check(counts == want, f"{path}: the bf16 flash_attention route once per attention "
+                                  f"layer and wave, the scans once per mixer layer and call, no "
+                                  f"other kernel (flash_attention_f32 included): want {want}, "
+                                  f"got {counts}")
         return runs
 
     sv = serving_setup(vz, dev, args.seed)
@@ -3328,20 +3676,35 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    # 9c. the recurrent serving cells: serve (the plain run fed the kernel run's
+    # tokens; decode vs prefill of the same tokens holds the state carry), the
+    # first mixer layer's scan calls held and timed, then the device split
+    for cz in SSM_REHEARSAL if rehearsal else SSM_FULL:
+        t_c = time.perf_counter()
+        cv = ssm_setup(cz, dev, args.seed)
+        serving_cell(f"{cz['arch']} serving path", cz, cv, same=same_logits)
+        name, calls = scan_calls(cv, cz)
+        krows[name] = scan_check(name, calls, sz["reps"], dev)
+        del calls
+        if not rehearsal:
+            ssm_split(cz, cv)
+        print(f"{cz['arch']} cell: {time.perf_counter() - t_c:.1f}s", flush=True)
+        del cv
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
     # 10. the float32 serve phase: serve.py's main, plain run teacher-forced
     for arch in F32_SERVE_ARCHS:
         run_path(f"f32 serve {arch}",
                  lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),
                  check_f32_serve, lambda a, b: same_f32_serve(a, b, dev),
-                 ("flash_attention_f32",))
+                 tuple(serving_launches(reduced(get_config(arch)), 1, 1)))
 
     # launches: the paths' kernel runs (each path's counts are printed above)
     paths = sorted({p for p, _ in launched})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(launched[p, "auto"][name] for p in paths),
-                    **{k: v for k, v in krows[name].items()
-                       if k not in ("shape", "tol", "sdpa_ratio", "regime", "cuda_core_ms",
-                                    "device_ms")})
+                    **{k: v for k, v in krows[name].items() if k not in ROW_DETAIL})
                for name, (_m, _w, _p, src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

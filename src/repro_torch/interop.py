@@ -17,8 +17,12 @@ package's ``lm.init_params`` pytree (``np.asarray`` on each leaf) and
 unstacks its scanned units into the port's per-layer list (an MoE
 layer's ``moe`` tree too: the float32 router, the bf16 expert stacks; an
 MLA layer's six ``attn`` leaves; the MTP head's ``mtp_block``,
-``mtp_norm`` and ``mtp_proj``); ``lm_params_to_numpy`` goes back (bf16 leaves come back as float32
-arrays of the same values: numpy has no bfloat16 of its own).
+``mtp_norm`` and ``mtp_proj``; a Mamba2 or RWKV-6 layer's leaves, the
+float32 ``a_log``, ``dt_bias``, ``d_skip``, ``w0`` and ``u`` beside the
+model-dtype ones; an ``a`` layer's 0-d ``use_shared`` marker, stacked to
+one value per unit in JAX; Zamba's ``shared_attn``); ``lm_params_to_numpy``
+goes back (bf16 leaves come back as float32 arrays of the same values:
+numpy has no bfloat16 of its own).
 ``moe_params_for_rank`` gives rank ``r`` of a ``P``-rank model axis an
 MoE layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's
 ``shard_map`` shards them.
@@ -110,7 +114,7 @@ def tree_from_numpy(tree: dict, device="cuda") -> dict:
 
 
 #: the LM's parameters outside the layer stack
-_TOP = ("embed", "final_norm", "lm_head", "mtp_block", "mtp_norm", "mtp_proj")
+_TOP = ("embed", "final_norm", "lm_head", "shared_attn", "mtp_block", "mtp_norm", "mtp_proj")
 
 
 def lm_params_from_numpy(params_np: dict, cfg: ArchConfig, device="cuda") -> dict:

@@ -1,4 +1,5 @@
-"""Kernels of the port, one hand-written CUDA kernel per TPU kernel.
+"""Kernels of the port, one hand-written CUDA kernel per TPU kernel, and
+two for the recurrent mixers' scans (no Pallas kernel behind them).
 
   binning      bin_offsets, pack_rows, place_rows, (csrc/binning.cu)
                ragged_slots, row_mix, histogram
@@ -6,6 +7,7 @@
                insert, find
   bloom_kernel hash_words, membership              (csrc/bloom.cu)
   flash_attention flash_attention                  (csrc/flash_attention.cu)
+  ssm_scan     mamba_scan, rwkv_scan               (csrc/ssm_scan.cu)
 
 Each module keeps a plain PyTorch version beside every kernel; ``ops``
 dispatches between them, ``build`` compiles and binds the CUDA sources

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import binning, bloom_kernel, hash_probe
+from repro_torch.kernels import binning, bloom_kernel, hash_probe, ssm_scan
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.ref import (FREE, READY, STATE_MASK, bucket_state,  # noqa: F401
                                      MODE_SET, MODE_ADD, MODE_KEEP, bloom_find_ref)
@@ -308,3 +308,23 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, impl: str = "
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          probs_bf16=probs_bf16)
     return _fa.flash_attention(q, k, v, causal=causal, window=window, probs_bf16=probs_bf16)
+
+
+# --------------------------------------------------------------------------
+# recurrent mixers' scans
+# --------------------------------------------------------------------------
+
+def mamba_scan(x, dt, b, c, a, h0, impl: str = "auto"):
+    """Mamba2's recurrence over T: x (B,T,H,P), dt (B,T,H), b/c (B,T,S),
+    a (H,), h0 (B,H,S,P), float32 -> (y (B,T,H,P), final state)."""
+    if resolve(impl, x) == "torch":
+        return ssm_scan.mamba_scan_plain(x, dt, b, c, a, h0)
+    return ssm_scan.mamba_scan(x, dt, b, c, a, h0)
+
+
+def rwkv_scan(r, k, v, w, u, s0, impl: str = "auto"):
+    """RWKV-6's recurrence over T: r/k/v/w (B,T,H,K), u (H,K), s0
+    (B,H,K,K), float32 -> (out (B,T,H,K), final state)."""
+    if resolve(impl, r) == "torch":
+        return ssm_scan.rwkv_scan_plain(r, k, v, w, u, s0)
+    return ssm_scan.rwkv_scan(r, k, v, w, u, s0)

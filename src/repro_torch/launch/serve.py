@@ -5,11 +5,16 @@ The port of ``repro/launch/serve.py``: a fixed decode batch of
 slots (the last wave padded with zero prompts) and decoded greedily for
 ``--gen`` tokens.  It runs on the card unless ``--cpu`` is given, and
 without a card it exits non-zero.  MoE models (arctic-480b) dispatch
-their experts over the exchange on a ``SerialBackend`` (one card).
+their experts over the exchange on a ``SerialBackend`` (one card).  The
+recurrent models (zamba2-7b: Mamba2 with a shared attention block;
+rwkv6-1.6b) carry their recurrent state in the cache, each mixer's scan
+one kernel launch a layer and call on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --reduced --cpu \\
       --requests 16 --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --reduced --cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --reduced
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@
   prefill_step(params, batch)     -> (cache, logits)
   serve_step(params, cache, tokens) -> (logits, cache)
 
-Each closes over the config and the kernel choice ``impl``.  The train
+Each closes over the config and the kernel choice ``impl``; the cache is
+whatever ``lm.cache_init`` makes for the config (K/V, MLA's latents, or
+the recurrent state of zamba2-7b's and rwkv6-1.6b's mixers).  The train
 step and the sharding trees wait for ROADMAP Queue 1 items 6-7.
 """
 

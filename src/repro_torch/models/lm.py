@@ -1,30 +1,37 @@
 """Model assembly: the decoder-only LM and its serving path.
 
 The port of ``repro/models/lm.py`` for the layer kinds ``g`` (global
-attention) and ``l`` (sliding-window attention), GQA or MLA, dense or MoE
-(``models/moe.py``, after the ``first_k_dense`` prefix): ``init_params``,
-``abstract_params`` and the two exact parameter counts, ``cache_init``,
-``forward``, ``prefill`` and ``decode_step``, with the JAX package's
-quirks kept (the ``sqrt(d_model)`` embedding scale taken in the model's
-dtype, the padded vocab rows masked to ``-1e30``, the cache's ``pos``
-bookkeeping).
+attention), ``l`` (sliding-window attention), ``m`` (Mamba2), ``r``
+(RWKV-6 with its channel mix) and ``a`` (Zamba's shared attention block),
+GQA or MLA, dense or MoE (``models/moe.py``, after the ``first_k_dense``
+prefix): ``init_params``, ``abstract_params`` and the two exact parameter
+counts, ``cache_init``, ``forward``, ``prefill`` and ``decode_step``, with
+the JAX package's quirks kept (the ``sqrt(d_model)`` embedding scale taken
+in the model's dtype, the padded vocab rows masked to ``-1e30``, the
+cache's ``pos`` bookkeeping).
 
 Parameters are a dict: ``embed`` (padded_vocab, D), ``final_norm``,
 ``lm_head`` when the embeddings are untied, and ``layers``, one dict per
-layer in order (``ln1``, ``attn``, ``ln2``, and ``mlp`` or ``moe``).  The
-JAX package stacks its repeating units on a leading axis for ``scan``;
+layer in order (an attention layer's ``ln1``, ``attn``, ``ln2``, and
+``mlp`` or ``moe``; an ``m`` layer's ``ln1`` and ``mamba``; an ``r``
+layer's ``ln1``, ``rwkv``, ``ln2`` and ``cmix``; an ``a`` layer's unused
+``ln1`` and the float32 ``use_shared`` marker, as in JAX).  With an ``a``
+kind in the pattern, ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``)
+is the one parameter set every ``a`` layer runs.  The JAX package stacks
+its repeating units on a leading axis for ``scan``;
 ``repro_torch.interop.lm_params_from_numpy`` unstacks them.  The layer
 loop is a Python loop (no scan, no remat).  MoE layers dispatch on a
 ``SerialBackend`` (one rank): a model axis over several ranks waits for
 the multi-rank LM (ROADMAP Queue 1 item 6.2).  An MLA layer's cache is
-``{c_kv, k_rope}``.  With ``cfg.mtp`` the parameters carry the MTP head
+``{c_kv, k_rope}``; an ``m`` layer's ``{conv, ssd}`` (both float32), an
+``r`` layer's ``{s, prev, cm_prev}``, an ``a`` layer's own K/V.  With
+``cfg.mtp`` the parameters carry the MTP head
 (``mtp_block``, ``mtp_norm``, ``mtp_proj``); as in the JAX package only
 ``loss_fn`` applies it, so serving carries it unused, and applying it
 waits for item 7 with ``loss_fn``.
 
-The SSM kinds, the shared-attention kind ``a``, encoder-decoder and
-frontends raise ``NotImplementedError`` naming ROADMAP Queue 1 item 6;
-``loss_fn`` and training wait for item 7.
+Encoder-decoder and frontends raise ``NotImplementedError`` naming
+ROADMAP Queue 1 item 6; ``loss_fn`` and training wait for item 7.
 """
 
 from __future__ import annotations
@@ -36,9 +43,12 @@ from repro_torch.core.backend import SerialBackend
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _SERIAL = SerialBackend()
+#: the layer kinds the port runs
+KINDS = "glmra"
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -48,9 +58,8 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM cannot run yet."""
     waits = []
-    if cfg.ssm is not None or set(cfg.layer_pattern) - set("gl"):
-        waits.append(f"layer kinds {sorted(set(cfg.layer_pattern) - set('gl'))} (SSM, "
-                     "shared attention)")
+    if set(cfg.layer_pattern) - set(KINDS):
+        waits.append(f"layer kinds {sorted(set(cfg.layer_pattern) - set(KINDS))}")
     if cfg.encoder_layers:
         waits.append("encoder-decoder")
     if cfg.frontend is not None:
@@ -73,16 +82,25 @@ def _layer_is_moe(cfg: ArchConfig, layer_idx: int) -> bool:
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg, dtype, device, moe_layer: bool) -> dict:
+def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool) -> dict:
     d = cfg.d_model
-    init = attn_mod.mla_init if cfg.mla is not None else attn_mod.attn_init
-    p = {"ln1": torch.ones(d, dtype=dtype, device=device),
-         "attn": init(gen, cfg, dtype, device),
-         "ln2": torch.ones(d, dtype=dtype, device=device)}
-    if moe_layer:
-        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
-    else:
-        p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)
+    p = {"ln1": torch.ones(d, dtype=dtype, device=device)}
+    if kind in ("g", "l"):
+        init = attn_mod.mla_init if cfg.mla is not None else attn_mod.attn_init
+        p["attn"] = init(gen, cfg, dtype, device)
+        p["ln2"] = torch.ones(d, dtype=dtype, device=device)
+        if moe_layer:
+            p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)
+    elif kind == "m":
+        p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, device)
+    elif kind == "r":
+        p["rwkv"] = ssm_mod.rwkv_init(gen, cfg, dtype, device)
+        p["ln2"] = torch.ones(d, dtype=dtype, device=device)
+        p["cmix"] = ssm_mod.rwkv_channel_mix_init(gen, cfg, dtype, device)
+    else:                                          # "a": the shared block's marker
+        p["use_shared"] = torch.zeros((), dtype=torch.float32, device=device)
     return p
 
 
@@ -100,10 +118,17 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device) -> dict:
               "final_norm": torch.ones(d, dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (v, d), d ** -0.5, dtype, device)
-    params["layers"] = [_block_init(gen, cfg, dtype, device, _layer_is_moe(cfg, i))
+    params["layers"] = [_block_init(gen, cfg, dtype, device, kind_at(cfg, i),
+                                    _layer_is_moe(cfg, i))
                         for i in range(cfg.n_layers)]
+    if "a" in cfg.layer_pattern:
+        params["shared_attn"] = {
+            "ln1": torch.ones(d, dtype=dtype, device=device),
+            "attn": attn_mod.attn_init(gen, cfg, dtype, device),
+            "ln2": torch.ones(d, dtype=dtype, device=device),
+            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)}
     if cfg.mtp:
-        params["mtp_block"] = _block_init(gen, cfg, dtype, device, False)
+        params["mtp_block"] = _block_init(gen, cfg, dtype, device, "g", False)
         params["mtp_norm"] = torch.ones(d, dtype=dtype, device=device)
         params["mtp_proj"] = L.normal(gen, (2 * d, d), (2 * d) ** -0.5, dtype, device)
     return params
@@ -142,15 +167,26 @@ def active_param_count_exact(cfg: ArchConfig) -> int:
 
 
 def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
-    """Zeroed caches, one per layer: K/V, with ``window_cache`` capping an
-    ``l`` layer's at the window (a ring); an MLA layer's ``c_kv`` and
-    ``k_rope``."""
+    """Zeroed caches, one per layer: K/V (an ``a`` layer's too), with
+    ``window_cache`` capping an ``l`` layer's at the window (a ring); an
+    MLA layer's ``c_kv`` and ``k_rope``; an ``m`` layer's float32 ``conv``
+    and ``ssd``; an ``r`` layer's float32 ``s`` and its ``prev`` and
+    ``cm_prev`` in the model's dtype."""
     check_supported(cfg)
     dtype = dtype_of(cfg)
     hd, nkv = cfg.head_dim, cfg.n_kv_heads
     layers = []
     for i in range(cfg.n_layers):
-        if cfg.mla is not None:
+        kind = kind_at(cfg, i)
+        if kind == "m":
+            layers.append(ssm_mod.mamba_state_init(cfg, batch, device))
+            continue
+        if kind == "r":
+            layers.append(dict(ssm_mod.rwkv_state_init(cfg, batch, device, dtype),
+                               cm_prev=torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                                   device=device)))
+            continue
+        if cfg.mla is not None and kind != "a":
             m = cfg.mla
             layers.append({"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
                                                device=device),
@@ -158,7 +194,7 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
                                                  dtype=dtype, device=device)})
             continue
         s_len = cache_len
-        if (cfg.window_cache and kind_at(cfg, i) == "l" and cfg.sliding_window
+        if (cfg.window_cache and kind == "l" and cfg.sliding_window
                 and cfg.sliding_window < cache_len):
             s_len = cfg.sliding_window
         layers.append({n: torch.zeros((batch, nkv, s_len, hd), dtype=dtype, device=device)
@@ -170,12 +206,27 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(bp, x, cfg, kind: str, *, positions, cache=None, cache_len=None,
-                 impl="auto"):
+def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, cache=None,
+                 cache_len=None, impl="auto"):
     """Pre-norm block. Returns (x, new_cache)."""
+    if kind == "m":
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        o, new_cache = ssm_mod.mamba_apply(bp["mamba"], h, cfg, cache, impl=impl)
+        return x + o, new_cache
+    if kind == "r":
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        st = {k: cache[k] for k in ("s", "prev")} if cache is not None else None
+        o, new_cache = ssm_mod.rwkv_apply(bp["rwkv"], h, cfg, st, impl=impl)
+        x = x + o
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        o, new_cache["cm_prev"] = ssm_mod.rwkv_channel_mix(
+            bp["cmix"], h, cache["cm_prev"] if cache is not None else None)
+        return x + o, new_cache
+    if kind == "a":
+        bp = shared_params
     window = cfg.sliding_window if kind == "l" else 0
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if cfg.mla is not None:
+    if cfg.mla is not None and kind != "a":
         o, new_cache = attn_mod.mla_attention(bp["attn"], h, cfg, positions=positions,
                                               cache=cache, cache_len=cache_len, impl=impl)
     else:
@@ -213,7 +264,8 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, decode: bool = False
     new_layers = []
     for i, bp in enumerate(params["layers"]):
         bc = cache["layers"][i] if cache is not None else None
-        x, nc = _apply_block(bp, x, cfg, kind_at(cfg, i), positions=positions, cache=bc,
+        x, nc = _apply_block(bp, x, cfg, kind_at(cfg, i), positions=positions,
+                             shared_params=params.get("shared_attn"), cache=bc,
                              cache_len=cache_len, impl=impl)
         new_layers.append(nc)
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F32 = dict(atol=3e-5, rtol=3e-5)
 BF16 = dict(atol=2e-2, rtol=2e-2)

@@ -46,6 +46,7 @@ from repro_torch.core.backend import SerialBackend as TSerial
 from repro_torch.core.object_container import Spec
 from repro_torch.core.pointers import GlobalPointer as TPtr
 from repro_torch.core.promises import ConProm as TConProm
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 96          # batch per op
 RING = 64       # ring capacity per rank

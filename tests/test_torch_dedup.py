@@ -3,17 +3,20 @@
 ``repro_torch.data.Deduper`` runs on a ``SerialBackend`` with the plain
 versions on the CPU, JAX's ``repro.data.dedup.Deduper`` beside it on the
 same numpy documents (one ``DedupSpec`` shape, ngram 4 over (4, 64)
-documents, so the JAX side's eager compiles are paid once, in one
-module-scope fixture), at ``max_rounds`` 1 and 4: two ``observe`` calls,
-an ``observe_and_probe`` and a ``count_of``.  Every output is integer
-or an exact float64 ratio, so the tolerance is 0: the shingles, verdicts,
-``dup_frac``, probe fractions and counts, the Bloom words, the hash-map
-arrays and the cost log's collectives, bytes and rounds by op, bit for
-bit.  JAX's six behavioural cases (``tests/test_dedup.py``) then run on
+documents, in one module-scope fixture; the JAX Deduper's container
+calls jitted, each signature compiled once), at ``max_rounds`` 1 and 4:
+two ``observe`` calls, an ``observe_and_probe`` and a ``count_of``.
+Every output is integer or an exact float64 ratio, so the tolerance is
+0: the shingles, verdicts, ``dup_frac``, probe fractions and counts, the
+Bloom words, the hash-map arrays and the cost log's collectives, bytes
+and rounds by op, bit for bit.  JAX's six behavioural cases (``tests/test_dedup.py``) then run on
 the port alone, and ``TokenStream`` / ``synth_batch`` (numpy generation
 in both packages) must give JAX's arrays.
 """
 
+import types
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -29,20 +32,12 @@ from repro_torch.configs import shapes as tshapes
 from repro_torch.core import costs
 from repro_torch.core.backend import SerialBackend
 from repro_torch.data import Deduper, DedupSpec, TokenStream, synth_batch
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 NGRAM, DOCS = 4, (4, 64)
 ROUNDS = (1, 4)
 COST_FIELDS = ("collectives", "bytes_out", "bytes_in", "rounds")
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the plain versions run thousands of small ops,
-    which many threads on cores the other test workers share slow ~30x."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _corpus() -> dict:
@@ -80,20 +75,59 @@ def _words(x) -> np.ndarray:
     return x.view(np.int32).reshape(-1)
 
 
+def _jitted(fn):
+    """``fn(backend, spec, state, *arrays, **kw)``, a container call, under
+    ``jax.jit``: one XLA compile per call signature where JAX's eager first
+    calls compile every primitive apart (the first ``observe`` took 27 s
+    eagerly, the whole fixture 9 s jitted; results and cost logs equal).
+    JAX records costs at trace time, so the entries a signature's trace
+    recorded are recorded again on each call that reuses it."""
+    compiled = {}
+
+    def call(backend, spec, state, *args, **kw):
+        arrays = {k: v for k, v in kw.items() if isinstance(v, jax.Array)}
+        static = {k: v for k, v in kw.items() if k not in arrays}
+        shapes = jax.tree_util.tree_map(lambda x: (x.shape, str(x.dtype)), (state, args, arrays))
+        key = (id(backend), id(spec), tuple(sorted(static.items())), repr(shapes))
+        if key not in compiled:
+            compiled[key] = (jax.jit(lambda st, a, ak: fn(backend, spec, st, *a, **ak, **static)),
+                             [])
+        f, entries = compiled[key]
+        with jcosts.recording() as log:
+            out = f(state, args, arrays)
+        if log.entries:                       # traced now
+            entries[:] = log.entries
+        for op, cost in entries:
+            jcosts.record(op, cost)
+        return out
+    return call
+
+
 @pytest.fixture(scope="module")
 def runs():
+    """Both packages' Dedupers through ``_drive``; the JAX Deduper's
+    container calls (``bl.insert``, ``bl.insert_find``, ``hm.insert``,
+    ``hm.find``, as ``repro.data.dedup`` reaches them) jitted."""
     docs = _corpus()
     out = {}
-    for r in ROUNDS:
-        j = jdedup.Deduper(get_backend(None), jdedup.DedupSpec(ngram=NGRAM, max_rounds=r))
-        t = Deduper(SerialBackend(), DedupSpec(ngram=NGRAM, max_rounds=r), device="cpu",
-                    impl="torch")
-        with jcosts.recording() as jlog:
-            jres = _drive(j, docs)
-        with costs.recording() as tlog:
-            tres = _drive(t, docs)
-        out[r] = dict(jax=j, torch=t, jres=jres, tres=tres, jcost=_cost_summary(jlog),
-                      tcost=_cost_summary(tlog))
+    real = {"bl": jdedup.bl, "hm": jdedup.hm}
+    jdedup.bl = types.SimpleNamespace(**{**vars(real["bl"]), **{
+        name: _jitted(getattr(real["bl"], name)) for name in ("insert", "insert_find")}})
+    jdedup.hm = types.SimpleNamespace(**{**vars(real["hm"]), **{
+        name: _jitted(getattr(real["hm"], name)) for name in ("insert", "find")}})
+    try:
+        for r in ROUNDS:
+            j = jdedup.Deduper(get_backend(None), jdedup.DedupSpec(ngram=NGRAM, max_rounds=r))
+            t = Deduper(SerialBackend(), DedupSpec(ngram=NGRAM, max_rounds=r), device="cpu",
+                        impl="torch")
+            with jcosts.recording() as jlog:
+                jres = _drive(j, docs)
+            with costs.recording() as tlog:
+                tres = _drive(t, docs)
+            out[r] = dict(jax=j, torch=t, jres=jres, tres=tres, jcost=_cost_summary(jlog),
+                          tcost=_cost_summary(tlog))
+    finally:
+        jdedup.bl, jdedup.hm = real["bl"], real["hm"]
     return docs, out
 
 

@@ -8,18 +8,10 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the plain versions run thousands of small ops,
-    which many threads on cores the other test workers share slow ~30x."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _load(name: str):

@@ -50,6 +50,7 @@ from repro_torch.core.promises import ConProm as TConProm
 from repro_torch.core.promises import Promise as TPromise
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 60          # rows per flow
 

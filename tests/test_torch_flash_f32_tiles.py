@@ -35,6 +35,7 @@ import torch
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 3e-5
 #: the probs_bf16 allowance, in units of the weighted mean of |V| (two bf16 roundings)

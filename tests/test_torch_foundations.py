@@ -28,6 +28,7 @@ from repro_torch.core import promises as tprom
 from repro_torch.core.backend import SerialBackend
 from repro_torch.core.pointers import GlobalPointer, from_global_index, global_index
 from repro_torch.core.u32 import as_u64, mul32, to_i32
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

@@ -32,6 +32,7 @@ from repro_torch.core.backend import SerialBackend as TSerial
 from repro_torch.core.object_container import Spec
 from repro_torch.core.promises import ConProm as TConProm
 from repro_torch.data import genomics as tgen
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 K = 21
 MODE_ADD = 1

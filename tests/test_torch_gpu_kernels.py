@@ -14,14 +14,18 @@ version's whole-row softmax), bf16 within one bf16 ulp of each element
 round once, so an element moves by at most one ulp of its own size).
 With ``probs_bf16`` both sides round each probability to bf16 against
 their own running max, so the gate gains ``2**-8`` of the
-attention-weighted mean of ``|V|``.
+attention-weighted mean of ``|V|``.  The recurrent mixers' scans round
+each state update as the plain step does, so their final states are
+bit-identical; their outputs sum over the state in another order, within
+``SCAN_REL_L2`` relative L2.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import binning, bloom_kernel, hash_probe, ref
+from repro_torch.kernels import binning, bloom_kernel, hash_probe, ref, ssm_scan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
@@ -652,3 +656,78 @@ def test_flash_attention_kernel_refuses(dev):
     for args, msg in bad:
         with pytest.raises(ValueError, match=msg):
             ops.flash_attention(*args, impl="cuda")
+
+
+# -- the recurrent mixers' scans ---------------------------------------------
+
+SCAN_REL_L2 = 1e-5
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("nb,t,nh,p,s", [(2, 1, 3, 64, 16), (2, 70, 5, 64, 64), (1, 33, 2, 32, 32),
+                                         (1, 9, 2, 256, 128), (3, 40, 4, 7, 64)])
+def test_mamba_scan_kernel(dev, nb, t, nh, p, s):
+    """x, B and C as strided slices of one conv output, as ``mamba_apply``
+    passes them; head widths 7-256, each d_state instance, T = 1 (decode)
+    and past one 32-step chunk."""
+    g = torch.Generator(device=dev).manual_seed(nb * 1000 + t * 10 + s)
+    conv = F.silu(torch.randn((nb, t, nh * p + 2 * s), generator=g, device=dev))
+    x = conv[..., :nh * p].reshape(nb, t, nh, p)
+    b, c = conv[..., nh * p:nh * p + s], conv[..., nh * p + s:]
+    dt = F.softplus(torch.randn((nb, t, nh), generator=g, device=dev))
+    a = -2 * torch.rand(nh, generator=g, device=dev)
+    h0 = 0.1 * torch.randn((nb, nh, s, p), generator=g, device=dev)
+    before = ssm_scan._MAMBA.launches
+    y, h = ops.mamba_scan(x, dt, b, c, a, h0, impl="cuda")
+    want_y, want_h = ssm_scan.mamba_scan_plain(x, dt, b, c, a, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan._MAMBA.launches == before + 1
+    assert torch.equal(h, want_h)
+    assert y.shape == want_y.shape and _rel(y, want_y) <= SCAN_REL_L2
+
+
+@pytest.mark.parametrize("nb,t,nh,k", [(2, 1, 3, 64), (2, 70, 4, 64), (1, 33, 2, 32),
+                                       (3, 40, 5, 16)])
+def test_rwkv_scan_kernel(dev, nb, t, nh, k):
+    g = torch.Generator(device=dev).manual_seed(nb * 1000 + t * 10 + k)
+    r, key, v = (torch.randn((nb, t, nh, k), generator=g, device=dev) for _ in range(3))
+    w = torch.exp(-torch.exp(-5 + torch.randn((nb, t, nh, k), generator=g, device=dev)))
+    u = 0.1 * torch.randn((nh, k), generator=g, device=dev)
+    s0 = torch.randn((nb, nh, k, k), generator=g, device=dev)
+    before = ssm_scan._RWKV.launches
+    out, s = ops.rwkv_scan(r, key, v, w, u, s0, impl="cuda")
+    want_out, want_s = ssm_scan.rwkv_scan_plain(r, key, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ssm_scan._RWKV.launches == before + 1
+    assert torch.equal(s, want_s)
+    assert out.shape == want_out.shape and _rel(out, want_out) <= SCAN_REL_L2
+
+
+def test_scan_kernels_refuse(dev):
+    """Widths without an instance, layouts the kernels do not read, and
+    CPU operands raise; nothing falls back."""
+    def mamba(nb=1, t=4, nh=2, p=64, s=16):
+        return [torch.zeros(shape, device=dev) for shape in
+                ((nb, t, nh, p), (nb, t, nh), (nb, t, s), (nb, t, s), (nh,), (nb, nh, s, p))]
+    x, dt, b, c, a, h0 = mamba()
+    wide_c = torch.zeros((1, 4, 32), device=dev)[..., :16]          # other strides than b's
+    split_x = torch.zeros((1, 4, 64, 2), device=dev).transpose(2, 3)   # (H, P) not contiguous
+    bad = [(mamba(s=48), "d_state 48"), (mamba(p=300), "head 300"),
+           ([x, dt, b, wide_c, a, h0], "equal strides"),
+           ([split_x, dt, b, c, a, h0], "must be contiguous"),
+           ([x, dt.cpu(), b, c, a, h0], "on cuda"), ([x.double(), dt, b, c, a, h0], "float32")]
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            ops.mamba_scan(*args, impl="cuda")
+    r = torch.zeros((1, 4, 2, 128), device=dev)
+    u, s0 = torch.zeros((2, 128), device=dev), torch.zeros((1, 2, 128, 128), device=dev)
+    with pytest.raises(ValueError, match="head 128"):
+        ops.rwkv_scan(r, r, r, r, u, s0, impl="cuda")
+    r = torch.zeros((1, 4, 2, 64), device=dev)
+    u, s0 = torch.zeros((2, 64), device=dev), torch.zeros((1, 2, 64, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv_scan(r, r.transpose(1, 2).contiguous().transpose(1, 2), r, r, u, s0,
+                      impl="cuda")

@@ -30,6 +30,7 @@ from repro_torch.core import exchange as tex
 from repro_torch.core.backend import SerialBackend as TSerial
 from repro_torch.core.object_container import Spec
 from repro_torch.core.promises import ConProm as TConProm
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CAP, BLOCK = 512, 8          # 64 blocks of 8
 N = 96                       # batch per op

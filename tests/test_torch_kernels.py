@@ -27,6 +27,7 @@ from repro_torch.core import hashing as th
 from repro_torch.kernels import bloom_kernel as tbk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 IMPLS = ["jnp", "pallas"]
 

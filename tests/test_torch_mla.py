@@ -27,7 +27,8 @@ at this size takes ~11 s).  Inputs come from numpy with a seed.  Cases:
   the MTP leaves included, in the tree of JAX's ``abstract_params``;
   ``serve.main --arch deepseek-v3-671b --reduced --cpu``;
 - ``abstract_params``' exact and active counts equal to the JAX
-  package's for every architecture the port initialises, full and reduced.
+  package's for every architecture the port initialises, full and reduced
+  (the SSM ones, zamba2-7b and rwkv6-1.6b, too).
 
 The card runs MLA prefill through the flash kernel (``chip_smoke.py``'s
 deepseek cell and its float32 serve phase).
@@ -52,6 +53,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ARCH = "deepseek-v3-671b"
 ATTN_REL_L2 = 1e-5
@@ -59,15 +61,6 @@ LOGITS_REL_L2 = 1e-5
 BF16_LOGITS_REL_L2 = 2e-2
 B, T, STEPS = 2, 12, 3
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the plain versions run many small ops, which
-    many threads on cores the other test workers share slow down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np_tree(tree):
@@ -279,7 +272,8 @@ def test_serve_cli_deepseek(capsys):
     assert out[0].startswith("served 3 requests, 9 tokens in ")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-4b", "arctic-480b", ARCH])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-4b", "arctic-480b", ARCH, "zamba2-7b",
+                                  "rwkv6-1.6b"])
 @pytest.mark.parametrize("size", ["full", "reduced"])
 def test_param_counts_match_jax(arch, size):
     """``abstract_params`` allocates nothing; both exact counts equal JAX's."""

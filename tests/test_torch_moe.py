@@ -52,6 +52,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ARCH = "arctic-480b"
 Y_REL_L2 = 1e-5

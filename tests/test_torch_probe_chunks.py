@@ -40,6 +40,7 @@ from repro.kernels import binning as jbinning
 from repro.kernels import ops as jops
 from repro_torch.kernels import binning, hash_probe
 from repro_torch.kernels.ref import MODE_ADD, MODE_KEEP, MODE_SET
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LANES = 32
 MODES = [MODE_SET, MODE_ADD, MODE_KEEP]

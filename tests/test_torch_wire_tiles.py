@@ -31,6 +31,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import binning
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LANES = 32
 WARPS = 8
