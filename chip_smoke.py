@@ -165,17 +165,24 @@ Phases, each fatal on failure:
      13 shared-attention layers `mmmmma`, d_model 3584, d_state 64, 32
      heads of 112; 5.62 B parameters) and rwkv6-1.6b (24 RWKV-6 layers,
      d_model 2048, head 64; 1.58 B): serve with the kernels (each mixer's
-     scan one mamba_scan or rwkv_scan launch a layer and call, the shared
-     attention's prefill the bf16 flash route; launches counted exactly)
+     scan one launch a layer and call, counted by kernel: Mamba2's chunked
+     mamba_scan at the 2048-token prefills and its sequential
+     mamba_scan_seq at decode, rwkv_scan at both; the shared attention's
+     prefill the bf16 flash route; launches counted exactly)
      and the plain run teacher-forced, logits within SERVE_REL_L2, the
      state carry (decode step 1 and gen against a prefill of the prompt
      and the tokens) within SERVE_REL_L2; the first mixer layer's scan
      calls of wave 0 (its prefill call, the largest, and its first decode
      call) held kernel vs plain, output and final state, within
-     SCAN_REL_L2, timed beside the plain loop and the bound, with planted
-     faults (the decay applied after the update; RWKV's bonus dropped) that
-     must break that check by FAULT_FACTOR; then the device time of one
-     prefill wave and one decode step by role (in/out projections, scan
+     SCAN_REL_L2 (rwkv_scan's states and mamba_scan_seq's bit for bit),
+     each call held to one launch of the kernel its shape picks, its row
+     naming that kernel and route, timed beside the plain
+     loop, the bound (the chunked route's products at three TF32 passes
+     on the tensor cores, or the bytes; the sequential form's CUDA-core
+     figure beside it) and the wrapper's host microseconds a call, with
+     planted faults (the decay applied after the update; RWKV's bonus
+     dropped) that must break that check by FAULT_FACTOR; then the device
+     time of one prefill wave and one decode step by role (in/out projections, scan
      kernel, mixer glue, shared attention, flash, MLP, channel mix, head,
      the rest);
   10. float32 serve phase: repro_torch.launch.serve.main, as a user runs
@@ -225,6 +232,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.append(str(ROOT / "scripts"))   # kernel_ab: the host-time helper the A/B scripts share
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -256,6 +264,7 @@ from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from kernel_ab import host_us  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores (float32)
@@ -426,8 +435,11 @@ KERNELS = {
                             "src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:82"),
     # no TPU kernel: the recurrent mixers' lax.scan bodies, one launch a layer and call
+    # Mamba2's, two routes by shape: the chunked SSD form, the sequential kernel
     "mamba_scan": (ssm_scan, "mamba_scan", "mamba_scan_plain", "src/repro_torch/csrc/ssm_scan.cu",
                    "src/repro/models/ssm.py:98"),
+    "mamba_scan_seq": (ssm_scan, "mamba_scan", "mamba_scan_plain",
+                       "src/repro_torch/csrc/ssm_scan.cu", "src/repro/models/ssm.py:98"),
     "rwkv_scan": (ssm_scan, "rwkv_scan", "rwkv_scan_plain", "src/repro_torch/csrc/ssm_scan.cu",
                   "src/repro/models/ssm.py:183"),
 }
@@ -442,7 +454,7 @@ WIRE_KERNELS = ("bin_offsets", "pack_rows")
 #: kernels no path reaches (the kernel phase derives their inputs)
 OFF_PATH = ("ragged_slots", "histogram")
 #: the recurrent mixers' scans (held on the recurrent cells' own calls)
-SCAN_KERNELS = ("mamba_scan", "rwkv_scan")
+SCAN_KERNELS = ("mamba_scan", "mamba_scan_seq", "rwkv_scan")
 #: the float kernels: held at a tolerance on the cases above, the float32 serve
 #: phase's own calls and the scans' calls, not on the container paths' captured calls
 FLOAT_KERNELS = ("flash_attention", "flash_attention_f32", *SCAN_KERNELS)
@@ -452,7 +464,7 @@ FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"
 SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill", *FLASH_OPTIONS)
 #: a kernels-line row's keys that stay in the phase's own printed lines
 ROW_DETAIL = ("shape", "tol", "sdpa_ratio", "regime", "cuda_core_ms", "device_ms", "rel_l2",
-              "state_equal")
+              "state_equal", "host_us")
 
 
 def check(cond: bool, what: str) -> None:
@@ -2899,16 +2911,23 @@ def ds_split(dz: dict, dv: dict, absorb: bool) -> dict:
 # the recurrent serving cells: zamba2-7b and rwkv6-1.6b at full width and depth
 # --------------------------------------------------------------------------
 
-def serving_launches(cfg, n_waves: int, gen: int) -> dict:
+def serving_launches(cfg, n_waves: int, gen: int, prompt_len: int) -> dict:
     """The kernel launches one ``serve`` run makes without MoE layers: the
     flash route of the model's dtype once per attention layer (``g``, ``l``,
     ``a``) and wave, each mixer's scan once per ``m`` or ``r`` layer and
-    call (a prefill and ``gen`` decode steps a wave)."""
+    call (a prefill of ``prompt_len`` steps and ``gen`` decode steps a
+    wave); Mamba2's by the route each call's shape picks."""
     kinds = [lm.kind_at(cfg, i) for i in range(cfg.n_layers)]
     route = "flash_attention_f32" if cfg.dtype == "float32" else "flash_attention"
     per_call = {route: sum(k in "gla" for k in kinds) * n_waves,
-                "mamba_scan": kinds.count("m") * n_waves * (gen + 1),
+                "mamba_scan": 0, "mamba_scan_seq": 0,
                 "rwkv_scan": kinds.count("r") * n_waves * (gen + 1)}
+    if "m" in kinds:
+        _inner, nh, head = ssm_mod.mamba_dims(cfg)
+        for t, calls in ((prompt_len, 1), (1, gen)):
+            chunked = ssm_scan.mamba_route(t, nh, head, cfg.ssm.d_state) > 0
+            per_call["mamba_scan" if chunked else "mamba_scan_seq"] += \
+                kinds.count("m") * n_waves * calls
     return {name: n for name, n in per_call.items() if n}
 
 
@@ -2956,9 +2975,11 @@ def scan_calls(sv: dict, vz: dict) -> tuple[str, dict]:
 
 
 #: relative L2 gap allowed between a scan's kernel and plain outputs, and
-#: between their final states, on the same float32 operands: the state
-#: updates round each product and sum as the plain steps do, the sums over
-#: s or k run in another order (a few ulps of each)
+#: between their final states, on the same float32 operands: the sequential
+#: routes round each state update as the plain steps do (their states are
+#: also held bit for bit) and sum over s or k in another order (a few ulps
+#: of each); mamba's chunked route takes its products in 3xTF32 (about
+#: 2**-20 of each) and its decays as differences of chunk-local running sums
 SCAN_REL_L2 = 1e-5
 #: a planted fault must move a tight check past this many times its limit
 FAULT_FACTOR = 100
@@ -2989,48 +3010,99 @@ SCAN_FAULTS = {
                   _rwkv_decay_after_update, "bonus u dropped": _rwkv_bonus_dropped}}
 
 
-def scan_bound(name: str, args: tuple, outs: tuple) -> tuple[float, str]:
-    """(bound ms, what bounds it): every operand read once and both outputs
-    written once, against the float32 operations a step needs per state
-    element (mamba: h * decay, b * xdt, their sum, c h accumulated = 5;
-    rwkv: k v, u (k v), the sum, r (...) accumulated, w s, its sum = 7)."""
-    if name == "mamba_scan":
+def scan_cuda_core_ms(name: str, args: tuple) -> float:
+    """The sequential form's operations at the float32 rate outside the
+    tensor cores, as few as the function needs: per state element and
+    step, mamba: h * decay, b * xdt, their sum, c h accumulated = 5; rwkv:
+    k v, r s accumulated, w s, its sum = 5, and per step and k the bonus
+    v sum_k r u k (r u k accumulated, then v times it added) = 5."""
+    if name == "rwkv_scan":
+        nb, t, nh, k = args[0].shape
+        ops_n = nb * t * nh * (5 * k * k + 5 * k)
+    else:
         nb, t, nh, p = args[0].shape
         ops_n = 5 * nb * t * nh * args[2].shape[-1] * p
-    else:
-        nb, t, nh, k = args[0].shape
-        ops_n = 7 * nb * t * nh * k * k
+    return ops_n / OPS_PER_S * 1e3
+
+
+def ssd_tf32_ms(args: tuple) -> float:
+    """The chunked (SSD) form's products in three TF32 passes at the
+    tensor-core rate: per (batch, head), M X over the kept (i, j <= i) pairs
+    of each chunk of L steps, C h and B^T (W X) over every (step, s), and
+    per batch row G = C B^T over the kept pairs (shared by the heads)."""
+    nb, t, nh, p = args[0].shape
+    s, chunk = args[2].shape[-1], ssm_scan.SSD_CHUNK
+    pairs = sum(n * (n + 1) // 2 for n in [chunk] * (t // chunk) + [t % chunk])
+    flops = 2 * nb * (nh * p * (pairs + 2 * t * s) + pairs * s)
+    return 3 * flops / TF32_OPS_PER_S * 1e3
+
+
+def scan_kernel(name: str, args: tuple) -> str:
+    """The counted kernel a scan call on these operands launches: Mamba2's
+    route by shape (``ssm_scan.mamba_route``), RWKV's one kernel."""
+    if name == "rwkv_scan":
+        return name
+    _nb, t, nh, p = args[0].shape
+    return "mamba_scan" if ssm_scan.mamba_route(t, nh, p, args[2].shape[-1]) else \
+        "mamba_scan_seq"
+
+
+#: the route each scan kernel runs
+SCAN_ROUTES = {"mamba_scan": "chunked", "mamba_scan_seq": "sequential", "rwkv_scan": "sequential"}
+
+
+def scan_bound(name: str, args: tuple, outs: tuple, route: str) -> tuple[float, str]:
+    """(bound ms, what bounds it): every operand read once and both outputs
+    written once, against the operations of the form the route runs: the
+    chunked mamba route's products on the tensor cores (ssd_tf32_ms), the
+    sequential routes' on the CUDA cores (scan_cuda_core_ms)."""
+    ops_ms = ssd_tf32_ms(args) if route == "chunked" else scan_cuda_core_ms(name, args)
     bytes_ms = _nbytes(*args, *outs) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_n / OPS_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def scan_check(name: str, calls: dict, reps: int, dev) -> dict:
     """The first mixer layer's scan, kernel against plain on the same
-    operands at the prefill and the decode call: the output and the final
-    state each within SCAN_REL_L2 relative L2 (and whether the states are
-    bit-identical); kernel, plain and bound times.  On the prefill call each
-    planted fault of SCAN_FAULTS must break that check by FAULT_FACTOR.
-    Returns the prefill call's row (the kernels line's)."""
+    operands at the prefill and the decode call: on the card, each call
+    launches the kernel its shape picks (scan_kernel) once and no other;
+    the output and the final state each within SCAN_REL_L2 relative L2
+    (and whether the states are bit-identical); kernel, plain and bound
+    times.  On the prefill call each planted fault of SCAN_FAULTS must
+    break that check by FAULT_FACTOR.  Returns the rows by the kernel each
+    call launched (the kernels line's; the prefill call's where both
+    launch one kernel)."""
     kern = getattr(ssm_scan, name)
     plain = getattr(ssm_scan, name + "_plain")
     rows = {}
     for label, args in calls.items():
+        kname = scan_kernel(name, args)
+        before = build.launch_counts()
         got, want = kern(*args), plain(*args)
         sync(dev)
+        ran = {n: c - before[n] for n, c in build.launch_counts().items() if c != before[n]}
+        if dev.type == "cuda":
+            check(ran == {kname: 1}, f"{name} {label} call: one launch of {kname}, got {ran}")
+        route = SCAN_ROUTES[kname] if dev.type == "cuda" else "plain"
         gaps = [rel_l2(g, w) for g, w in zip(got, want)]
-        bound_ms, bound_by = scan_bound(name, args, got)
-        rows[label] = row = dict(
+        bound_ms, bound_by = scan_bound(name, args, got, route)
+        row = dict(
+            scan_route=route,
             max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
             rel_l2=dict(output=gaps[0], state=gaps[1]),
             state_equal=bool(torch.equal(got[1], want[1])),
             ms=time_ms(lambda: kern(*args), reps, dev),
             plain_ms=time_ms(lambda: plain(*args), max(1, reps // 5), dev),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            cuda_core_ms=scan_cuda_core_ms(name, args),
+            host_us=host_us(lambda: kern(*args)) if dev.type == "cuda" else None,
             shape=[list(a.shape) for a in args])
-        print(f"kernel {name} {label}: " + json.dumps(row), flush=True)
+        rows.setdefault(kname, row)
+        print(f"kernel {kname} {label}: " + json.dumps(row), flush=True)
         check(max(gaps) <= SCAN_REL_L2, f"{name} {label} call: output and final state within "
                                         f"relative L2 {SCAN_REL_L2} of the plain version: {gaps}")
+        if route == "sequential":
+            check(row["state_equal"], f"{name} {label} call ({kname}): the final state "
+                                      f"bit-identical to the plain version's")
     args, want = calls["prefill"], plain(*calls["prefill"])
     for fault, plant in SCAN_FAULTS[name].items():
         bad = max(rel_l2(g, w) for g, w in zip(plant(kern)(*args), want))
@@ -3038,7 +3110,7 @@ def scan_check(name: str, calls: dict, reps: int, dev) -> dict:
               f"(limit {SCAN_REL_L2:g})", flush=True)
         check(bad > FAULT_FACTOR * SCAN_REL_L2, f"{name}: the first-mixer check catches "
                                                 f"'{fault}' by {FAULT_FACTOR}x")
-    return rows["prefill"]
+    return rows
 
 
 def _conv_state_zeroed(real):
@@ -3118,7 +3190,8 @@ def ssm_roles() -> dict:
 
 
 #: the recurrent cells' ctypes-launched kernels as the profiler names them
-SSM_DEVICE_NAMES = (("mamba_scan_kernel", "scan kernel"), ("rwkv_scan_kernel", "scan kernel"),
+SSM_DEVICE_NAMES = (("mamba_scan_kernel", "scan kernel"), ("mamba_ssd_kernel", "scan kernel"),
+                    ("rwkv_scan_kernel", "scan kernel"),
                     ("flash_fwd", "flash"))
 #: GEMMs inside a role, by the role they go to instead
 SSM_GEMM_ROLES = {"mixer glue": "in/out projections", "the rest": "head"}
@@ -3163,6 +3236,8 @@ def ssm_split(cz: dict, cv: dict) -> dict:
 #: by serve.py's main at its default flags (16 requests, 4 slots)
 F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b", "deepseek-v3-671b", "zamba2-7b",
                    "rwkv6-1.6b")
+#: the prompt length serve.main runs at (its --prompt-len default)
+F32_SERVE_PROMPT_LEN = 32
 #: relative L2 gap allowed between the kernel run's logits and the plain
 #: run's at every step: both run in float32 (matmuls too: TF32 off) and
 #: differ only in the attention's summation order and the kernel's 3xTF32
@@ -3260,7 +3335,7 @@ def check_f32_serve(r: dict) -> None:
         f"f32 serve {cfg.name}: {gen} in-vocab tokens per request")
     if r["impl"] == "auto" and r["prompts"].is_cuda:
         counts = {k: n for k, n in r["launches"].items() if n}
-        want = serving_launches(cfg, n_waves, gen)
+        want = serving_launches(cfg, n_waves, gen, r["prompts"].shape[1])
         if cfg.moe is not None:
             want.update(moe_wire_launches(cfg, n_waves * (gen + 1)))
         check(counts == want,
@@ -3582,7 +3657,7 @@ def main(argv=None) -> int:
         per attention layer and wave, each mixer's scan once per layer and
         call, and no other kernel."""
         n_waves = -(-vz_["requests"] // vz_["batch"])
-        want = serving_launches(sv_["cfg"], n_waves, vz_["gen"])
+        want = serving_launches(sv_["cfg"], n_waves, vz_["gen"], vz_["prompt_len"])
         runs = run_path(path, lambda impl, runs: serving_path(
             impl, vz_, sv_, feed if impl == "auto" else forced(runs)),
             lambda r: check_serving(r, vz_, sv_), lambda a, b: same(a, b, vz_, sv_),
@@ -3684,7 +3759,7 @@ def main(argv=None) -> int:
         cv = ssm_setup(cz, dev, args.seed)
         serving_cell(f"{cz['arch']} serving path", cz, cv, same=same_logits)
         name, calls = scan_calls(cv, cz)
-        krows[name] = scan_check(name, calls, sz["reps"], dev)
+        krows.update(scan_check(name, calls, sz["reps"], dev))
         del calls
         if not rehearsal:
             ssm_split(cz, cv)
@@ -3698,7 +3773,7 @@ def main(argv=None) -> int:
         run_path(f"f32 serve {arch}",
                  lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),
                  check_f32_serve, lambda a, b: same_f32_serve(a, b, dev),
-                 tuple(serving_launches(reduced(get_config(arch)), 1, 1)))
+                 tuple(serving_launches(reduced(get_config(arch)), 1, 1, F32_SERVE_PROMPT_LEN)))
 
     # launches: the paths' kernel runs (each path's counts are printed above)
     paths = sorted({p for p, _ in launched})

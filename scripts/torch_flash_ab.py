@@ -4,28 +4,19 @@
     python3 scripts/torch_flash_ab.py ROOT_A ROOT_B [--rounds 2] [--reps 50] \
         [--case f32_probs_bf16 ...]
 
-ROOT_A and ROOT_B are checkouts of this repo (``git archive`` of two
-trees, say).  Each measurement runs in a fresh process with
-``ROOT/src`` on its path, so each checkout builds and loads its own
-``csrc/flash_attention.cu`` (under ``ROOT/build/kernels``).  The order
-is A, B, B, A for each round, so that a drift of the card's clocks
-falls on both.  Each case is one call of ``flash_attention`` on inputs
+The A B B A driver is ``kernel_ab.py``'s (its docstring says how the
+checkouts are run).  Each case is one call of ``flash_attention`` on inputs
 drawn from a fixed seed, timed by CUDA events over ``--reps`` launches
 and by ``torch.profiler``'s device time of its kernel; the kernel's
 output is checked against ``flash_attention_plain`` (max |difference|
-printed).  The last line is a JSON object: per case, each checkout's
-times in the order they ran.  Cases are ``chip_smoke.py``'s
-(``FLASH_FULL`` shapes and flags).
+printed).  Cases are ``chip_smoke.py``'s (``FLASH_FULL`` shapes and flags).
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
-from pathlib import Path
+
+from kernel_ab import main
 
 # name -> (b, hq, hkv, tq, tk, d, causal, window, dtype, probs_bf16, V's real columns)
 CASES = {
@@ -77,42 +68,5 @@ def worker(cases: list[str], reps: int) -> dict:
     return out
 
 
-def run(root: Path, cases: list[str], reps: int) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--reps", str(reps),
-           "--case", *cases]
-    res = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(f"{root}: worker failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
-
-
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("roots", nargs="*", type=Path)
-    ap.add_argument("--case", nargs="+", default=list(CASES), choices=list(CASES))
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.worker:
-        print(json.dumps(worker(args.case, args.reps)))
-        return
-    if len(args.roots) != 2:
-        ap.error("two checkout roots, A and B")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"card: {card.strip()}", flush=True)
-    a, b = (r.resolve() for r in args.roots)
-    times = {c: {"A": [], "B": []} for c in args.case}
-    for _ in range(args.rounds):
-        for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
-            res = run(root, args.case, args.reps)
-            for c, row in res.items():
-                times[c][label].append(row)
-                print(f"{label} {c}: " + json.dumps(row), flush=True)
-    print(json.dumps({"A": str(a), "B": str(b), "times": times}))
-
-
 if __name__ == "__main__":
-    main()
+    sys.exit(main(__file__, __doc__, CASES, worker, reps=50, rounds=2))

@@ -114,14 +114,17 @@ class Kernel:
         self._fn = None
 
     def __call__(self, *args) -> None:
-        """Launch on the current stream; tensors pass as device pointers."""
-        if self._fn is None:
+        """Launch on the current device's current stream; tensors pass as
+        device pointers.  The raw stream handle is read without building a
+        ``torch.cuda.Stream`` object (a few microseconds a launch)."""
+        fn = self._fn
+        if fn is None:
             fn = getattr(library(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        rc = self._fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                        for a in args), torch.cuda.current_stream().cuda_stream)
+        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+                torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
         if rc != 0:
             msg = library(self.source).kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")

@@ -14,10 +14,15 @@ version's whole-row softmax), bf16 within one bf16 ulp of each element
 round once, so an element moves by at most one ulp of its own size).
 With ``probs_bf16`` both sides round each probability to bf16 against
 their own running max, so the gate gains ``2**-8`` of the
-attention-weighted mean of ``|V|``.  The recurrent mixers' scans round
-each state update as the plain step does, so their final states are
-bit-identical; their outputs sum over the state in another order, within
-``SCAN_REL_L2`` relative L2.
+attention-weighted mean of ``|V|``.  The recurrent mixers' scans:
+``rwkv_scan`` and ``mamba_scan``'s sequential route (calls shorter than a
+chunk) round each state update as the plain step does, so their final
+states are bit-identical, and their outputs sum in another order, within
+``SCAN_REL_L2`` relative L2; ``mamba_scan``'s chunked route (the SSD form
+in 3xTF32 on the tensor cores) rounds otherwise, so its output and its
+final state are both held at ``SCAN_REL_L2``.  Each mamba call must launch
+the kernel of the route its shape picks (``mamba_scan``, the chunked one,
+or ``mamba_scan_seq``) once, and no other.
 """
 
 import numpy as np
@@ -25,7 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import binning, bloom_kernel, hash_probe, ref, ssm_scan
+from repro_torch.kernels import binning, bloom_kernel, build, hash_probe, ref, ssm_scan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
@@ -667,30 +672,48 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.parametrize("nb,t,nh,p,s", [(2, 1, 3, 64, 16), (2, 70, 5, 64, 64), (1, 33, 2, 32, 32),
-                                         (1, 9, 2, 256, 128), (3, 40, 4, 7, 64)])
-def test_mamba_scan_kernel(dev, nb, t, nh, p, s):
+MAMBA_CASES = [  # (nb, t, nh, p, s, top): a dt down to -top a step; None: a in (-2, 0]
+    (2, 1, 3, 64, 16, None), (2, 70, 5, 64, 64, None), (1, 33, 2, 32, 32, None),
+    (1, 9, 2, 256, 128, None), (3, 40, 4, 7, 64, None),
+    (2, 2048, 8, 64, 64, None), (1, 31, 4, 64, 64, None), (1, 32, 4, 64, 64, None),
+    (1, 31, 4, 64, 64, 30.0), (2, 33, 4, 64, 64, 30.0), (1, 2048, 4, 64, 64, 30.0),
+    (1, 100, 2, 128, 128, 30.0), (2, 77, 3, 64, 16, 0.01)]
+
+
+@pytest.mark.parametrize("nb,t,nh,p,s,top", MAMBA_CASES, ids=[
+    "-".join(map(str, case[:5])) + ("" if case[5] is None else f"-top{case[5]:g}")
+    for case in MAMBA_CASES])
+def test_mamba_scan_kernel(dev, nb, t, nh, p, s, top):
     """x, B and C as strided slices of one conv output, as ``mamba_apply``
-    passes them; head widths 7-256, each d_state instance, T = 1 (decode)
-    and past one 32-step chunk."""
+    passes them; head widths 7-256, each d_state instance; T = 1 (decode),
+    T = L - 1 (the sequential route), L, L + 1 and many chunks (the chunked
+    route, 4-byte copies at head width 7); a dt down to -top a step
+    (strong: -30; weak: -0.01)."""
     g = torch.Generator(device=dev).manual_seed(nb * 1000 + t * 10 + s)
     conv = F.silu(torch.randn((nb, t, nh * p + 2 * s), generator=g, device=dev))
     x = conv[..., :nh * p].reshape(nb, t, nh, p)
     b, c = conv[..., nh * p:nh * p + s], conv[..., nh * p + s:]
     dt = F.softplus(torch.randn((nb, t, nh), generator=g, device=dev))
     a = -2 * torch.rand(nh, generator=g, device=dev)
+    if top is not None:
+        a = a * (top / 2) / dt.max()
     h0 = 0.1 * torch.randn((nb, nh, s, p), generator=g, device=dev)
-    before = ssm_scan._MAMBA.launches
+    before = build.launch_counts()
     y, h = ops.mamba_scan(x, dt, b, c, a, h0, impl="cuda")
     want_y, want_h = ssm_scan.mamba_scan_plain(x, dt, b, c, a, h0)
     torch.cuda.synchronize()
-    assert ssm_scan._MAMBA.launches == before + 1
-    assert torch.equal(h, want_h)
+    chunked = ssm_scan.mamba_route(t, nh, p, s) > 0
+    ran = {n: k - before[n] for n, k in build.launch_counts().items() if k != before[n]}
+    assert ran == {"mamba_scan" if chunked else "mamba_scan_seq": 1}
+    if chunked:
+        assert h.shape == want_h.shape and _rel(h, want_h) <= SCAN_REL_L2
+    else:
+        assert torch.equal(h, want_h)
     assert y.shape == want_y.shape and _rel(y, want_y) <= SCAN_REL_L2
 
 
 @pytest.mark.parametrize("nb,t,nh,k", [(2, 1, 3, 64), (2, 70, 4, 64), (1, 33, 2, 32),
-                                       (3, 40, 5, 16)])
+                                       (3, 40, 5, 16), (2, 2048, 4, 64)])
 def test_rwkv_scan_kernel(dev, nb, t, nh, k):
     g = torch.Generator(device=dev).manual_seed(nb * 1000 + t * 10 + k)
     r, key, v = (torch.randn((nb, t, nh, k), generator=g, device=dev) for _ in range(3))
