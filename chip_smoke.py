@@ -21,7 +21,7 @@ Phases, each fatal on failure:
      on those inputs (bit equality: every output is integer) and timed
      beside its plain version, its bound and, where one exists, one
      PyTorch call computing the same function; flash_attention is held
-     against its plain version on fifteen cases (the serving path's prefill
+     against its plain version on twenty cases (the serving path's prefill
      call, the MoE path's (arctic's 56 query heads over 8, 1024 tokens),
      gemma3-4b's (8 query heads over 4 at D=320, 2048 tokens, a 1024-key
      window), D=320 with a window, D=256, Tq=1 < Tk, non-causal with a ragged key
@@ -35,7 +35,11 @@ Phases, each fatal on failure:
      the P_lo pass), and the float32 kernel-phase call with probs_bf16
      (one exact TF32 P V pass), and zamba2-7b's shared-attention prefill
      call (32 heads of D=112, 2048 tokens: the D<=128 bf16 instance on its
-     operands as they are, no padded copy)) elementwise
+     operands as they are, no padded copy), and the frontend cells' four
+     calls: seamless-m4t-medium's encoder (non-causal over 512 frames),
+     its cross-attention (non-causal, 2048 queries over 512 keys: Tq > Tk)
+     and its decoder (causal), all 16 heads of D=64, and internvl2-76b's
+     prefill (64 query heads over 8 at D=128, 2048 positions)) elementwise
      (bf16 within one ulp of each element, float32 at 3e-5;
      attention_close; a probs_bf16 call also 2**-8 of the attention-weighted
      mean of |V|, since each side rounds P against its own running max, so
@@ -185,17 +189,46 @@ Phases, each fatal on failure:
      time of one prefill wave and one decode step by role (in/out projections, scan
      kernel, mixer glue, shared attention, flash, MLP, channel mix, head,
      the rest);
+  9d. the frontend cells, in bf16 with the qwen3-4b cell's slots and
+     tokens, prompts and embeddings drawn as data.tokens.synth_batch draws
+     a prefill batch of 2048 positions: seamless-m4t-medium at full width
+     and depth (12 encoder and 12 decoder layers, d_model 1024, 16 heads
+     of 64, d_ff 4096 GELU, vocab 256,206 untied; 0.88 B parameters), each
+     request's 512 source frames encoded at its wave's prefill, and
+     internvl2-76b at full width (d_model 8192, 64 query heads over 8,
+     d_ff 28672, vocab 128,256) cut to 8 of its 80 layers (8.9 B
+     parameters), 256 patch embeddings before 1,792 text tokens: serve
+     with the kernels (the bf16 flash route once per flash call and wave:
+     seamless's encoder layers, decoder layers and cross-attentions) and
+     the plain run teacher-forced, logits within SERVE_REL_L2, decode
+     against a prefill of the same tokens within SERVE_REL_L2; the first
+     encoder layer's attention and the first decoder layer's
+     cross-attention (internvl: the first layer's attention) held kernel
+     vs plain at LAYER_REL_L2 on the inputs the kernel run gave them, a
+     causal encoder planted around ops.flash_attention must break it; the
+     first layer's attention at decode over the prefill's cache (seamless:
+     the cross-attention over xk/xv) held against the same call in a
+     prefill of one more token, on the same input row, at LAYER_REL_L2,
+     with planted faults that must each break it (the cross K/V left zero
+     at prefill, the JAX package's behaviour; rotary applied to the
+     cross-attention's q and k; positions restarted at the first text
+     token); then the device time of one prefill wave and one decode step
+     by role (encoder, attention projections, flash, cross decode, decode
+     attention, MLP, the rest);
   10. float32 serve phase: repro_torch.launch.serve.main, as a user runs
      it, with the JAX package's own float32 configurations (--arch
      qwen3-4b --reduced, gemma3-4b --reduced, whose local layers carry a
      16-key window, arctic-480b --reduced, whose MoE layers dispatch
      over the exchange, deepseek-v3-671b --reduced, MLA at D=24 with V
      padded from 16 and MoE, zamba2-7b --reduced, five Mamba2 layers and a
-     shared-attention one, and rwkv6-1.6b --reduced): its prefills run
-     flash_attention_f32 once per attention layer and wave and never the
+     shared-attention one, and rwkv6-1.6b --reduced), and
+     seamless-m4t-medium and internvl2-76b --reduced through serve(...)
+     with their embeddings at serve.py's defaults (the CLI serves tokens
+     only): its prefills run flash_attention_f32 once per flash call
+     and wave and never the
      bf16 route, the scans once per mixer layer and call (the MoE models'
      dispatch also launches the wire kernels, counted exactly); each
-     attention layer's prefill call of wave 0, captured as the run made
+     flash call of wave 0's prefill, captured as the run made
      it, is held against the plain version on its inputs elementwise at
      3e-5 (attention_close); a plain run of the same model and prompts,
      teacher-forced with its tokens, gives logits within F32_SERVE_REL_L2
@@ -204,7 +237,8 @@ Phases, each fatal on failure:
      recurrent models the state carry (a prefill and a decode step against
      a prefill of one more token) holds within F32_SERVE_REL_L2, and a
      fault planted at decode (the conv state zeroed; RWKV's prev dropped)
-     must break it by FAULT_FACTOR.
+     must break it by FAULT_FACTOR; so do seamless's cross carry and
+     internvl's decode after the patches, with the frontend cells' faults.
 Each path runs through the port's entry points (the containers on a
 SerialBackend), with the kernels (launch counts reset just before, read
 just after) and with the plain versions; the two runs must pass the
@@ -222,6 +256,7 @@ bf16 matmuls reduce in float32 (no reduced-precision split-K reduction).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -251,9 +286,10 @@ from repro_torch.core.hashing import fmix32  # noqa: E402
 from repro_torch.core.object_container import Spec  # noqa: E402
 from repro_torch.core.promises import ConProm  # noqa: E402
 from repro_torch.core.u32 import as_u64, to_i32  # noqa: E402
-from repro_torch.data import Deduper, DedupSpec, TokenStream  # noqa: E402
+from repro_torch.data import Deduper, DedupSpec, TokenStream, synth_batch  # noqa: E402
 from repro_torch.data import genomics as gen  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.kernels import binning, bloom_kernel, build, hash_probe, ssm_scan  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -321,6 +357,19 @@ SSM_FULL = (dict(arch="zamba2-7b", reduced=False, requests=16, batch=8, prompt_l
             dict(arch="rwkv6-1.6b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32))
 SSM_REHEARSAL = (dict(arch="zamba2-7b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4),
                  dict(arch="rwkv6-1.6b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4))
+# the frontend cells, drawn as data.tokens.synth_batch draws a prefill batch of
+# `seq` positions: seamless-m4t-medium at full width and depth, qwen3-4b's traffic
+# plus each request's seq // 4 = 512 source frames (configs/shapes.py); internvl2-76b
+# at full width, cut to 8 of its 80 layers (8.9 B parameters, 17.9 GB in bf16: the
+# whole model, 76 B, does not fit one 80 GB card), 256 patches + 1,792 text tokens
+FRONTEND_FULL = (dict(arch="seamless-m4t-medium", reduced=False, layers=None, requests=16,
+                      batch=8, seq=2048, gen=32),
+                 dict(arch="internvl2-76b", reduced=False, layers=8, requests=16, batch=8,
+                      seq=2048, gen=32))
+FRONTEND_REHEARSAL = (dict(arch="seamless-m4t-medium", reduced=True, layers=None, requests=4,
+                           batch=2, seq=40, gen=4),
+                      dict(arch="internvl2-76b", reduced=True, layers=None, requests=4, batch=2,
+                           seq=40, gen=4))
 #: relative L2 error allowed between two bf16 runs' logits.  Two bf16
 #: computations of the 36-layer model that differ in any rounding drift
 #: apart to ~2.3e-2 (kernel vs plain prefill with identical GEMMs, the
@@ -364,6 +413,10 @@ FLASH_FULL = {
     "deepseek_prefill_probs_bf16": (8, 128, 128, 1024, 1024, 192, True, 0, BF16),
     "f32_probs_bf16": (2, 16, 4, 777, 777, 128, True, 0, F32),
     "zamba2_prefill": (8, 32, 32, 2048, 2048, 112, True, 0, BF16),
+    "seamless_encoder": (8, 16, 16, 512, 512, 64, False, 0, BF16),
+    "seamless_cross": (8, 16, 16, 2048, 512, 64, False, 0, BF16),
+    "seamless_decoder": (8, 16, 16, 2048, 2048, 64, True, 0, BF16),
+    "internvl_prefill": (8, 64, 8, 2048, 2048, 128, True, 0, BF16),
 }
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
@@ -382,7 +435,13 @@ FLASH_REHEARSAL = {
     "deepseek_prefill_probs_bf16": (2, 4, 4, 24, 24, 24, True, 0, BF16),
     "f32_probs_bf16": (1, 4, 2, 37, 37, 16, True, 0, F32),
     "zamba2_prefill": (2, 4, 4, 40, 40, 112, True, 0, BF16),
+    "seamless_encoder": (2, 4, 4, 10, 10, 16, False, 0, BF16),
+    "seamless_cross": (2, 4, 4, 40, 10, 16, False, 0, BF16),
+    "seamless_decoder": (2, 4, 4, 40, 40, 16, True, 0, BF16),
+    "internvl_prefill": (2, 4, 4, 40, 40, 16, True, 0, BF16),
 }
+#: the frontend cells' flash calls (each timed beside scaled_dot_product_attention)
+FRONTEND_CASES = ("seamless_encoder", "seamless_cross", "seamless_decoder", "internvl_prefill")
 #: cases' options: ``v_cols``, V's real columns (MLA pads V with zeros to
 #: the qk head dim, as ``attention.mla_attention`` does: deepseek-v3's 128 of
 #: 192, the reduced config's 16 of 24); ``probs_bf16``, the flag's instances;
@@ -461,10 +520,27 @@ FLOAT_KERNELS = ("flash_attention", "flash_attention_f32", *SCAN_KERNELS)
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
 #: the flash_attention cases timed beside scaled_dot_product_attention
-SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill", *FLASH_OPTIONS)
+SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill", *FLASH_OPTIONS,
+              *FRONTEND_CASES)
 #: a kernels-line row's keys that stay in the phase's own printed lines
 ROW_DETAIL = ("shape", "tol", "sdpa_ratio", "regime", "cuda_core_ms", "device_ms", "rel_l2",
               "state_equal", "host_us")
+
+
+@contextlib.contextmanager
+def planted(plant):
+    """``plant`` = (owner, function name, wrapper): the wrapped function in
+    place while the block runs (None: nothing planted)."""
+    if plant is None:
+        yield
+        return
+    owner, name, wrap = plant
+    real = getattr(owner, name)
+    setattr(owner, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1999,15 +2075,26 @@ def serving_setup(vz: dict, dev, seed: int) -> dict:
     print(f"serving model: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters ({cfg.dtype}), init {init_s:.2f}s", flush=True)
     return dict(cfg=cfg, params=params, n_params=n_params, label=f"{cfg.name} serving",
-                prompts=torch.from_numpy(prompts).to(dev))
+                prompts=torch.from_numpy(prompts).to(dev), embeds={})
+
+
+def rows_of(embeds: dict, rows) -> dict:
+    """The frontend embeddings (``patch_embeds`` / ``src_embeds``) of ``rows``."""
+    return {k: e[rows] for k, e in embeds.items()}
+
+
+def n_patches(embeds: dict) -> int:
+    """Positions the patches take before the text (0 without them)."""
+    return embeds["patch_embeds"].shape[1] if "patch_embeds" in embeds else 0
 
 
 def serving_path(impl: str, vz: dict, sv: dict, forced=None) -> dict:
-    """``serve`` over every request; each wave's prefill and decode logits kept."""
+    """``serve`` over every request (with each one's frontend embeddings);
+    each wave's prefill and decode logits kept."""
     logits, timings = {}, {}
     tokens = serve(sv["params"], sv["cfg"], sv["prompts"], vz["batch"], vz["gen"], impl,
                    forced=forced, on_logits=lambda w, st, lg: logits.__setitem__((w, st), lg),
-                   timings=timings)
+                   timings=timings, **sv["embeds"])
     return dict(tokens=tokens, logits=logits, timings=timings, impl=impl,
                 window_cache=sv["cfg"].window_cache)
 
@@ -2020,7 +2107,9 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def check_serving(r: dict, vz: dict, sv: dict) -> None:
     """Finite logits, gen in-vocab tokens per request, and prefill/decode
     consistency on wave 0: decode step n's logits equal the last-position
-    logits of a prefill of prompt + tokens[:n] (n = 1 and gen)."""
+    logits of a prefill of prompt + tokens[:n] (n = 1 and gen), with the
+    rows' frontend embeddings (what the cache carries: K/V, recurrent
+    state, an encoder-decoder's cross K/V)."""
     cfg, vocab = sv["cfg"], sv["cfg"].vocab
     n_waves = -(-vz["requests"] // vz["batch"])
     check(sorted(r["logits"]) == [(w, s) for w in range(n_waves) for s in range(vz["gen"] + 1)],
@@ -2036,8 +2125,8 @@ def check_serving(r: dict, vz: dict, sv: dict) -> None:
     r["consistency"] = {}
     for n in (1, vz["gen"]):
         seq = torch.cat([sv["prompts"][rows], gen_toks[:, :n].to(sv["prompts"].dtype)], dim=1)
-        _, last = lm.prefill(sv["params"], cfg, {"tokens": seq}, cache_len=seq.shape[1],
-                             impl=r["impl"])
+        _, last = lm.prefill(sv["params"], cfg, {"tokens": seq, **rows_of(sv["embeds"], rows)},
+                             cache_len=n_patches(sv["embeds"]) + seq.shape[1], impl=r["impl"])
         r["consistency"][n] = rel_l2(r["logits"][0, n][rows, :vocab], last[:, :vocab])
     print(f"{sv['label']} ({r['impl']}): decode step n vs prefill of prompt + n tokens, "
           f"relative L2 {r['consistency']}", flush=True)
@@ -2046,10 +2135,11 @@ def check_serving(r: dict, vz: dict, sv: dict) -> None:
                                    f"{n} tokens, relative L2 {err} <= {SERVE_REL_L2}")
 
 
-def first_attention(sv: dict, tokens: torch.Tensor, impl: str) -> torch.Tensor:
+def first_attention(sv: dict, tokens: torch.Tensor, impl: str, embeds=None) -> torch.Tensor:
     """The first layer's attention output (B, T, d_model), tapped where
     ``lm.forward`` of the model cut to that layer calls the attention
-    (``mla_attention`` for an MLA model)."""
+    (``mla_attention`` for an MLA model); ``embeds``: a decoder-only
+    model's ``patch_embeds`` before the tokens."""
     cfg = dataclasses.replace(sv["cfg"], n_layers=1)
     params = dict(sv["params"], layers=sv["params"]["layers"][:1])
     name = "mla_attention" if cfg.mla is not None else "attention"
@@ -2061,18 +2151,24 @@ def first_attention(sv: dict, tokens: torch.Tensor, impl: str) -> torch.Tensor:
         return out
     setattr(lm.attn_mod, name, tap)
     try:
-        lm.forward(params, cfg, tokens, impl=impl)
+        lm.forward(params, cfg, tokens, impl=impl, **(embeds or {}))
     finally:
         setattr(lm.attn_mod, name, real)
     return seen[0].float()
 
 
-def first_layer_gap(sv: dict, tokens: torch.Tensor) -> float:
-    """Largest per-position relative L2 gap between the first layer's
-    attention outputs through the kernel and through the plain version."""
-    a, b = first_attention(sv, tokens, "auto"), first_attention(sv, tokens, "torch")
+def position_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest relative L2 gap over positions (the last dim) of a to b."""
+    a, b = a.float(), b.float()
     return float((torch.linalg.vector_norm(a - b, dim=-1)
                   / torch.linalg.vector_norm(b, dim=-1)).max())
+
+
+def first_layer_gap(sv: dict, tokens: torch.Tensor, embeds=None) -> float:
+    """Largest per-position relative L2 gap between the first layer's
+    attention outputs through the kernel and through the plain version."""
+    return position_gap(first_attention(sv, tokens, "auto", embeds),
+                        first_attention(sv, tokens, "torch", embeds))
 
 
 def _lose_oldest_tile(real):
@@ -2911,15 +3007,24 @@ def ds_split(dz: dict, dv: dict, absorb: bool) -> dict:
 # the recurrent serving cells: zamba2-7b and rwkv6-1.6b at full width and depth
 # --------------------------------------------------------------------------
 
+def flash_calls(cfg) -> int:
+    """The flash launches of one prefill: one per attention layer (``g``,
+    ``l``, ``a``), and for an encoder-decoder one per encoder layer and one
+    per decoder cross-attention (``g``, ``l``)."""
+    kinds = [lm.kind_at(cfg, i) for i in range(cfg.n_layers)]
+    cross = sum(k in "gl" for k in kinds) if cfg.encoder_layers else 0
+    return sum(k in "gla" for k in kinds) + cfg.encoder_layers + cross
+
+
 def serving_launches(cfg, n_waves: int, gen: int, prompt_len: int) -> dict:
     """The kernel launches one ``serve`` run makes without MoE layers: the
-    flash route of the model's dtype once per attention layer (``g``, ``l``,
-    ``a``) and wave, each mixer's scan once per ``m`` or ``r`` layer and
-    call (a prefill of ``prompt_len`` steps and ``gen`` decode steps a
-    wave); Mamba2's by the route each call's shape picks."""
+    flash route of the model's dtype ``flash_calls`` times a wave, each
+    mixer's scan once per ``m`` or ``r`` layer and call (a prefill of
+    ``prompt_len`` steps and ``gen`` decode steps a wave); Mamba2's by the
+    route each call's shape picks."""
     kinds = [lm.kind_at(cfg, i) for i in range(cfg.n_layers)]
     route = "flash_attention_f32" if cfg.dtype == "float32" else "flash_attention"
-    per_call = {route: sum(k in "gla" for k in kinds) * n_waves,
+    per_call = {route: flash_calls(cfg) * n_waves,
                 "mamba_scan": 0, "mamba_scan_seq": 0,
                 "rwkv_scan": kinds.count("r") * n_waves * (gen + 1)}
     if "m" in kinds:
@@ -3135,48 +3240,54 @@ STATE_FAULTS = {"m": ("mamba_apply", "conv state zeroed at decode", _conv_state_
                 "r": ("rwkv_apply", "prev dropped at decode (time mix)", _prev_dropped)}
 
 
-def state_carry_gap(params, cfg, prompts: torch.Tensor, fed: torch.Tensor,
+def state_carry_gap(params, cfg, prompts: torch.Tensor, fed: torch.Tensor, embeds=None,
                     plant=None) -> float:
     """Relative L2 gap between the logits of a prefill of ``prompts`` (P
     tokens) and a decode step of ``fed`` (B, 1), and the last row's of a
-    prefill of the P + 1 tokens: what the cache carries (``conv``, ``ssd``,
-    ``s``, ``prev``, ``cm_prev``, K/V) must give the same step.  ``plant``
-    = (function of models/ssm.py, wrapper) is in place for the prefill and
-    decode step."""
+    prefill of the P + 1 tokens, each prefill with the rows' frontend
+    ``embeds``: what the cache carries (``conv``, ``ssd``, ``s``, ``prev``,
+    ``cm_prev``, K/V, an encoder-decoder's cross K/V) must give the same
+    step.  ``plant`` = (owner, function name, wrapper) is in place for the
+    prefill and decode step."""
+    embeds = embeds or {}
     full = torch.cat([prompts, fed.to(prompts.dtype)], dim=1)
-    _, want = lm.prefill(params, cfg, {"tokens": full}, cache_len=full.shape[1])
-    real = None
-    if plant is not None:
-        real = getattr(ssm_mod, plant[0])
-        setattr(ssm_mod, plant[0], plant[1](real))
-    try:
-        cache, _ = lm.prefill(params, cfg, {"tokens": prompts}, cache_len=full.shape[1])
+    cache_len = n_patches(embeds) + full.shape[1]
+    _, want = lm.prefill(params, cfg, {"tokens": full, **embeds}, cache_len=cache_len)
+    with planted(plant):
+        cache, _ = lm.prefill(params, cfg, {"tokens": prompts, **embeds}, cache_len=cache_len)
+        check(cache["pos"] == cache_len - 1, f"{cfg.name}: pos {cache['pos']} after a prefill of "
+                                             f"{n_patches(embeds)} patches and "
+                                             f"{prompts.shape[1]} tokens")
         got, _ = lm.decode_step(params, cfg, cache, fed)
-    finally:
-        if real is not None:
-            setattr(ssm_mod, plant[0], real)
     return rel_l2(got[:, :cfg.vocab], want[:, :cfg.vocab])
 
 
-def state_carry_check(r: dict, limit: float) -> None:
-    """:func:`state_carry_gap` on wave 0's prompts and first served tokens
-    within ``limit``; each planted fault of a mixer kind the model has
-    (STATE_FAULTS) must break it by FAULT_FACTOR."""
+def carry_check(label: str, r: dict, limit: float, faults: dict, factor: float) -> None:
+    """:func:`state_carry_gap` on wave 0's prompts (and embeddings) and
+    first served tokens within ``limit``; each planted fault of ``faults``
+    (name -> (owner, function name, wrapper)) must break it by ``factor``."""
     cfg, batch = r["cfg"], r["batch"]
-    prompts = r["prompts"][:batch]
+    prompts, embeds = r["prompts"][:batch], rows_of(r["embeds"], slice(0, batch))
     fed = torch.tensor([[r["tokens"][i][0]] for i in range(batch)], device=prompts.device)
-    gap = state_carry_gap(r["params"], cfg, prompts, fed)
-    print(f"{cfg.name}: state carry, prefill of {prompts.shape[1]} + a decode step vs a "
+    gap = state_carry_gap(r["params"], cfg, prompts, fed, embeds)
+    print(f"{cfg.name}: {label}, prefill of {prompts.shape[1]} + a decode step vs a "
           f"prefill of {prompts.shape[1] + 1}, logits relative L2 {gap:.3e} (limit {limit:g})",
           flush=True)
-    check(gap <= limit, f"{cfg.name}: state carry within relative L2 {limit:g}")
-    for kind, (fn, fault, plant) in STATE_FAULTS.items():
-        if kind in cfg.layer_pattern:
-            bad = state_carry_gap(r["params"], cfg, prompts, fed, plant=(fn, plant))
-            print(f"{cfg.name}: planted fault '{fault}': state carry gap {bad:.3e} "
-                  f"(limit {limit:g})", flush=True)
-            check(bad > FAULT_FACTOR * limit,
-                  f"{cfg.name}: the state-carry check catches '{fault}' by {FAULT_FACTOR}x")
+    check(gap <= limit, f"{cfg.name}: {label} within relative L2 {limit:g}")
+    for fault, plant in faults.items():
+        bad = state_carry_gap(r["params"], cfg, prompts, fed, embeds, plant=plant)
+        print(f"{cfg.name}: planted fault '{fault}': {label} gap {bad:.3e} (limit {limit:g})",
+              flush=True)
+        check(bad > factor * limit, f"{cfg.name}: the {label} check catches '{fault}' by "
+                                    f"{factor:g}x")
+
+
+def state_carry_check(r: dict, limit: float) -> None:
+    """:func:`carry_check` of the state carry; each planted fault of a mixer
+    kind the model has (STATE_FAULTS) must break it by FAULT_FACTOR."""
+    faults = {fault: (ssm_mod, fn, plant) for kind, (fn, fault, plant) in STATE_FAULTS.items()
+              if kind in r["cfg"].layer_pattern}
+    carry_check("state carry", r, limit, faults, FAULT_FACTOR)
 
 
 def ssm_roles() -> dict:
@@ -3229,13 +3340,278 @@ def ssm_split(cz: dict, cv: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the frontend cells: seamless-m4t-medium (encoder-decoder, frames) and
+# internvl2-76b (patches before the text)
+# --------------------------------------------------------------------------
+
+def frontend_batch(cfg, requests: int, seq: int, dev, seed: int) -> dict:
+    """A prefill batch of ``seq`` positions for ``requests`` requests, drawn
+    from ``seed`` as ``data.tokens.synth_batch`` draws it: ``tokens`` and
+    the frontend's float32 ``patch_embeds`` (``frontend_len`` of the
+    positions) or ``src_embeds`` (``max(seq // 4, 8)`` source frames)."""
+    return synth_batch(cfg, ShapeSpec("serve", seq, requests, "prefill"),
+                       np.random.default_rng(seed), device=dev)
+
+
+def frontend_setup(fz: dict, dev, seed: int) -> dict:
+    """The model (cut to ``layers`` decoder layers if given; seeded
+    init_params on the card), its exact parameter counts (the whole
+    model's beside the cut's) and the cell's prompts and embeddings."""
+    cfg = get_config(fz["arch"])
+    if fz["reduced"]:
+        cfg = reduced(cfg)
+    whole = cfg
+    if fz["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=fz["layers"])
+    sync(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = _tree_sum(params)
+    exact = lm.param_count_exact(cfg)
+    check(exact == n_params, f"{cfg.name}: exact count {exact} equals its tensors' {n_params}")
+    batch = frontend_batch(cfg, fz["requests"], fz["seq"], dev, seed)
+    prompts = batch.pop("tokens")
+    print(f"frontend model: {cfg.name}, {cfg.encoder_layers} encoder and {cfg.n_layers} of "
+          f"{whole.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.activation}), vocab "
+          f"{cfg.vocab} (padded {cfg.padded_vocab}), {n_params} parameters exact "
+          f"({_tree_bytes(params)} bytes, {cfg.dtype}; the whole model "
+          f"{lm.param_count_exact(whole)}), init {init_s:.2f}s; prompts "
+          f"{tuple(prompts.shape)}, "
+          + ", ".join(f"{k} {tuple(e.shape)}" for k, e in batch.items()), flush=True)
+    return dict(cfg=cfg, params=params, n_params=n_params, label=f"{cfg.name} serving",
+                prompts=prompts, embeds=batch)
+
+
+def attention_calls(params, cfg, tokens: torch.Tensor, embeds: dict) -> dict:
+    """``lm.forward`` of ``tokens`` and ``embeds`` through the kernels (no
+    cache: the prefill's attention), its attention calls tapped where
+    ``lm`` makes them; the first of each role, as (args, kwargs):
+    ``encoder`` (non-causal self-attention), ``cross`` (``kv_source``
+    given) and ``self`` (the decoder's causal one)."""
+    real, seen = lm.attn_mod.attention, {}
+
+    def tap(*args, **kwargs):
+        role = ("cross" if kwargs.get("kv_source") is not None else
+                "self" if kwargs.get("causal", True) else "encoder")
+        seen.setdefault(role, (args, kwargs))
+        return real(*args, **kwargs)
+    lm.attn_mod.attention = tap
+    try:
+        lm.forward(params, cfg, tokens, impl="auto", **embeds)
+    finally:
+        lm.attn_mod.attention = real
+    return seen
+
+
+def call_gap(call: tuple, plant=None) -> float:
+    """One captured attention call rerun on its own inputs through the
+    kernel and the plain version: the largest per-position relative L2 gap
+    of the outputs.  ``plant`` (see :func:`planted`) is in place for the
+    kernel run only."""
+    args, kwargs = call
+    with planted(plant):
+        got = lm.attn_mod.attention(*args, **dict(kwargs, cache=None, impl="auto"))[0]
+    want = lm.attn_mod.attention(*args, **dict(kwargs, cache=None, impl="torch"))[0]
+    return position_gap(got, want)
+
+
+def _causal_encoder(real):
+    def fault(q, k, v, causal=True, window=0, **kw):
+        return real(q, k, v, causal=causal or q.shape[2] == k.shape[2], window=window, **kw)
+    return fault
+
+
+def _cross_kv_unwritten(real):
+    def fault(params, x, cfg, *, cache=None, kv_source=None, **kw):
+        if kv_source is None or cache is None:
+            return real(params, x, cfg, cache=cache, kv_source=kv_source, **kw)
+        out, _ = real(params, x, cfg, kv_source=kv_source, **kw)
+        return out, cache          # xk/xv stay as cache_init made them: zero
+    return fault
+
+
+def _cross_rotary(real):
+    def fault(params, x, cfg, *, positions, causal=True, window=0, cache=None,
+              cache_len=None, kv_source=None, impl="auto"):
+        if kv_source is None:
+            return real(params, x, cfg, positions=positions, causal=causal, window=window,
+                        cache=cache, cache_len=cache_len, impl=impl)
+        b, t, _ = x.shape
+        s, hd = kv_source.shape[1], cfg.head_dim
+        src_pos = torch.arange(s, device=x.device)[None, None]
+        q = layers_mod.rotary((x @ params["wq"]).reshape(b, t, -1, hd).transpose(1, 2),
+                              positions[:, None], cfg.rope_theta)
+        k = layers_mod.rotary((kv_source @ params["wk"]).reshape(b, s, -1, hd).transpose(1, 2),
+                              src_pos, cfg.rope_theta)
+        v = (kv_source @ params["wv"]).reshape(b, s, -1, hd).transpose(1, 2)
+        if cache is not None:
+            cache["k"][:, :, :s], cache["v"][:, :, :s] = k, v
+        out = ops.flash_attention(q, k, v, causal=False, impl=impl)
+        return out.transpose(1, 2).reshape(b, t, -1) @ params["wo"], cache
+    return fault
+
+
+def _positions_restart(real):
+    def fault(params, x, cfg, *, positions, **kw):
+        p = cfg.frontend_len
+        if positions.shape[1] > p:      # a prefill over the patches and the text
+            positions = torch.cat([positions[:, :p], positions[:, p:] - p], dim=1)
+        return real(params, x, cfg, positions=positions, **kw)
+    return fault
+
+
+#: faults planted in the model around the attention: what the decode checks see
+CROSS_FAULTS = {"cross K/V left zero at prefill (the JAX package's behaviour)":
+                (lm.attn_mod, "attention", _cross_kv_unwritten),
+                "rotary applied to the cross-attention's q and k":
+                (lm.attn_mod, "attention", _cross_rotary)}
+PATCH_FAULTS = {"positions restarted at the first text token":
+                (lm.attn_mod, "attention", _positions_restart)}
+
+
+def decode_row_gap(fv: dict, prompts: torch.Tensor, fed: torch.Tensor, embeds: dict,
+                   plant=None) -> float:
+    """The first decoder layer's attention at a decode step (an
+    encoder-decoder's cross-attention over the cached ``xk``/``xv``, else
+    the self-attention over the cached K/V) against the same call in a
+    prefill of ``prompts`` + ``fed`` through the kernel, on the same input
+    row (that prefill's last): the largest relative L2 gap over rows.  The
+    model is cut to that layer (an encoder-decoder keeps its encoder);
+    ``plant`` = (owner, function name, wrapper) is in place for the prefill
+    of ``prompts`` that writes the cache."""
+    cfg = dataclasses.replace(fv["cfg"], n_layers=1)
+    params = dict(fv["params"], layers=fv["params"]["layers"][:1])
+    real = lm.attn_mod.attention
+    full = torch.cat([prompts, fed.to(prompts.dtype)], dim=1)
+    args, kwargs = attention_calls(params, cfg, full, embeds)[
+        "cross" if cfg.encoder_layers else "self"]
+    want, x = real(*args, **kwargs)[0][:, -1:], args[1][:, -1:]
+    with planted(plant):
+        cache, _ = lm.prefill(params, cfg, {"tokens": prompts, **embeds},
+                              cache_len=n_patches(embeds) + full.shape[1])
+    c, pos, bp = cache["layers"][0], cache["pos"], params["layers"][0]
+    check(pos == n_patches(embeds) + prompts.shape[1],
+          f"{cfg.name}: pos {pos} after a prefill of {n_patches(embeds)} patches and "
+          f"{prompts.shape[1]} tokens")
+    if cfg.encoder_layers:
+        got = lm.attn_mod.cross_decode(bp["xattn"], x, cfg, c["xk"], c["xv"])
+    else:
+        positions = torch.full((full.shape[0], 1), pos, dtype=torch.int32, device=full.device)
+        got, _ = real(bp["attn"], x, cfg, positions=positions, cache={"k": c["k"], "v": c["v"]},
+                      cache_len=pos)
+    return position_gap(got, want)
+
+
+def decode_row_check(fv: dict, r: dict, batch: int, faults: dict) -> None:
+    """:func:`decode_row_gap` on wave 0's prompts, embeddings and first
+    served tokens within LAYER_REL_L2 (the two differ by the kernel's
+    rounding); each planted fault of ``faults`` must break it."""
+    prompts, embeds = fv["prompts"][:batch], rows_of(fv["embeds"], slice(0, batch))
+    fed = torch.tensor([[r["tokens"][i][0]] for i in range(batch)], device=prompts.device)
+    what = "cross-attention" if fv["cfg"].encoder_layers else "self-attention"
+    gap = decode_row_gap(fv, prompts, fed, embeds)
+    print(f"{fv['label']}: first layer's {what} at decode (pos "
+          f"{n_patches(embeds) + prompts.shape[1]} after the prefill) over the prefill's cache "
+          f"vs in a prefill of prompt + 1, the same input row: largest relative L2 {gap:.6f} "
+          f"(limit {LAYER_REL_L2})", flush=True)
+    check(gap <= LAYER_REL_L2, f"{fv['cfg'].name}: the decode {what} within {LAYER_REL_L2}")
+    for fault, plant in faults.items():
+        bad = decode_row_gap(fv, prompts, fed, embeds, plant)
+        print(f"{fv['label']}: planted fault '{fault}': decode {what} gap {bad:.6f} "
+              f"(limit {LAYER_REL_L2})", flush=True)
+        check(bad > LAYER_REL_L2, f"{fv['cfg'].name}: the decode {what} check catches '{fault}'")
+
+
+def same_frontend(a: dict, b: dict, fz: dict, fv: dict) -> None:
+    """:func:`same_logits`; the first attention calls of wave 0's prefill
+    (seamless: the first encoder layer's self-attention and the first
+    decoder layer's cross-attention, on the inputs the kernel run gave
+    them; internvl: the first layer's, the model cut to it) kernel vs plain
+    within LAYER_REL_L2, and the encoder run causally must break that; then
+    the decode check (:func:`decode_row_check`: the cross carry, or the
+    positions after the patches), which each planted fault must break.
+    (:func:`check_serving` already held the decode logits against a prefill
+    of the same tokens at SERVE_REL_L2.)"""
+    same_logits(a, b, fz, fv)
+    cfg, rows = fv["cfg"], slice(0, fz["batch"])
+    if cfg.encoder_layers:
+        calls = attention_calls(fv["params"], cfg, fv["prompts"][rows],
+                                rows_of(fv["embeds"], rows))
+        gaps = {role: call_gap(calls[role]) for role in ("encoder", "cross")}
+        bad = call_gap(calls["encoder"], plant=(ops, "flash_attention", _causal_encoder))
+        print(f"{fv['label']}: first encoder layer's attention and first decoder layer's "
+              f"cross-attention (q {tuple(calls['cross'][0][1].shape)} over "
+              f"{tuple(calls['cross'][1]['kv_source'].shape)}), kernel vs plain, largest "
+              f"relative L2 over positions {gaps} (limit {LAYER_REL_L2}); planted fault "
+              f"'encoder run causally': {bad:.6f}", flush=True)
+        check(all(g <= LAYER_REL_L2 for g in gaps.values()),
+              f"{cfg.name}: first encoder and cross attention within {LAYER_REL_L2}")
+        check(bad > LAYER_REL_L2, f"{cfg.name}: the encoder check catches a causal encoder")
+        faults = CROSS_FAULTS
+    else:
+        gap = first_layer_gap(fv, fv["prompts"][rows], rows_of(fv["embeds"], rows))
+        print(f"{fv['label']}: first layer, kernel vs plain attention output over "
+              f"{n_patches(fv['embeds'])} patches and {fv['prompts'].shape[1]} tokens, largest "
+              f"relative L2 over positions {gap:.6f} (limit {LAYER_REL_L2})", flush=True)
+        check(gap <= LAYER_REL_L2,
+              f"{cfg.name}: first-layer attention outputs within {LAYER_REL_L2}")
+        faults = PATCH_FAULTS
+    decode_row_check(fv, a, fz["batch"], faults)
+
+
+def frontend_roles() -> dict:
+    """Roles of the frontend cells' device time (see :func:`role_split`):
+    the encoder (its attention and MLP go to their own roles, the flash
+    kernel by name), the attention projections, decode attention over the
+    cache (the self K/V and the cross K/V), the MLP; the rest is the
+    embedding, the norms and the head."""
+    return {"encoder": (lm, "encode"), "attention projections": (lm.attn_mod, "attention"),
+            "cross decode": (lm.attn_mod, "cross_decode"),
+            "decode attention": (lm.attn_mod, "decode_attention"), "MLP": (layers_mod, "mlp")}
+
+
+def frontend_split(fz: dict, fv: dict) -> dict:
+    """The device split by role of one prefill wave and one decode step
+    through the kernels (after a warm wave and step)."""
+    cfg, params = fv["cfg"], fv["params"]
+    rows = slice(0, fz["batch"])
+    batch = {"tokens": fv["prompts"][rows], **rows_of(fv["embeds"], rows)}
+    cache_len = n_patches(fv["embeds"]) + fv["prompts"].shape[1] + fz["gen"]
+    state = {}
+
+    def prefill():
+        state["cache"], lg = lm.prefill(params, cfg, batch, cache_len=cache_len)
+        state["tok"] = lg.argmax(-1)[:, None]
+
+    def decode():
+        lm.decode_step(params, cfg, state["cache"], state["tok"])
+    prefill()
+    decode()
+    torch.cuda.synchronize()
+    out = {}
+    for what, fn in (("prefill wave", prefill), ("decode step", decode)):
+        trace = {}
+        out[what] = split = role_split(fn, frontend_roles(), names=(("flash_fwd", "flash"),),
+                                       trace=trace)
+        print(f"{cfg.name} split {what} (device ms by role; wall {trace['wall_ms']:.2f} ms, "
+              f"device {sum(trace['by_name'].values()):.2f} ms): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the float32 serve phase: serve.py's main with the reduced configurations
 # --------------------------------------------------------------------------
 
 #: the JAX package's own float32 configurations (configs.reduced), served
-#: by serve.py's main at its default flags (16 requests, 4 slots)
+#: by serve.py's main at its default flags (16 requests, 4 slots); the
+#: frontend models through serve(...) with their embeddings (the CLI serves
+#: tokens only)
 F32_SERVE_ARCHS = ("qwen3-4b", "gemma3-4b", "arctic-480b", "deepseek-v3-671b", "zamba2-7b",
-                   "rwkv6-1.6b")
+                   "rwkv6-1.6b", "seamless-m4t-medium", "internvl2-76b")
 #: the prompt length serve.main runs at (its --prompt-len default)
 F32_SERVE_PROMPT_LEN = 32
 #: relative L2 gap allowed between the kernel run's logits and the plain
@@ -3261,16 +3637,26 @@ def _one_tf32_pass(real):
     return control
 
 
-def attention_layers(cfg) -> int:
-    return sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
+def frontend_main(arch: str, dev) -> int:
+    """What ``serve.main(["--arch", arch, "--reduced"])`` does at its
+    defaults (seed 0: the model, 16 requests of 32 tokens in 4 slots, 16
+    tokens each), for a frontend model, whose embeddings the CLI does not
+    take: the prompts and each request's embeddings drawn as
+    ``synth_batch`` draws them, served through ``serve(...)``."""
+    cfg = reduced(get_config(arch))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    patches = cfg.frontend_len if cfg.frontend == "patch" else 0
+    batch = frontend_batch(cfg, 16, patches + F32_SERVE_PROMPT_LEN, dev, 0)
+    serve_cli.serve(params, cfg, batch.pop("tokens"), 4, 16, **batch)
+    return 0
 
 
 def _serve_tapped(arch: str, dev, plant=None, forced=None) -> dict:
-    """``serve.main(["--arch", arch, "--reduced"])`` as a user runs it,
-    its ``serve`` call tapped for the model, the prompts, the tokens and
-    every step's logits, and ``ops.flash_attention`` for the inputs and
-    output of each call (wave 0's prefill makes the first, one per
-    attention layer).
+    """``serve.main(["--arch", arch, "--reduced"])`` as a user runs it
+    (``frontend_main`` for a frontend model), its ``serve`` call tapped
+    for the model, the prompts, the embeddings, the tokens and every
+    step's logits, and ``ops.flash_attention`` for the inputs and output of
+    each call (wave 0's prefill makes the first ``flash_calls``).
     ``plant`` wraps ``ops.flash_attention``; ``forced`` feeds these tokens."""
     logits, calls, seen = {}, [], {}
     real_serve, real_attn = serve_cli.serve, ops.flash_attention
@@ -3279,22 +3665,26 @@ def _serve_tapped(arch: str, dev, plant=None, forced=None) -> dict:
     def keep(wave, step, lg):
         logits[wave, step] = lg.clone()
 
-    def tap_serve(params, cfg, prompts, batch, gen, impl="auto", **kwargs):
-        seen.update(params=params, cfg=cfg, prompts=prompts, batch=batch, gen=gen)
+    def tap_serve(params, cfg, prompts, batch, gen, impl="auto", **embeds):
+        seen.update(params=params, cfg=cfg, prompts=prompts, batch=batch, gen=gen,
+                    embeds=embeds)
         seen["tokens"] = real_serve(params, cfg, prompts, batch, gen, impl, on_logits=keep,
-                                    forced=forced, **kwargs)
+                                    forced=forced, **embeds)
         return seen["tokens"]
 
     def tap_attn(q, k, v, causal=True, window=0, impl="auto", probs_bf16=False):
         check(not probs_bf16, "the float32 serve phase runs without probs_bf16")
         out = attn(q, k, v, causal=causal, window=window, impl=impl)
-        if len(calls) < attention_layers(seen["cfg"]):
+        if len(calls) < flash_calls(seen["cfg"]):
             calls.append((q.clone(), k.clone(), v.clone(), causal, window, out.clone()))
         return out
     serve_cli.serve, ops.flash_attention = tap_serve, tap_attn
     try:
-        rc = serve_cli.main(["--arch", arch, "--reduced"]
-                            + (["--cpu"] if dev.type == "cpu" else []))
+        if get_config(arch).frontend is not None:
+            rc = frontend_main(arch, dev)
+        else:
+            rc = serve_cli.main(["--arch", arch, "--reduced"]
+                                + (["--cpu"] if dev.type == "cpu" else []))
     finally:
         serve_cli.serve, ops.flash_attention = real_serve, real_attn
     check(rc == 0 and "tokens" in seen, f"f32 serve {arch}: serve.main returned {rc}")
@@ -3311,7 +3701,8 @@ def f32_serve_path(impl: str, arch: str, runs: dict, dev) -> dict:
     forced = torch.tensor([a["tokens"][i] for i in range(len(a["tokens"]))], device=dev)
     tokens = serve(a["params"], a["cfg"], a["prompts"], a["batch"], a["gen"], "torch",
                    forced=forced, on_logits=lambda w, st, lg: logits.__setitem__((w, st),
-                                                                               lg.clone()))
+                                                                               lg.clone()),
+                   **a["embeds"])
     return dict(a, tokens=tokens, logits=logits, impl=impl)
 
 
@@ -3351,17 +3742,20 @@ def _logits_gap(a: dict, b: dict) -> dict:
 
 
 def same_f32_serve(a: dict, b: dict, dev) -> None:
-    """Each attention layer's prefill call of wave 0, as the kernel run
-    made it, within 3e-5 of the plain version on its inputs; the plain
-    run's logits within F32_SERVE_REL_L2 of the kernel run's at every
+    """Each flash call of wave 0's prefill (one per attention layer; an
+    encoder-decoder's encoder layers and cross-attentions too), as the
+    kernel run made it, within 3e-5 of the plain version on its inputs; the
+    plain run's logits within F32_SERVE_REL_L2 of the kernel run's at every
     (wave, step).  Then, for a model with attention layers, a control:
     serve.main again with Q, K and V rounded to TF32 before the kernel, fed
     the kernel run's tokens; both checks must catch it.  For a model with
-    mixer layers, the state carry (:func:`state_carry_check`) within
-    F32_SERVE_REL_L2, its planted faults past FAULT_FACTOR times that."""
+    mixer layers, the state carry (:func:`state_carry_check`), for an
+    encoder-decoder the cross carry and for a patch model the decode after
+    the patches (:func:`carry_check`), within F32_SERVE_REL_L2, their
+    planted faults past FAULT_FACTOR times that."""
     name, m = a["cfg"].name, a["cfg"].mla
-    check(len(a["calls"]) == attention_layers(a["cfg"]),
-          f"f32 serve {name}: wave 0's prefill calls captured, one per attention layer")
+    check(len(a["calls"]) == flash_calls(a["cfg"]),
+          f"f32 serve {name}: wave 0's prefill calls captured, {flash_calls(a['cfg'])}")
     if m is not None:   # MLA: D = nope + rope, V zero past v_head_dim
         dq = m.qk_nope_head_dim + m.qk_rope_head_dim
         check(all(q.shape[-1] == v.shape[-1] == dq and not bool(v[..., m.v_head_dim:].any())
@@ -3370,9 +3764,10 @@ def same_f32_serve(a: dict, b: dict, dev) -> None:
     for i, (q, k, v, causal, window, out) in enumerate(a["calls"]):
         err, _ = attention_close(out, fa.flash_attention_plain(q, k, v, causal=causal,
                                                                window=window),
-                                 f"f32 serve {name}: layer {i} prefill call, kernel vs plain")
-        print(f"f32 serve {name}: layer {i} prefill call {tuple(q.shape)} window {window}: "
-              f"max |kernel - plain| {err:.3g} (atol=rtol=3e-5)", flush=True)
+                                 f"f32 serve {name}: prefill call {i}, kernel vs plain")
+        print(f"f32 serve {name}: prefill call {i} q {tuple(q.shape)} kv {tuple(k.shape)} "
+              f"causal {causal} window {window}: max |kernel - plain| {err:.3g} "
+              f"(atol=rtol=3e-5)", flush=True)
     errs = _logits_gap(a, b)
     worst = max(errs, key=errs.get)
     a["rel_l2_max"], a["rel_l2_mean"] = errs[worst], sum(errs.values()) / len(errs)
@@ -3384,6 +3779,10 @@ def same_f32_serve(a: dict, b: dict, dev) -> None:
           f"{F32_SERVE_REL_L2:g}")
     if set(a["cfg"].layer_pattern) & set(STATE_FAULTS):
         state_carry_check(a, F32_SERVE_REL_L2)
+    if a["cfg"].encoder_layers:
+        carry_check("cross carry", a, F32_SERVE_REL_L2, CROSS_FAULTS, FAULT_FACTOR)
+    if a["cfg"].frontend == "patch":
+        carry_check("decode after the patches", a, F32_SERVE_REL_L2, PATCH_FAULTS, FAULT_FACTOR)
     if not a["calls"]:
         return
     forced = torch.tensor([a["tokens"][i] for i in range(len(a["tokens"]))], device=dev)
@@ -3467,7 +3866,7 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
         line = dict(
             card=smi, arch=vz["arch"], window_cache=r.get("window_cache"),
             requests=vz["requests"], slots=vz["batch"],
-            prompt_len=vz["prompt_len"], gen=vz["gen"],
+            prompt_len=vz["prompt_len"], frontend=vz.get("frontend"), gen=vz["gen"],
             prefill_tokens_per_s=[vz["batch"] * vz["prompt_len"] / x for x in t["prefill_s"]],
             ttft_s=t["prefill_s"], decode_ms_per_step_mean=1e3 * sum(dec) / len(dec),
             decode_ms_per_step_median=1e3 * dec[len(dec) // 2],
@@ -3765,6 +4164,22 @@ def main(argv=None) -> int:
             ssm_split(cz, cv)
         print(f"{cz['arch']} cell: {time.perf_counter() - t_c:.1f}s", flush=True)
         del cv
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # 9d. the frontend cells: serve with each request's embeddings (the plain run
+    # fed the kernel run's tokens), the first attention calls kernel vs plain and
+    # the decode check with its planted faults, then the device split
+    for fz in FRONTEND_REHEARSAL if rehearsal else FRONTEND_FULL:
+        t_c = time.perf_counter()
+        fv = frontend_setup(fz, dev, args.seed)
+        fz = dict(fz, prompt_len=fv["prompts"].shape[1],
+                  frontend={k: e.shape[1] for k, e in fv["embeds"].items()})
+        serving_cell(f"{fz['arch']} serving path", fz, fv, same=same_frontend)
+        if not rehearsal:
+            frontend_split(fz, fv)
+        print(f"{fz['arch']} cell: {time.perf_counter() - t_c:.1f}s", flush=True)
+        del fv
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 

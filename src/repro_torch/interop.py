@@ -20,9 +20,11 @@ MLA layer's six ``attn`` leaves; the MTP head's ``mtp_block``,
 ``mtp_norm`` and ``mtp_proj``; a Mamba2 or RWKV-6 layer's leaves, the
 float32 ``a_log``, ``dt_bias``, ``d_skip``, ``w0`` and ``u`` beside the
 model-dtype ones; an ``a`` layer's 0-d ``use_shared`` marker, stacked to
-one value per unit in JAX; Zamba's ``shared_attn``); ``lm_params_to_numpy``
-goes back (bf16 leaves come back as float32 arrays of the same values:
-numpy has no bfloat16 of its own).
+one value per unit in JAX; Zamba's ``shared_attn``; an encoder-decoder's
+``enc_stack``, unstacked into the port's ``encoder`` list, its
+``enc_norm``, and each decoder layer's ``ln_x`` and ``xattn``);
+``lm_params_to_numpy`` goes back (bf16 leaves come back as float32 arrays
+of the same values: numpy has no bfloat16 of its own).
 ``moe_params_for_rank`` gives rank ``r`` of a ``P``-rank model axis an
 MoE layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's
 ``shard_map`` shards them.
@@ -114,23 +116,38 @@ def tree_from_numpy(tree: dict, device="cuda") -> dict:
 
 
 #: the LM's parameters outside the layer stack
-_TOP = ("embed", "final_norm", "lm_head", "shared_attn", "mtp_block", "mtp_norm", "mtp_proj")
+_TOP = ("embed", "final_norm", "lm_head", "shared_attn", "enc_norm", "mtp_block", "mtp_norm",
+        "mtp_proj")
+
+
+def _unstack(tree: dict, n: int, device) -> list[dict]:
+    """A tree of arrays stacked on a leading axis of ``n`` -> ``n`` trees
+    of tensors on ``device``."""
+    return [_tree(lambda a: _tensor(np.asarray(a)[u], device), tree) for u in range(n)]
+
+
+def _stack(blocks: list):
+    """The trees of arrays in ``blocks`` -> one tree stacked on a leading axis."""
+    if isinstance(blocks[0], dict):
+        return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack(blocks)
 
 
 def lm_params_from_numpy(params_np: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The JAX LM pytree -> the port's parameters on ``device``: the layers
     in order (``prefix_i``, then each unit's ``p0..p{u-1}`` from
-    ``stack``, then ``rem_i``)."""
+    ``stack``, then ``rem_i``), and the encoder's blocks from ``enc_stack``."""
     prefix, n_units, n_rem = _layout(cfg)
     pat = len(cfg.layer_pattern)
     layers = [tree_from_numpy(params_np[f"prefix_{i}"], device) for i in range(prefix)]
-    for u in range(n_units):
-        for i in range(pat):
-            layers.append(_tree(lambda a: _tensor(np.asarray(a)[u], device),
-                                params_np["stack"][f"p{i}"]))
+    if n_units:
+        units = [_unstack(params_np["stack"][f"p{i}"], n_units, device) for i in range(pat)]
+        layers += [units[i][u] for u in range(n_units) for i in range(pat)]
     layers += [tree_from_numpy(params_np[f"rem_{i}"], device) for i in range(n_rem)]
     out = {k: tree_from_numpy(params_np[k], device) for k in _TOP if k in params_np}
     out["layers"] = layers
+    if "enc_stack" in params_np:
+        out["encoder"] = _unstack(params_np["enc_stack"], cfg.encoder_layers, device)
     return out
 
 
@@ -149,14 +166,11 @@ def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
         out[f"prefix_{i}"] = layers[i]
     if n_units:
         units = [[layers[prefix + u * pat + i] for u in range(n_units)] for i in range(pat)]
-
-        def stack(blocks):
-            if isinstance(blocks[0], dict):
-                return {k: stack([b[k] for b in blocks]) for k in blocks[0]}
-            return np.stack(blocks)
-        out["stack"] = {f"p{i}": stack(units[i]) for i in range(pat)}
+        out["stack"] = {f"p{i}": _stack(units[i]) for i in range(pat)}
     for i in range(n_rem):
         out[f"rem_{i}"] = layers[prefix + n_units * pat + i]
+    if "encoder" in params:
+        out["enc_stack"] = _stack([_tree(_array, bp) for bp in params["encoder"]])
     return out
 
 

@@ -10,6 +10,15 @@ recurrent models (zamba2-7b: Mamba2 with a shared attention block;
 rwkv6-1.6b) carry their recurrent state in the cache, each mixer's scan
 one kernel launch a layer and call on the card.
 
+``serve`` also takes each request's frontend embeddings: ``patch_embeds``
+(R, P, D) for a ``patch`` model (internvl2-76b: they go before the
+prompt, and the cache holds them too) or ``src_embeds`` (R, S, D) for an
+encoder-decoder (seamless-m4t-medium: encoded at the wave's prefill and
+cross-attended at every step).  The CLI serves tokens only, as the JAX
+package's does: it serves internvl2-76b without patches, and refuses an
+encoder-decoder model, whose prefill needs its source (the JAX package's
+fails there).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --reduced --cpu \\
       --requests 16 --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --reduced
@@ -32,10 +41,15 @@ from repro_torch.models import lm
 
 
 def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = "auto", *,
+          patch_embeds: torch.Tensor | None = None, src_embeds: torch.Tensor | None = None,
           forced: torch.Tensor | None = None, on_logits=None,
           timings: dict | None = None) -> dict[int, list[int]]:
     """Serve every prompt of ``prompts`` (R, P) greedily; returns each
     request's ``gen`` tokens by request index.
+
+    ``patch_embeds`` (R, n_patch, D) or ``src_embeds`` (R, S, D), if given,
+    are each request's frontend embeddings; each wave's prefill takes its
+    rows (the last wave's padding rows zero).
 
     ``forced`` (R, gen), if given, is fed in place of the greedy picks
     (teacher forcing: a second run sees the first run's tokens).
@@ -45,8 +59,10 @@ def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = 
     and ``decode_s`` (per decode step, token in to next token on the host).
     """
     n_req, prompt_len = prompts.shape
-    dev = prompts.device
-    prefill_step = make_prefill_step(cfg, cache_len=prompt_len + gen, impl=impl)
+    embeds = {k: e for k, e in (("patch_embeds", patch_embeds), ("src_embeds", src_embeds))
+              if e is not None}
+    n_patch = 0 if patch_embeds is None else patch_embeds.shape[1]
+    prefill_step = make_prefill_step(cfg, cache_len=n_patch + prompt_len + gen, impl=impl)
     decode = make_serve_step(cfg, impl=impl)
     if timings is not None:
         timings.setdefault("prefill_s", [])
@@ -64,12 +80,12 @@ def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = 
     while queue:
         active, queue = queue[:batch], queue[batch:]
         rows = slice(active[0], active[0] + len(active))    # the queue is in order
-        wave_prompts = prompts[rows]
+        inputs = {"tokens": prompts[rows], **{k: e[rows] for k, e in embeds.items()}}
         if len(active) < batch:   # pad the last wave
-            pad = torch.zeros((batch - len(active), prompt_len), dtype=prompts.dtype, device=dev)
-            wave_prompts = torch.cat([wave_prompts, pad])
+            inputs = {k: torch.cat([x, x.new_zeros((batch - len(active), *x.shape[1:]))])
+                      for k, x in inputs.items()}
         t0 = time.perf_counter()
-        cache, logits = prefill_step(params, {"tokens": wave_prompts})
+        cache, logits = prefill_step(params, inputs)
         tok = pick(logits, rows, 0)
         picks = tok[:, 0].tolist()
         if timings is not None:
@@ -110,6 +126,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.encoder_layers:
+        print(f"serve: {cfg.name} is an encoder-decoder model; the CLI serves tokens only "
+              "(pass its source to serve(..., src_embeds=...))", file=sys.stderr)
+        return 2
 
     rng = np.random.default_rng(args.seed)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)

@@ -4,9 +4,12 @@
   serve_step(params, cache, tokens) -> (logits, cache)
 
 Each closes over the config and the kernel choice ``impl``; the cache is
-whatever ``lm.cache_init`` makes for the config (K/V, MLA's latents, or
-the recurrent state of zamba2-7b's and rwkv6-1.6b's mixers).  The train
-step and the sharding trees wait for ROADMAP Queue 1 items 6-7.
+whatever ``lm.cache_init`` makes for the config (K/V, MLA's latents, the
+recurrent state of zamba2-7b's and rwkv6-1.6b's mixers, or an
+encoder-decoder's cross K/V).  The prefill batch carries the frontend's
+``patch_embeds`` or ``src_embeds`` beside ``tokens``, as in the JAX
+package.  The sharding trees wait for the multi-rank LM (ROADMAP Queue 1
+item 6.2), the train step for item 7.
 """
 
 from __future__ import annotations

@@ -13,6 +13,13 @@ allocated, and each decode step writes its one slot of the same buffers
 (the JAX package returns updated copies; here a copy of every layer's
 cache per token would cost more than the step).
 
+Cross-attention (an encoder-decoder's decoder) is ``attention`` with
+``kv_source``, the encoder's output: K and V come from the source, no
+rotary is applied, and the flash kernel runs non-causal with ``Tq != Tk``
+(the source length).  Given a cache, that call writes the source's K/V
+into it (the decoder layer's ``xk``/``xv``), which decode then attends
+(``cross_decode``).
+
 MLA (DeepSeek multi-head latent attention) keeps the compressed cache
 ``c_kv`` (B, S, kv_lora_rank) and a shared-head ``k_rope`` (B, S, rope).
 Prefill expands K and V through ``w_ukv`` and attends through the flash
@@ -74,30 +81,36 @@ def attn_init(gen: torch.Generator, cfg, dtype, device) -> dict:
 
 
 def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
-              cache_len=None, impl="auto"):
-    """Self-attention block. Returns (out, new_cache | None).
+              cache_len=None, kv_source=None, impl="auto"):
+    """Attention block. Returns (out, new_cache | None).
 
     cache: dict(k (B,Hkv,S,hd), v) for serving.  With T == 1 the step
     appends at ``cache_len`` (or modulo the ring for a window-capped
     cache) and attends over the cache; otherwise it is a prefill that
     attends over x and writes its keys into the cache.
+    kv_source (B,S,D): cross-attention over it, rotary on neither side;
+    a given cache (the layer's ``xk``/``xv`` as ``k``/``v``) gets the
+    source's K/V written into it, whatever T is.
     """
     b, t, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
+    src = x if kv_source is None else kv_source
+    ts = src.shape[1]
     q = (x @ params["wq"]).reshape(b, t, nq, hd).transpose(1, 2)
-    k = (x @ params["wk"]).reshape(b, t, nkv, hd).transpose(1, 2)
-    v = (x @ params["wv"]).reshape(b, t, nkv, hd).transpose(1, 2)
+    k = (src @ params["wk"]).reshape(b, ts, nkv, hd).transpose(1, 2)
+    v = (src @ params["wv"]).reshape(b, ts, nkv, hd).transpose(1, 2)
 
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
 
-    q = rotary(q, positions[:, None, :], cfg.rope_theta)
-    k = rotary(k, positions[:, None, :], cfg.rope_theta)
+    if kv_source is None:
+        q = rotary(q, positions[:, None, :], cfg.rope_theta)
+        k = rotary(k, positions[:, None, :], cfg.rope_theta)
 
     new_cache = None
-    if cache is not None and t == 1:
+    if cache is not None and t == 1 and kv_source is None:
         # decode: append at the absolute position, or modulo the ring
         # size for window-capped caches (cfg.window_cache)
         pos = cache_len
@@ -116,19 +129,30 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
         if cache is not None:   # prefill into the cache
             ck, cv = cache["k"], cache["v"]
             s = ck.shape[2]
-            if s < t:
+            if s < ts:
                 # window-capped ring: keep the last s keys, stored at
                 # row p % s so decode's ring append stays consistent
-                shift = (t - s) % s
+                shift = (ts - s) % s
                 ck.copy_(torch.roll(k[:, :, -s:], shift, dims=2))
                 cv.copy_(torch.roll(v[:, :, -s:], shift, dims=2))
             else:
-                ck[:, :, :t] = k
-                cv[:, :, :t] = v
+                ck[:, :, :ts] = k
+                cv[:, :, :ts] = v
             new_cache = {"k": ck, "v": cv}
 
     out = out.transpose(1, 2).reshape(b, t, nq * hd)
     return out @ params["wo"], new_cache
+
+
+def cross_decode(params, x, cfg, xk, xv):
+    """One decode step's cross-attention: x (B,1,D) against the cached
+    source K/V (B,Hkv,S,hd) over their full length, with ``q = x @ wq``
+    as the JAX package's decode branch computes it
+    (``repro/models/lm.py:293-302``: no rotary, no ``q_norm``)."""
+    b = x.shape[0]
+    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    out = decode_attention(q, xk, xv, xk.shape[2])
+    return out.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
 
 
 def _cache_append(buf, x, pos: int):

@@ -1,14 +1,16 @@
-"""Model assembly: the decoder-only LM and its serving path.
+"""Model assembly: the decoder-only and encoder-decoder LMs and their serving path.
 
 The port of ``repro/models/lm.py`` for the layer kinds ``g`` (global
 attention), ``l`` (sliding-window attention), ``m`` (Mamba2), ``r``
 (RWKV-6 with its channel mix) and ``a`` (Zamba's shared attention block),
 GQA or MLA, dense or MoE (``models/moe.py``, after the ``first_k_dense``
-prefix): ``init_params``, ``abstract_params`` and the two exact parameter
-counts, ``cache_init``, ``forward``, ``prefill`` and ``decode_step``, with
-the JAX package's quirks kept (the ``sqrt(d_model)`` embedding scale taken
-in the model's dtype, the padded vocab rows masked to ``-1e30``, the
-cache's ``pos`` bookkeeping).
+prefix), decoder-only or encoder-decoder, with the ``patch`` and ``frame``
+frontends' precomputed embeddings as inputs: ``init_params``,
+``abstract_params`` and the two exact parameter counts, ``cache_init``,
+``encode``, ``forward``, ``prefill`` and ``decode_step``, with the JAX
+package's quirks kept (the ``sqrt(d_model)`` embedding scale taken in the
+model's dtype, the padded vocab rows masked to ``-1e30``, the cache's
+``pos`` bookkeeping).
 
 Parameters are a dict: ``embed`` (padded_vocab, D), ``final_norm``,
 ``lm_head`` when the embeddings are untied, and ``layers``, one dict per
@@ -30,8 +32,20 @@ the multi-rank LM (ROADMAP Queue 1 item 6.2).  An MLA layer's cache is
 ``loss_fn`` applies it, so serving carries it unused, and applying it
 waits for item 7 with ``loss_fn``.
 
-Encoder-decoder and frontends raise ``NotImplementedError`` naming
-ROADMAP Queue 1 item 6; ``loss_fn`` and training wait for item 7.
+An encoder-decoder model (``cfg.encoder_layers``) has ``encoder``, a list
+of ``g`` blocks, and ``enc_norm``; each decoder attention layer adds
+``ln_x`` and ``xattn``, and its cache ``xk``/``xv`` (B, Hkv, S_src, hd).
+``encode`` runs the source (``src_embeds``, the ``frame`` frontend's
+output) bidirectionally with rotary over source positions.  The prefill
+cross-attends the encoder's output and writes its K/V into ``xk``/``xv``;
+decode attends them.  The JAX package's prefill never writes them, so
+its decode stops cross-attending after the first token (ROADMAP Queue 3);
+the port computes what its decode branch defines.  ``patch_embeds`` (the
+``patch`` frontend's output) go before the scaled token embeddings, cast
+to the model's dtype, and positions run over patches and text.  JAX's
+``n_skip`` (the patch count ``loss_fn`` drops) comes with ``loss_fn``
+and training, ROADMAP Queue 1 item 7; the vocab-sharded lookup and the
+model axis over several ranks with the multi-rank LM, item 6.2.
 """
 
 from __future__ import annotations
@@ -56,17 +70,11 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's LM cannot run yet."""
-    waits = []
-    if set(cfg.layer_pattern) - set(KINDS):
-        waits.append(f"layer kinds {sorted(set(cfg.layer_pattern) - set(KINDS))}")
-    if cfg.encoder_layers:
-        waits.append("encoder-decoder")
-    if cfg.frontend is not None:
-        waits.append("frontends")
-    if waits:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(waits)} wait for ROADMAP Queue 1 item 6")
+    """Raise ``ValueError`` for a layer kind outside the JAX package's zoo
+    (every architecture of the registry runs)."""
+    unknown = set(cfg.layer_pattern) - set(KINDS)
+    if unknown:
+        raise ValueError(f"{cfg.name}: layer kinds {sorted(unknown)} are not among {KINDS!r}")
 
 
 def kind_at(cfg: ArchConfig, layer_idx: int) -> str:
@@ -82,7 +90,8 @@ def _layer_is_moe(cfg: ArchConfig, layer_idx: int) -> bool:
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool) -> dict:
+def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool,
+                cross: bool = False) -> dict:
     d = cfg.d_model
     p = {"ln1": torch.ones(d, dtype=dtype, device=device)}
     if kind in ("g", "l"):
@@ -93,6 +102,9 @@ def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool) -> dict:
             p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
         else:
             p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)
+        if cross:
+            p["ln_x"] = torch.ones(d, dtype=dtype, device=device)
+            p["xattn"] = attn_mod.attn_init(gen, cfg, dtype, device)
     elif kind == "m":
         p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, device)
     elif kind == "r":
@@ -118,8 +130,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device) -> dict:
               "final_norm": torch.ones(d, dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (v, d), d ** -0.5, dtype, device)
+    cross = cfg.encoder_layers > 0
     params["layers"] = [_block_init(gen, cfg, dtype, device, kind_at(cfg, i),
-                                    _layer_is_moe(cfg, i))
+                                    _layer_is_moe(cfg, i), cross)
                         for i in range(cfg.n_layers)]
     if "a" in cfg.layer_pattern:
         params["shared_attn"] = {
@@ -127,6 +140,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device) -> dict:
             "attn": attn_mod.attn_init(gen, cfg, dtype, device),
             "ln2": torch.ones(d, dtype=dtype, device=device),
             "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)}
+    if cross:
+        params["encoder"] = [_block_init(gen, cfg, dtype, device, "g", False)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = torch.ones(d, dtype=dtype, device=device)
     if cfg.mtp:
         params["mtp_block"] = _block_init(gen, cfg, dtype, device, "g", False)
         params["mtp_norm"] = torch.ones(d, dtype=dtype, device=device)
@@ -166,12 +183,15 @@ def active_param_count_exact(cfg: ArchConfig) -> int:
     return int(total - expert_total * (1 - mo.top_k / mo.n_experts))
 
 
-def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
+def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
+               cross_len: int = 0) -> dict:
     """Zeroed caches, one per layer: K/V (an ``a`` layer's too), with
     ``window_cache`` capping an ``l`` layer's at the window (a ring); an
     MLA layer's ``c_kv`` and ``k_rope``; an ``m`` layer's float32 ``conv``
     and ``ssd``; an ``r`` layer's float32 ``s`` and its ``prev`` and
-    ``cm_prev`` in the model's dtype."""
+    ``cm_prev`` in the model's dtype.  An encoder-decoder's ``g``/``l``
+    layers also get the cross K/V ``xk``/``xv`` of ``cross_len`` source
+    positions."""
     check_supported(cfg)
     dtype = dtype_of(cfg)
     hd, nkv = cfg.head_dim, cfg.n_kv_heads
@@ -188,17 +208,21 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
             continue
         if cfg.mla is not None and kind != "a":
             m = cfg.mla
-            layers.append({"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
-                                               device=device),
-                           "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
-                                                 dtype=dtype, device=device)})
-            continue
-        s_len = cache_len
-        if (cfg.window_cache and kind == "l" and cfg.sliding_window
-                and cfg.sliding_window < cache_len):
-            s_len = cfg.sliding_window
-        layers.append({n: torch.zeros((batch, nkv, s_len, hd), dtype=dtype, device=device)
-                       for n in ("k", "v")})
+            c = {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                                     device=device),
+                 "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim), dtype=dtype,
+                                       device=device)}
+        else:
+            s_len = cache_len
+            if (cfg.window_cache and kind == "l" and cfg.sliding_window
+                    and cfg.sliding_window < cache_len):
+                s_len = cfg.sliding_window
+            c = {n: torch.zeros((batch, nkv, s_len, hd), dtype=dtype, device=device)
+                 for n in ("k", "v")}
+        if cfg.encoder_layers and kind != "a":
+            c.update({n: torch.zeros((batch, nkv, cross_len, hd), dtype=dtype, device=device)
+                      for n in ("xk", "xv")})
+        layers.append(c)
     return {"pos": 0, "layers": layers}
 
 
@@ -206,8 +230,8 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, cache=None,
-                 cache_len=None, impl="auto"):
+def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_out=None,
+                 cache=None, cache_len=None, impl="auto"):
     """Pre-norm block. Returns (x, new_cache)."""
     if kind == "m":
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -226,14 +250,31 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, cache=
         bp = shared_params
     window = cfg.sliding_window if kind == "l" else 0
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    sub_cache = None
+    if cache is not None:
+        sub_cache = {k: v for k, v in cache.items() if k not in ("xk", "xv")}
     if cfg.mla is not None and kind != "a":
         o, new_cache = attn_mod.mla_attention(bp["attn"], h, cfg, positions=positions,
-                                              cache=cache, cache_len=cache_len, impl=impl)
+                                              cache=sub_cache, cache_len=cache_len, impl=impl)
     else:
         o, new_cache = attn_mod.attention(bp["attn"], h, cfg, positions=positions,
-                                          causal=True, window=window, cache=cache,
+                                          causal=True, window=window, cache=sub_cache,
                                           cache_len=cache_len, impl=impl)
     x = x + o
+    if "xattn" in bp and enc_out is not None:
+        # cross-attention over the encoder's output; the prefill keeps its K/V
+        h = L.rms_norm(x, bp["ln_x"], cfg.norm_eps)
+        x_cache = None if cache is None else {"k": cache["xk"], "v": cache["xv"]}
+        xo, xc = attn_mod.attention(bp["xattn"], h, cfg, positions=positions, causal=False,
+                                    cache=x_cache, kv_source=enc_out, impl=impl)
+        x = x + xo
+        if xc is not None:
+            new_cache.update(xk=xc["k"], xv=xc["v"])
+    elif "xattn" in bp and cache is not None:
+        # decode: attend the cross K/V the prefill wrote
+        h = L.rms_norm(x, bp["ln_x"], cfg.norm_eps)
+        x = x + attn_mod.cross_decode(bp["xattn"], h, cfg, cache["xk"], cache["xv"])
+        new_cache.update(xk=cache["xk"], xv=cache["xv"])
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         # expert_load and the wire drops ride the dispatch; serving reads neither
@@ -243,9 +284,28 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, cache=
     return x + y, new_cache
 
 
-def forward(params, cfg: ArchConfig, tokens, *, cache=None, decode: bool = False,
-            impl: str = "auto"):
-    """Returns (hidden (B,T,D), new_cache | None)."""
+def encode(params, cfg: ArchConfig, src_embeds, *, impl: str = "auto"):
+    """The bidirectional encoder over precomputed frontend embeddings
+    (B, S, D): ``g`` blocks without a cache, non-causal self-attention with
+    rotary over source positions, then ``enc_norm``."""
+    x = src_embeds.to(dtype_of(cfg))
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    for bp in params["encoder"]:
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        o, _ = attn_mod.attention(bp["attn"], h, cfg, positions=positions, causal=False,
+                                  impl=impl)
+        x = x + o
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp(bp["mlp"], h, cfg.activation)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=None,
+            cache=None, decode: bool = False, impl: str = "auto"):
+    """Returns (hidden (B,T,D), new_cache | None).  ``patch_embeds`` (B,P,D)
+    go before the tokens (T counts them); ``src_embeds`` (B,S,D) are encoded
+    once and cross-attended by an encoder-decoder's decoder."""
     check_supported(cfg)
     b, t = tokens.shape
     dtype = dtype_of(cfg)
@@ -254,6 +314,16 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, decode: bool = False
     x = L.embed_lookup_dense(params["embed"], tokens)
     # the scale is rounded to the model's dtype first, as in JAX
     x = (x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=dev)).to(dtype)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(dtype), x], dim=1)
+        t = x.shape[1]
+
+    enc_out = None
+    if cfg.encoder_layers and src_embeds is not None:
+        enc_out = encode(params, cfg, src_embeds, impl=impl)
+    elif cfg.encoder_layers and cache is not None and not decode:
+        # the JAX package fails here too (its decode branch meets T > 1)
+        raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs src_embeds")
 
     if decode:
         positions = torch.full((b, 1), cache["pos"], dtype=torch.int32, device=dev)
@@ -265,8 +335,8 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, decode: bool = False
     for i, bp in enumerate(params["layers"]):
         bc = cache["layers"][i] if cache is not None else None
         x, nc = _apply_block(bp, x, cfg, kind_at(cfg, i), positions=positions,
-                             shared_params=params.get("shared_attn"), cache=bc,
-                             cache_len=cache_len, impl=impl)
+                             shared_params=params.get("shared_attn"), enc_out=enc_out,
+                             cache=bc, cache_len=cache_len, impl=impl)
         new_layers.append(nc)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -289,14 +359,17 @@ def _mask_pad_vocab(logits, cfg):
 
 
 def prefill(params, cfg: ArchConfig, batch: dict, cache_len: int, *, impl: str = "auto"):
-    """Run the prompt, build the cache, return (cache, last_logits)."""
-    tokens = batch["tokens"]
-    if set(batch) - {"tokens"}:
-        raise NotImplementedError(
-            f"prefill inputs {sorted(set(batch) - {'tokens'})} (frontends, encoder-decoder) "
-            "wait for ROADMAP Queue 1 item 6")
-    cache = cache_init(cfg, tokens.shape[0], cache_len, tokens.device)
-    h, new_cache = forward(params, cfg, tokens, cache=cache, decode=False, impl=impl)
+    """Run the prompt, build the cache, return (cache, last_logits).
+
+    batch: ``tokens`` (B,T), and ``patch_embeds`` (B,P,D) or ``src_embeds``
+    (B,S,D) as the frontend gives them.  ``cache_len`` must hold the
+    patches too: ``pos`` advances by P + T.  The cross cache is sized to
+    the source (S positions; 0 without ``src_embeds``)."""
+    tokens, src = batch["tokens"], batch.get("src_embeds")
+    cache = cache_init(cfg, tokens.shape[0], cache_len, tokens.device,
+                       cross_len=0 if src is None else src.shape[1])
+    h, new_cache = forward(params, cfg, tokens, patch_embeds=batch.get("patch_embeds"),
+                           src_embeds=src, cache=cache, decode=False, impl=impl)
     logits = h[:, -1] @ head_table(params, cfg).T
     return new_cache, _mask_pad_vocab(logits, cfg)
 

@@ -526,6 +526,8 @@ def _launched(dtype, call, probs_bf16=False):
     (1, 4, 1, 300, 300, 256, True, 100),     # window across a 64-key tile edge
     (1, 4, 4, 400, 400, 128, True, 200),     # window across a 128-key tile edge
     (1, 8, 2, 129, 385, 64, False, 0),       # non-causal, ragged Tq and Tk
+    (2, 4, 4, 300, 77, 64, False, 0),        # cross-attention: non-causal Tq > Tk, ragged
+    (1, 16, 16, 512, 128, 64, False, 0),     # seamless's cross call cut: Tq = 4 Tk
     (1, 4, 2, 1, 1, 64, True, 0)])           # one query, one key
 def test_flash_attention_kernel(dev, dtype, b, hq, hkv, tq, tk, d, causal, window):
     g = torch.Generator(device="cpu").manual_seed(b * 1000 + tq + tk + d + window)

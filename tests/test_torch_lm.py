@@ -190,15 +190,6 @@ def test_params_round_trip(arch, over):
         assert np.array_equal(np.asarray(a, np.float32), b), path
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "seamless-m4t-medium"])
-def test_unported_archs_raise(arch):
-    cfg = tcfg.reduced(tcfg.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tlm.cache_init(cfg, 1, 8, "cpu")
-
-
 @pytest.mark.parametrize("arch", jcfg.ARCH_IDS)
 def test_configs_match_jax(arch):
     """The port's copy of the registry: the same configs and reduced variants."""
