@@ -238,7 +238,39 @@ Phases, each fatal on failure:
      a prefill of one more token) holds within F32_SERVE_REL_L2, and a
      fault planted at decode (the conv state zeroed; RWKV's prev dropped)
      must break it by FAULT_FACTOR; so do seamless's cross carry and
-     internvl's decode after the patches, with the frontend cells' faults.
+     internvl's decode after the patches, with the frontend cells' faults;
+  11. multi-rank cells: qwen3-4b at full width and depth (8 of its cell's
+     2048-token prompts, 32 tokens) and deepseek-v3-671b at full width, 4
+     of 61 layers, mla_absorb and mla_cp_decode, one MoE row per (token,
+     owner rank) (8 of its cell's 1024-token prompts, 16 tokens), each served first on one rank in this process (the
+     reference: tokens, every step's logits, the first layer's output at
+     prefill and decode), then by MR_RANKS processes on the one card,
+     (data 1, model 4) over gloo on localhost (NCCL takes no two ranks of
+     one communicator on one device; gloo's collectives go through host
+     memory, so the times are not a multi-card figure), each rank drawing
+     its slice of the same seeded model and serving the wave through
+     serve(..., layout=...), teacher-forced with the one-rank tokens:
+     every rank's greedy picks the same at every step, logits within
+     SERVE_REL_L2 of the one-rank run's, the first layer within
+     MR_LAYER_REL_L2 relative L2 at prefill and decode, its largest
+     per-position gap within MR_PREFILL_POSITION_GAP at prefill and
+     LAYER_REL_L2 at decode (a vocab shard read one row off, the psum
+     after wo skipped and, for deepseek, the CP combine without its
+     exp(m_i - M) rescale planted must each break it), each rank's
+     parameter bytes what shard_params gives it, each rank's launches of
+     flash_attention and the MoE wire kernels as reckoned from the
+     config, no MoE copy dropped on the wire; for deepseek the first
+     prefill and decode MoE calls as served (four destinations) equal
+     moe_apply on the same input and layout with the plain versions bit
+     for bit (y, expert loads, drops; two send slots swapped after
+     pack_rows planted must break it), every expert whose served copies
+     differ from the one-rank run's (bin overflows, printed) has a copy
+     moved onto or off it by a token whose top-k set changed at a margin
+     below FLIP_MARGIN, and the first MoE layer's output at a decode
+     shape the same on every rank, where every rank dispatching every
+     token (the JAX package's T % P != 0 path) planted must break it;
+     per rank: TTFT, decode ms a step, peak memory and the last decode
+     step's device-busy share.
 Each path runs through the port's entry points (the containers on a
 SerialBackend), with the kernels (launch counts reset just before, read
 just after) and with the plain versions; the two runs must pass the
@@ -299,6 +331,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from kernel_ab import host_us  # noqa: E402
 
@@ -417,6 +450,8 @@ FLASH_FULL = {
     "seamless_cross": (8, 16, 16, 2048, 512, 64, False, 0, BF16),
     "seamless_decoder": (8, 16, 16, 2048, 2048, 64, True, 0, BF16),
     "internvl_prefill": (8, 64, 8, 2048, 2048, 128, True, 0, BF16),
+    "qwen3_rank_prefill": (8, 8, 2, 2048, 2048, 128, True, 0, BF16),
+    "deepseek_rank_prefill": (8, 32, 32, 1024, 1024, 192, True, 0, BF16),
 }
 FLASH_REHEARSAL = {
     "serving_prefill": (2, 4, 2, 40, 40, 16, True, 0, BF16),
@@ -439,9 +474,13 @@ FLASH_REHEARSAL = {
     "seamless_cross": (2, 4, 4, 40, 10, 16, False, 0, BF16),
     "seamless_decoder": (2, 4, 4, 40, 40, 16, True, 0, BF16),
     "internvl_prefill": (2, 4, 4, 40, 40, 16, True, 0, BF16),
+    "qwen3_rank_prefill": (2, 1, 1, 40, 40, 16, True, 0, BF16),
+    "deepseek_rank_prefill": (2, 1, 1, 24, 24, 24, True, 0, BF16),
 }
-#: the frontend cells' flash calls (each timed beside scaled_dot_product_attention)
-FRONTEND_CASES = ("seamless_encoder", "seamless_cross", "seamless_decoder", "internvl_prefill")
+#: the frontend cells' and the multi-rank cells' flash calls (one rank's heads
+#: of four), each timed beside scaled_dot_product_attention
+FRONTEND_CASES = ("seamless_encoder", "seamless_cross", "seamless_decoder", "internvl_prefill",
+                  "qwen3_rank_prefill")
 #: cases' options: ``v_cols``, V's real columns (MLA pads V with zeros to
 #: the qk head dim, as ``attention.mla_attention`` does: deepseek-v3's 128 of
 #: 192, the reduced config's 16 of 24); ``probs_bf16``, the flag's instances;
@@ -450,6 +489,7 @@ FRONTEND_CASES = ("seamless_encoder", "seamless_cross", "seamless_decoder", "int
 FLASH_OPTIONS = {
     "deepseek_prefill": dict(v_cols=2 / 3),
     "deepseek_prefill_probs_bf16": dict(v_cols=2 / 3, probs_bf16=True),
+    "deepseek_rank_prefill": dict(v_cols=2 / 3),
     "f32_probs_bf16": dict(probs_bf16=True),
     "zamba2_prefill": dict(instance_d=128),
 }
@@ -2413,7 +2453,7 @@ def moe_setup(mz: dict, dev, seed: int) -> dict:
 
 
 def routed(p, x, cfg, impl: str) -> tuple:
-    """One moe_apply call on one rank (a ``SerialBackend``) with its
+    """One moe_apply call on one rank with its
     routing kept where the program makes it: ``router_topk``'s picks and
     scores, the token flow's owner-side ``src_pos`` (which copy each
     arrival is) and ``_bin_indices``' served mask.  Returns
@@ -2440,7 +2480,7 @@ def routed(p, x, cfg, impl: str) -> tuple:
         return res
     moe_mod.router_topk, moe_mod._bin_indices, CommittedPlan.view = topk, bins, view
     try:
-        out = real_moe_apply(p, x, cfg, SerialBackend(), impl=impl)
+        out = real_moe_apply(p, x, cfg, impl=impl)
     finally:
         moe_mod.router_topk, moe_mod._bin_indices, CommittedPlan.view = (
             real_topk, real_bins, real_view)
@@ -2468,8 +2508,8 @@ def moe_serving_path(impl: str, mz: dict, mv: dict, forced=None) -> dict:
     decode step each call's input and outputs (for the exact check)."""
     logits, timings, routing, exact, pending = {}, {}, {}, {}, []
 
-    def tap(params, x, cfg, backend, impl="auto"):
-        check(backend.nprocs() == 1, "the MoE serving path dispatches on one rank")
+    def tap(params, x, cfg, layout=None, impl="auto"):
+        check(layout is None, "the MoE serving path dispatches on one rank")
         out, rt = routed(params, x, cfg, impl)
         pending.append((params, x, out, rt))
         return out
@@ -3435,10 +3475,10 @@ def _cross_kv_unwritten(real):
 
 def _cross_rotary(real):
     def fault(params, x, cfg, *, positions, causal=True, window=0, cache=None,
-              cache_len=None, kv_source=None, impl="auto"):
+              cache_len=None, kv_source=None, impl="auto", bk=None):
         if kv_source is None:
             return real(params, x, cfg, positions=positions, causal=causal, window=window,
-                        cache=cache, cache_len=cache_len, impl=impl)
+                        cache=cache, cache_len=cache_len, impl=impl, bk=bk)
         b, t, _ = x.shape
         s, hd = kv_source.shape[1], cfg.head_dim
         src_pos = torch.arange(s, device=x.device)[None, None]
@@ -3799,6 +3839,487 @@ def same_f32_serve(a: dict, b: dict, dev) -> None:
 
 
 # --------------------------------------------------------------------------
+
+# --------------------------------------------------------------------------
+# the multi-rank cells: four gloo ranks, (data 1, model 4), on the one card
+# --------------------------------------------------------------------------
+
+MR_RANKS = 4
+#: the MoE agreement check's slack: the old every-rank dispatch drops there
+MR_DROP_SLACK = 1.0
+MR_RANKS_TIMEOUT_S = 900
+#: the first layer's output at four ranks against one rank's, relative L2
+#: over the whole output (prefill and decode): sound 4.9e-4 to 1.4e-3 on an
+#: H100, the CP combine planted without its rescale 2.1e-2 at decode
+MR_LAYER_REL_L2 = 5e-3
+#: largest per-position relative L2 gap of the first layer's prefill output
+#: at four ranks to one rank's (its decode is held to LAYER_REL_L2, as at one
+#: rank).  Over 8 x 1024 or 8 x 2048 positions a few differ by one-ulp bf16
+#: flips of the summed partials: sound 5.9e-3 (qwen3-4b) and 8.8e-3
+#: (deepseek-v3) on an H100, 9.2e-3 with each partial rounded to bf16; the
+#: faults that act at prefill 0.71 (the psum after wo skipped) and 1.4 (a
+#: vocab shard one row off)
+MR_PREFILL_POSITION_GAP = 3e-2
+#: deepseek-v3's options in its multi-rank cell, at which no MoE copy drops on
+#: the wire at one rank or four: one row per (token, owner rank), whose wire
+#: capacity n_tok * min(k, expected owners) / P * slack holds all of a rank's
+#: n_tok rows to one destination once slack >= P / min(k, expected owners):
+#: 1.11 at full width (top-8 of 256), under the config's 1.5; 2.29 for the
+#: rehearsal's reduced model (top-2 of 8), which runs at 2.5.  One row per
+#: (token, expert) would need a slack of 3.75 for four ranks' 16 decode
+#: copies to fit a destination's int(4 * slack) + 1 slots; at one rank that
+#: slack makes the wire's send and reply buffers 7.5 GB each beside 31.6 GB
+#: of weights, and 8.0 raises past 2**31 wire words.  An expert's bins
+#: (int(B*T*k*P/E * slack) + 1 a rank) hold one copy at decode at any slack
+#: that fits, so copies past them drop at one rank and at four alike (each
+#: owner bins its arrivals in token order; bf16 runs can route a near tie
+#: differently), and the cell prints how many.
+MR_DEEPSEEK = dict(mla_absorb=True, mla_cp_decode=True, moe_dedup_dispatch=True)
+MR_FULL = (dict(arch="qwen3-4b", reduced=False, layers=None, requests=16, batch=8,
+                prompt_len=2048, gen=32, over={}),
+           dict(arch="deepseek-v3-671b", reduced=False, layers=4, requests=16, batch=8,
+                prompt_len=1024, gen=16, over=MR_DEEPSEEK))
+MR_REHEARSAL = (dict(arch="qwen3-4b", reduced=True, layers=None, requests=4, batch=4,
+                     prompt_len=40, gen=4, over={}),
+                dict(arch="deepseek-v3-671b", reduced=True, layers=2, requests=4, batch=4,
+                     prompt_len=40, gen=4, over=dict(MR_DEEPSEEK, moe_capacity_slack=2.5)))
+
+
+def mr_config(mz: dict):
+    """The cell's model: the config (reduced, cut to ``layers``) with the
+    cell's options."""
+    cfg = get_config(mz["arch"])
+    if mz["reduced"]:
+        cfg = reduced(cfg)
+    if mz["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=mz["layers"])
+    return dataclasses.replace(cfg, **mz["over"])
+
+
+def mr_prompts(mz: dict, cfg, seed: int, dev) -> torch.Tensor:
+    """The first ``batch`` of the one-rank cell's prompts (its seeded draw)."""
+    p = np.random.default_rng(seed).integers(0, cfg.vocab, (mz["requests"], mz["prompt_len"]),
+                                             dtype=np.int32)
+    return torch.from_numpy(p[:mz["batch"]]).to(dev)
+
+
+def route_of(params, x: torch.Tensor, cfg, load: torch.Tensor) -> dict:
+    """One moe_apply call's routing, from the router on its input: each
+    token's top-k expert ids (sorted), its top-k score margin (k-th minus
+    (k+1)-th) and the copies each expert served (``expert_load``), left
+    on the device (no sync inside a timed step)."""
+    _, idx, _, scores = moe_mod.router_topk(params, x, cfg)
+    k = cfg.moe.top_k
+    s = scores.sort(dim=-1, descending=True).values
+    return dict(ids=idx.reshape(-1, k).sort(dim=-1).values.to(torch.int16),
+                margin=(s[..., k - 1] - s[..., k]).reshape(-1).float(), load=load.float())
+
+
+@contextlib.contextmanager
+def moe_stats(seen: list, routes: list | None = None, calls: dict | None = None):
+    """Each moe_apply call's (token copies, copies its experts served,
+    copies the wire dropped) while the block runs; with ``routes``, each
+    call's :func:`route_of`; with ``calls``, the first prefill-shaped and
+    the first decode-shaped call's (params, x, outputs)."""
+    real = moe_mod.moe_apply
+
+    def tap(params, x, cfg, layout=None, impl="auto"):
+        out = real(params, x, cfg, layout, impl=impl)
+        nd = 1 if layout is None else layout.data
+        seen.append((x.shape[0] * x.shape[1] * cfg.moe.top_k * nd,
+                     int(out[2]["expert_load"].sum()), int(out[2]["dispatch_dropped"])))
+        if routes is not None:
+            routes.append(route_of(params, x, cfg, out[2]["expert_load"]))
+        if calls is not None:
+            calls.setdefault("prefill" if x.shape[1] > 1 else "decode", (params, x, out))
+        return out
+    moe_mod.moe_apply = tap
+    try:
+        yield
+    finally:
+        moe_mod.moe_apply = real
+
+
+def lost_copies(seen: list) -> dict:
+    """Wire drops and bin overflows summed over the calls."""
+    return {"wire_dropped": sum(d for _, _, d in seen),
+            "bin_overflow": sum(n - served - d for n, served, d in seen)}
+
+
+def mr_first_layer(params, cfg, prompts: torch.Tensor, token: torch.Tensor,
+                   layout=None) -> tuple:
+    """The first layer's output (``lm.forward`` of the model cut to it) at
+    the prefill of ``prompts`` and at the decode of ``token`` after it."""
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    p1 = dict(params, layers=params["layers"][:1])
+    b, t = prompts.shape
+    cache = lm.cache_init(cfg1, b, t + MR_RANKS, prompts.device, layout=layout)
+    pre, cache = lm.forward(p1, cfg1, prompts, cache=cache, layout=layout)
+    dec, _ = lm.forward(p1, cfg1, token, cache=cache, decode=True, layout=layout)
+    return pre, dec
+
+
+def rank_param_bytes(cfg, nm: int, r: int) -> int:
+    """The bytes model rank ``r`` of ``nm`` holds: ``shard_params`` of the
+    whole model's tree on the ``meta`` device."""
+    lay = sharding.Layout(1, nm, 0, r, SerialBackend(), SerialBackend())
+    return _tree_bytes(sharding.shard_params(lm.abstract_params(cfg), cfg, lay))
+
+
+def mr_launches(cfg, gen: int) -> dict:
+    """One rank's launches of one wave: flash once per attention layer,
+    and each MoE layer's wire kernels once per pass."""
+    want = {"flash_attention": flash_calls(cfg)}
+    if cfg.moe is not None:
+        want.update(moe_wire_launches(cfg, gen + 1))
+    return want
+
+
+def mr_reference(mz: dict, cfg, dev, seed: int, path: Path) -> dict:
+    """The one-rank run of the cell on this process: serve the wave (the
+    kernels), its tokens, every step's logits and the first layer's outputs
+    saved to ``path`` for the ranks."""
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    prompts = mr_prompts(mz, cfg, seed, dev)
+    logits, timings, stats, routes = {}, {}, [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    with moe_stats(stats, routes):
+        toks = serve(params, cfg, prompts, mz["batch"], mz["gen"], "auto", timings=timings,
+                     on_logits=lambda w, s, lg: logits.__setitem__(s, lg.float().cpu()))
+    sync(dev)
+    launches = build.launch_counts()
+    forced = torch.tensor([toks[i] for i in range(mz["batch"])])
+    pre, dec = mr_first_layer(params, cfg, prompts, forced[:, :1].to(dev))
+    routes = [{k: v.cpu() for k, v in rt.items()} for rt in routes]
+    torch.save(dict(prompts=prompts.cpu(), forced=forced, logits=logits, routes=routes,
+                    first=(pre.float().cpu(), dec.float().cpu())), path)
+    return dict(timings=timings, lost=lost_copies(stats), n_params=_tree_sum(params),
+                tokens=forced.tolist(), launches=launches,
+                peak=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
+
+
+def _vocab_shifted(real):
+    """Fault: each rank reads its vocab shard one row off."""
+    def fault(table_loc, tokens, bk):
+        return real(table_loc.roll(1, dims=0), tokens, bk)
+    return fault
+
+
+def _psum_skipped(real):
+    """Fault: the heads' partial outputs after ``wo`` not summed."""
+    return lambda x, w_loc, bk: x @ w_loc
+
+
+def _cp_unscaled(real):
+    """Fault: the context-parallel combine sums the ranks' partials without
+    rescaling each by exp(m_i - M)."""
+    def fault(bk, m_i, l_i, ctx_i):
+        return bk.psum(ctx_i) / bk.psum(l_i).clamp(min=1e-30)[..., None]
+    return fault
+
+
+def mr_faults(cfg) -> dict:
+    """The faults the first-layer check must see (the CP combine's where
+    the cell decodes context-parallel)."""
+    faults = {"a vocab shard read one row off": (layers_mod, "embed_lookup", _vocab_shifted),
+              "the psum after wo skipped": (lm.attn_mod, "row_parallel", _psum_skipped)}
+    if cfg.mla is not None and cfg.mla_absorb and cfg.mla_cp_decode:
+        faults["the CP combine without its exp(m_i - M) rescale"] = (
+            lm.attn_mod, "_cp_combine", _cp_unscaled)
+    return faults
+
+
+def moe_agreement(params, cfg, lay, batch: int, seed: int, dev, plant=None) -> dict:
+    """The first MoE layer on a decode-shaped input (batch, 1, D) at
+    ``MR_DROP_SLACK``: the largest gap between this rank's output and any
+    other model rank's, the (token, expert) copies, and the copies served
+    (summed over the owners: each rank's own under the old dispatch) and
+    dropped on the wire."""
+    i = next(i for i in range(cfg.n_layers) if lm._layer_is_moe(cfg, i))
+    x = (torch.randn((batch, 1, cfg.d_model), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed + 1))
+         .to(lm.dtype_of(cfg)))
+    with planted(plant):
+        y, _, st = moe_mod.moe_apply(params["layers"][i]["moe"], x,
+                                     dataclasses.replace(cfg, moe_capacity_slack=MR_DROP_SLACK),
+                                     lay)
+    every = lay.model_bk.all_gather(y.float())
+    return dict(gap=float((every - y.float()).abs().max()), copies=batch * cfg.moe.top_k,
+                served=int(st["expert_load"].sum()), wire_dropped=int(st["dispatch_dropped"]))
+
+
+def moe_rank_exact(call: tuple, cfg, lay, plant=None) -> dict:
+    """One moe_apply call of a rank's served run, as it ran through the wire
+    kernels (its input and outputs), against moe_apply on the same input
+    and layout with the plain versions: ``y``, ``expert_load`` and the
+    drops bit for bit.  ``plant`` wraps ``binning.pack_rows`` for a rerun
+    through the kernels, whose outputs then stand in for the served ones."""
+    p, x, (y, _, st) = call
+    if plant is not None:
+        with planted((binning, "pack_rows", plant)):
+            y, _, st = moe_mod.moe_apply(p, x, cfg, lay)
+    y2, _, st2 = moe_mod.moe_apply(p, x, cfg, lay, impl="torch")
+    return dict(shape=list(x.shape), y=torch.equal(y, y2),
+                load=torch.equal(st["expert_load"], st2["expert_load"]),
+                dropped=torch.equal(st["dispatch_dropped"], st2["dispatch_dropped"]),
+                served=int(st["expert_load"].sum()))
+
+
+def routing_apart(one: list, four: list, n_experts: int) -> list:
+    """The MoE calls at which four ranks' experts served another count of
+    copies than one rank's experts did.  Per call: how many experts, how
+    many of them no changed top-k set explains (a copy moved onto or off
+    the expert between the runs), and the one-rank top-k margin of each
+    token that moved a copy onto or off one of them."""
+    def picks(ids):
+        return torch.zeros(ids.shape[0], n_experts, dtype=torch.bool).scatter_(1, ids.long(),
+                                                                               True)
+    check(len(one) == len(four), f"one rank and four make as many MoE calls: {len(one)}, "
+                                 f"{len(four)}")
+    out = []
+    for c, (a, b) in enumerate(zip(one, four)):
+        experts = torch.nonzero(a["load"] != b["load"]).flatten()
+        if not len(experts):
+            continue
+        moved = (picks(a["ids"]) ^ picks(b["ids"]))[:, experts]      # (tokens, experts)
+        out.append(dict(call=c, experts=len(experts),
+                        unexplained=int((~moved.any(dim=0)).sum()),
+                        margins=a["margin"][moved.any(dim=1)].tolist()))
+    return out
+
+
+def _old_dispatch(real):
+    """Fault: every rank dispatches every token, as the JAX package does at
+    T % P != 0, and keeps its own output."""
+    return lambda b, t, nm: "all"
+
+
+def mr_rank_run(rank: int, mz: dict, seed: int, ref_path: str, dev) -> dict:
+    """One rank of a multi-rank cell: its slice of the seeded model, the
+    wave served teacher-forced with the one-rank run's tokens (launches
+    counted), then the first-layer check, the planted faults and the MoE
+    agreement check; for an MoE model the first prefill and decode MoE
+    calls of the wave rerun with the plain wire versions, and each call's
+    expert loads against the one-rank run's."""
+    from repro_torch.models.sharding import Layout
+    cfg = mr_config(mz)
+    lay = Layout.over(1, MR_RANKS)
+    ref = torch.load(ref_path)
+    prompts, forced = ref["prompts"].to(dev), ref["forced"].to(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev, lay)
+    sync(dev)
+    res = dict(rank=rank, init_s=time.perf_counter() - t0, param_bytes=_tree_bytes(params))
+
+    gaps, picks, timings, stats, busy, routes, calls = {}, [], {}, [], {}, [], {}
+    vocab = cfg.vocab
+
+    def keep(wave, step, lg):
+        picks.append(lg.argmax(dim=-1).tolist())
+        gaps[step] = rel_l2(lg[:, :vocab], ref["logits"][step][:, :vocab].to(dev))
+        if dev.type == "cuda" and step == mz["gen"] - 1:      # profile the last decode step
+            from torch.profiler import ProfilerActivity, profile
+            busy["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            sync(dev)
+            busy["prof"].start()
+            busy["t0"] = time.perf_counter()
+        elif "prof" in busy and step == mz["gen"]:
+            sync(dev)
+            busy["wall_ms"] = (time.perf_counter() - busy.pop("t0")) * 1e3
+            busy["prof"].stop()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    with moe_stats(stats, routes, calls):
+        serve(params, cfg, prompts, mz["batch"], mz["gen"], "auto", forced=forced,
+              on_logits=keep, timings=timings, layout=lay)
+    sync(dev)
+    res.update(launches=build.launch_counts(), logits_rel_l2=gaps, picks=picks,
+               lost=lost_copies(stats), ttft_s=timings["prefill_s"][0],
+               decode_ms=float(np.median(timings["decode_s"])) * 1e3,
+               peak_bytes=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
+    if "prof" in busy:
+        from torch.autograd import DeviceType
+        device_ms = sum((ev.time_range.end - ev.time_range.start) / 1e3
+                        for ev in busy["prof"].events() if ev.device_type == DeviceType.CUDA)
+        res["busy"] = dict(device_ms=device_ms, wall_ms=busy["wall_ms"],
+                           share=device_ms / busy["wall_ms"])
+
+    want_pre, want_dec = (w.to(dev) for w in ref["first"])
+    first = {}
+    for name, plant in {"sound": None, **mr_faults(cfg)}.items():
+        with planted(plant):
+            pre, dec = mr_first_layer(params, cfg, prompts, forced[:, :1], lay)
+        first[name] = dict(prefill=rel_l2(pre, want_pre), decode=rel_l2(dec, want_dec),
+                           prefill_position_max=position_gap(pre, want_pre),
+                           decode_position_max=position_gap(dec, want_dec))
+    res["first_layer"] = first
+    if cfg.moe is not None:
+        res["moe_exact"] = {name: moe_rank_exact(call, cfg, lay) for name, call in calls.items()}
+        if dev.type == "cuda":
+            res["moe_exact"]["planted"] = moe_rank_exact(calls["decode"], cfg, lay,
+                                                         plant=_swap_send_slots)
+        calls.clear()
+        res["routing_apart"] = routing_apart(
+            ref["routes"], [{k: v.cpu() for k, v in rt.items()} for rt in routes],
+            cfg.moe.n_experts)
+        res["moe_agreement"] = {
+            "repaired": moe_agreement(params, cfg, lay, mz["batch"], seed, dev),
+            "every rank dispatches every token": moe_agreement(
+                params, cfg, lay, mz["batch"], seed, dev,
+                plant=(moe_mod, "token_split", _old_dispatch))}
+    return res
+
+
+def _mr_rank(rank: int, port: int, mz: dict, seed: int, ref_path: str, out_dir: str,
+             device: str) -> None:
+    """A spawned rank: gloo over localhost, every rank on the one card."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=MR_RANKS, rank=rank,
+                            timeout=timedelta(seconds=MR_RANKS_TIMEOUT_S))
+    try:
+        res = mr_rank_run(rank, mz, seed, ref_path, dev)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mr_spawn(mz: dict, seed: int, ref_path: Path, out_dir: Path, dev) -> list[dict]:
+    """The cell's ``MR_RANKS`` ranks, spawned; each one's result."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_mr_rank, args=(port, mz, seed, str(ref_path), str(out_dir),
+                                             dev.type),
+                             nprocs=MR_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + MR_RANKS_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f"the {MR_RANKS} ranks end within {MR_RANKS_TIMEOUT_S}s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return [json.loads(Path(out_dir, f"rank{r}.json").read_text()) for r in range(MR_RANKS)]
+
+
+def layer_within(g: dict) -> bool:
+    """The first layer's readings at four ranks within their limits."""
+    return (max(g["prefill"], g["decode"]) <= MR_LAYER_REL_L2
+            and g["prefill_position_max"] <= MR_PREFILL_POSITION_GAP
+            and g["decode_position_max"] <= LAYER_REL_L2)
+
+
+def check_multirank(ranks: list, one: dict, mz: dict, cfg, rehearsal: bool) -> None:
+    """The gates of a multi-rank cell, each fatal; nothing is printed of a
+    cell whose gate fails."""
+    label = f"{cfg.name} P={MR_RANKS}"
+    check(all(r["picks"] == ranks[0]["picks"] for r in ranks),
+          f"{label}: every rank's greedy tokens at every step are the same")
+    worst = max(max(r["logits_rel_l2"].values()) for r in ranks)
+    check(worst <= SERVE_REL_L2, f"{label}: logits teacher-forced on the one-rank run's tokens "
+                                 f"within {SERVE_REL_L2} of its logits: {worst}")
+    for r in ranks:
+        first = dict(r["first_layer"])
+        check(layer_within(first.pop("sound")),
+              f"{label} rank {r['rank']}: the first layer within {MR_LAYER_REL_L2} relative L2 "
+              f"of one rank's at prefill and decode, its positions within "
+              f"{MR_PREFILL_POSITION_GAP} at prefill and {LAYER_REL_L2} at decode: "
+              f"{r['first_layer']['sound']}")
+        for name, gap in first.items():
+            check(not layer_within(gap),
+                  f"{label} rank {r['rank']}: the fault '{name}' breaks the first-layer check: "
+                  f"{gap}")
+    want_bytes = [rank_param_bytes(cfg, MR_RANKS, r["rank"]) for r in ranks]
+    check([r["param_bytes"] for r in ranks] == want_bytes,
+          f"{label}: each rank holds the bytes shard_params gives it {want_bytes}: "
+          f"{[r['param_bytes'] for r in ranks]}")
+    if not rehearsal:
+        want = mr_launches(cfg, mz["gen"])
+        for who, counts in [("one rank", one["launches"])] + [
+                (f"rank {r['rank']}", r["launches"]) for r in ranks]:
+            got = {k: n for k, n in counts.items() if n}
+            check(got == want, f"{label} {who}: launches {got}, want {want}")
+    lost = [one["lost"]] + [r["lost"] for r in ranks]
+    check(all(d["wire_dropped"] == 0 for d in lost),
+          f"{label}: no copy dropped on the wire, at one rank or any of {MR_RANKS}: "
+          f"{[d['wire_dropped'] for d in lost]}")
+    if cfg.moe is not None:
+        for r in ranks:
+            ex = r["moe_exact"]
+            check(all(ex[c][k] for c in ("prefill", "decode") for k in ("y", "load", "dropped")),
+                  f"{label} rank {r['rank']}: the first prefill and decode MoE calls through "
+                  f"the wire kernels equal moe_apply with the plain versions bit for bit: {ex}")
+            check(rehearsal or not ex["planted"]["y"],
+                  f"{label} rank {r['rank']}: the exact check catches two swapped send slots")
+            apart = r["routing_apart"]
+            check(all(c["unexplained"] == 0 for c in apart),
+                  f"{label} rank {r['rank']}: every expert whose served copies differ from one "
+                  f"rank's has a copy moved onto or off it by a changed top-k set: {apart}")
+            worst = max((m for c in apart for m in c["margins"]), default=0.0)
+            check(worst < FLIP_MARGIN,
+                  f"{label} rank {r['rank']}: each such copy's token at a top-k margin below "
+                  f"{FLIP_MARGIN}: {worst}")
+            agree = r["moe_agreement"]
+            check(agree["repaired"]["gap"] == 0.0,
+                  f"{label} rank {r['rank']}: every rank's MoE output the same: {agree}")
+            check(agree["every rank dispatches every token"]["gap"] > 0.0,
+                  f"{label} rank {r['rank']}: the old dispatch breaks the agreement: {agree}")
+
+
+def multirank_cell(mz: dict, dev, seed: int, smi: str, rehearsal: bool) -> tuple:
+    """The one-rank reference here, then ``MR_RANKS`` processes on the one
+    card (gloo), their gates, then each rank's numbers.  Returns (the
+    reference's results, each rank's)."""
+    import tempfile
+    cfg = mr_config(mz)
+    t_c = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = Path(tmp, "ref.pt")
+        one = mr_reference(mz, cfg, dev, seed, ref_path)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks = mr_spawn(mz, seed, ref_path, Path(tmp), dev)
+    check_multirank(ranks, one, mz, cfg, rehearsal)
+    fed = one["tokens"]
+    agree = float(np.mean([ranks[0]["picks"][s][j] == fed[j][s]
+                           for s in range(mz["gen"]) for j in range(mz["batch"])]))
+    print(f"{cfg.name} P={MR_RANKS} (data 1, model {MR_RANKS}; gloo on one card, every rank "
+          f"a process on the one device; collectives through host memory, none staged by the "
+          f"port): one-rank TTFT {one['timings']['prefill_s'][0]:.3f}s, decode "
+          f"{1e3 * float(np.median(one['timings']['decode_s'])):.1f} ms a step, peak "
+          f"{one['peak']} bytes, {one['n_params']} parameters, MoE copies past their "
+          f"experts' bins {one['lost']['bin_overflow']}; the ranks' greedy picks agree with "
+          f"its tokens at {agree:.4f} of (slot, step)", flush=True)
+    for r in ranks:
+        row = {k: r[k] for k in ("rank", "init_s", "param_bytes", "ttft_s", "decode_ms",
+                                 "peak_bytes", "launches", "lost", "busy", "first_layer",
+                                 "moe_exact", "moe_agreement", "routing_apart") if k in r}
+        row["launches"] = {k: n for k, n in row["launches"].items() if n}
+        row["logits_rel_l2_max"] = max(r["logits_rel_l2"].values())
+        print(f"{cfg.name} P={MR_RANKS} rank {r['rank']} (gloo on one card; {smi}): "
+              + json.dumps(row), flush=True)
+    print(f"{cfg.name} P={MR_RANKS} cell: {time.perf_counter() - t_c:.1f}s", flush=True)
+    return one, ranks
+
 
 def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
            vz: dict, smi: str) -> None:
@@ -4189,6 +4710,16 @@ def main(argv=None) -> int:
                  lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),
                  check_f32_serve, lambda a, b: same_f32_serve(a, b, dev),
                  tuple(serving_launches(reduced(get_config(arch)), 1, 1, F32_SERVE_PROMPT_LEN)))
+
+    # 11. the multi-rank cells: the one-rank reference here, then four gloo
+    # ranks on the one card; each rank's launches count with the paths'
+    for mz in MR_REHEARSAL if rehearsal else MR_FULL:
+        one, ranks = multirank_cell(mz, dev, args.seed, smi, rehearsal)
+        launched[f"{mz['arch']} P={MR_RANKS}, one-rank reference", "auto"] = one["launches"]
+        for r in ranks:
+            launched[f"{mz['arch']} P={MR_RANKS} rank {r['rank']}", "auto"] = r["launches"]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     # launches: the paths' kernel runs (each path's counts are printed above)
     paths = sorted({p for p, _ in launched})

@@ -7,8 +7,9 @@ section 8); a backend implements it.  The port ships two:
                        reference semantics, and the one-card main path.
 
   ProcessGroupBackend  one rank per process over ``torch.distributed``:
-                       gloo on the CPU, NCCL on CUDA.  Wire words cross
-                       the collectives as int32 (gloo refuses uint32).
+                       gloo (CPU tensors, or CUDA tensors of ranks that
+                       share one card) or NCCL.  Wire words cross the
+                       collectives as int32 (gloo refuses uint32).
 
 The JAX package's ``Backend.all_to_all`` is ``tiled_all_to_all`` here,
 with ``groups=`` sub-axis collectives and a start/wait form for the
@@ -140,8 +141,15 @@ class SerialBackend(Backend):
 class ProcessGroupBackend(Backend):
     """One rank per process over an initialized ``torch.distributed`` group.
 
-    The caller runs ``torch.distributed.init_process_group`` (gloo for
-    CPU tensors, NCCL for CUDA tensors) before building the backend.
+    The caller runs ``torch.distributed.init_process_group`` and picks
+    its backend (gloo, NCCL) before building this one; ``group`` is a
+    subgroup of it (``models/sharding.Layout`` builds one per axis).
+    NCCL takes no two ranks of one communicator on one device, so ranks
+    that share a card run gloo, whose collectives take CUDA tensors
+    (through host memory).  On an H100 gloo took every primitive here on
+    CUDA int32, float32 and bfloat16 tensors, so none is staged through
+    host memory by this class; it refuses int16 on either device, and no
+    caller passes one (``scripts/torch_gloo_probe.py``).
     """
 
     def __init__(self, group=None):

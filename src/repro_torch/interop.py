@@ -25,9 +25,11 @@ one value per unit in JAX; Zamba's ``shared_attn``; an encoder-decoder's
 ``enc_norm``, and each decoder layer's ``ln_x`` and ``xattn``);
 ``lm_params_to_numpy`` goes back (bf16 leaves come back as float32 arrays
 of the same values: numpy has no bfloat16 of its own).
-``moe_params_for_rank`` gives rank ``r`` of a ``P``-rank model axis an
-MoE layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's
-``shard_map`` shards them.
+``lm_params_for_rank`` gives one rank of a ``(data, model)`` layout its
+slice of the LM's parameters (``models/sharding.shard_params``: an MoE
+layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's ``shard_map``
+shards them, and the heads', hidden width's and vocab's slices, as its
+``param_spec`` places them).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.containers.bloom import BloomState
 from repro_torch.containers.hashmap import HashMapState
 from repro_torch.containers.queue import QueueState
+from repro_torch.models.sharding import shard_params
 
 _MAP = ("tkeys", "tvals", "status")
 _QUEUE = ("data", "head", "tail", "tail_ready", "head_ready")
@@ -174,14 +177,7 @@ def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
     return out
 
 
-def moe_params_for_rank(moe_params: dict, cfg: ArchConfig, rank: int, nprocs: int) -> dict:
-    """One MoE layer's parameters as rank ``rank`` of ``nprocs`` holds
-    them: its slice of each expert stack (views), the rest shared."""
-    e = cfg.moe.n_experts
-    if e % nprocs:
-        raise ValueError(f"{e} experts do not split over {nprocs} ranks")
-    e_loc = e // nprocs
-    out = dict(moe_params)
-    out["experts"] = {k: v[rank * e_loc:(rank + 1) * e_loc]
-                      for k, v in moe_params["experts"].items()}
-    return out
+def lm_params_for_rank(params_np: dict, cfg: ArchConfig, layout, device="cuda") -> dict:
+    """The JAX LM pytree -> this rank's parameters (``layout``, a
+    ``models/sharding.Layout``) on ``device``."""
+    return shard_params(lm_params_from_numpy(params_np, cfg, device), cfg, layout)

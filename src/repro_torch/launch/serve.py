@@ -5,7 +5,7 @@ The port of ``repro/launch/serve.py``: a fixed decode batch of
 slots (the last wave padded with zero prompts) and decoded greedily for
 ``--gen`` tokens.  It runs on the card unless ``--cpu`` is given, and
 without a card it exits non-zero.  MoE models (arctic-480b) dispatch
-their experts over the exchange on a ``SerialBackend`` (one card).  The
+their experts over the exchange.  The
 recurrent models (zamba2-7b: Mamba2 with a shared attention block;
 rwkv6-1.6b) carry their recurrent state in the cache, each mixer's scan
 one kernel launch a layer and call on the card.
@@ -18,6 +18,14 @@ cross-attended at every step).  The CLI serves tokens only, as the JAX
 package's does: it serves internvl2-76b without patches, and refuses an
 encoder-decoder model, whose prefill needs its source (the JAX package's
 fails there).
+
+``serve(..., layout=...)`` serves over a ``(data, model)`` layout of
+ranks (``models/sharding.Layout``, each rank a process calling ``serve``
+with its own parameters): each wave's slots are split over the data
+ranks, every model rank of a data group feeds the same tokens, and the
+picks are all-gathered over the data axis, so every rank returns every
+request's tokens.  The CLI serves on one rank, as the JAX package's does
+(a 1 x 1 mesh).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --reduced --cpu \\
       --requests 16 --batch 4 --prompt-len 32 --gen 16
@@ -43,9 +51,13 @@ from repro_torch.models import lm
 def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = "auto", *,
           patch_embeds: torch.Tensor | None = None, src_embeds: torch.Tensor | None = None,
           forced: torch.Tensor | None = None, on_logits=None,
-          timings: dict | None = None) -> dict[int, list[int]]:
+          timings: dict | None = None, layout=None) -> dict[int, list[int]]:
     """Serve every prompt of ``prompts`` (R, P) greedily; returns each
     request's ``gen`` tokens by request index.
+
+    ``layout``: the ranks (None: one).  ``batch`` counts every data
+    rank's slots, and must split over them; this rank serves its
+    ``batch / data`` slots of each wave, and ``on_logits`` sees their rows.
 
     ``patch_embeds`` (R, n_patch, D) or ``src_embeds`` (R, S, D), if given,
     are each request's frontend embeddings; each wave's prefill takes its
@@ -62,17 +74,28 @@ def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = 
     embeds = {k: e for k, e in (("patch_embeds", patch_embeds), ("src_embeds", src_embeds))
               if e is not None}
     n_patch = 0 if patch_embeds is None else patch_embeds.shape[1]
-    prefill_step = make_prefill_step(cfg, cache_len=n_patch + prompt_len + gen, impl=impl)
-    decode = make_serve_step(cfg, impl=impl)
+    nd = 1 if layout is None else layout.data
+    if batch % nd:
+        raise ValueError(f"serve: {batch} slots do not split over {nd} data ranks")
+    mine = slice(0, batch) if layout is None else \
+        slice(layout.data_rank * (batch // nd), (layout.data_rank + 1) * (batch // nd))
+    prefill_step = make_prefill_step(cfg, cache_len=n_patch + prompt_len + gen, impl=impl,
+                                     layout=layout)
+    decode = make_serve_step(cfg, impl=impl, layout=layout)
     if timings is not None:
         timings.setdefault("prefill_s", [])
         timings.setdefault("decode_s", [])
 
     def pick(logits, rows, step):
+        """This rank's slots' tokens (B/data, 1), and every slot's picks."""
         tok = logits.argmax(dim=-1)[:, None]
         if forced is not None and step < gen:
-            tok[:rows.stop - rows.start, 0] = forced[rows, step].to(tok.dtype)
-        return tok
+            lo = rows.start + mine.start                    # this rank's first request
+            n = max(0, min(rows.stop - lo, tok.shape[0]))   # its requests (not padding)
+            tok[:n, 0] = forced[lo:lo + n, step].to(tok.dtype)
+        every = tok if nd == 1 else \
+            layout.data_bk.all_gather(tok.to(torch.int32)).reshape(batch, 1)
+        return tok, every[:, 0].tolist()
 
     queue = list(range(n_req))
     outputs: dict[int, list[int]] = {i: [] for i in range(n_req)}
@@ -84,10 +107,10 @@ def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = 
         if len(active) < batch:   # pad the last wave
             inputs = {k: torch.cat([x, x.new_zeros((batch - len(active), *x.shape[1:]))])
                       for k, x in inputs.items()}
+        inputs = {k: x[mine] for k, x in inputs.items()}
         t0 = time.perf_counter()
         cache, logits = prefill_step(params, inputs)
-        tok = pick(logits, rows, 0)
-        picks = tok[:, 0].tolist()
+        tok, picks = pick(logits, rows, 0)
         if timings is not None:
             timings["prefill_s"].append(time.perf_counter() - t0)
         if on_logits is not None:
@@ -97,8 +120,7 @@ def serve(params, cfg, prompts: torch.Tensor, batch: int, gen: int, impl: str = 
                 outputs[rid].append(picks[j])
             t0 = time.perf_counter()
             logits, cache = decode(params, cache, tok)
-            tok = pick(logits, rows, step + 1)
-            picks = tok[:, 0].tolist()
+            tok, picks = pick(logits, rows, step + 1)
             if timings is not None:
                 timings["decode_s"].append(time.perf_counter() - t0)
             if on_logits is not None:

@@ -26,11 +26,23 @@ Prefill expands K and V through ``w_ukv`` and attends through the flash
 kernel, V zero-padded to the qk head dim (the kernel takes one head dim;
 zero columns add nothing, and the output is sliced back).  Decode expands
 the whole cache (``mla_absorb`` off) or attends in the latent space
-(``mla_absorb``).  ``mla_cp_decode`` (the JAX package's context-parallel
-decode, the cache's sequence sharded over the model axis) selects the
-latent-space decode: the port serves on one rank, where the two-pass
-combine's pmax and psum are identities and it computes the same function.
-The combine comes with the multi-rank LM (ROADMAP Queue 1 item 6.2).
+(``mla_absorb``).
+
+Over several model ranks (``bk``, the model axis's backend) each rank
+holds its heads' columns of ``wq``/``wk``/``wv`` (MLA: ``w_uq``,
+``w_ukv``) and rows of ``wo``, attends its heads, and one ``psum`` after
+``wo`` sums the heads' parts; the K/V cache holds this rank's kv heads
+(its query group's, where the kv heads are fewer than the ranks).  The
+head counts are read from the weights' shapes.  MLA's ``w_dq``, ``w_dkv``,
+``w_kr`` and its latent cache are replicated, but for the context-parallel
+decode (``mla_cp_decode`` with ``mla_absorb``): the latent cache's
+sequence is split over the model ranks, each rank writes the new latent
+only where ``pos`` falls in its slice, attends its slice for every head
+(the heads' latent queries all-gathered first) and the JAX package's
+two-pass combine merges the partials: ``pmax`` of the partial maxima, then
+``psum`` of each partial's sum and context rescaled by ``exp(m_i - M)``.
+On one rank ``mla_cp_decode`` selects the latent-space decode, where that
+combine's ``pmax`` and ``psum`` are identities: the same function.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal, rms_norm, rotary
+from repro_torch.models.layers import normal, rms_norm, rotary, row_parallel
 
 _NEG = -1e30
 
@@ -81,7 +93,7 @@ def attn_init(gen: torch.Generator, cfg, dtype, device) -> dict:
 
 
 def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
-              cache_len=None, kv_source=None, impl="auto"):
+              cache_len=None, kv_source=None, impl="auto", bk=None):
     """Attention block. Returns (out, new_cache | None).
 
     cache: dict(k (B,Hkv,S,hd), v) for serving.  With T == 1 the step
@@ -91,9 +103,11 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
     kv_source (B,S,D): cross-attention over it, rotary on neither side;
     a given cache (the layer's ``xk``/``xv`` as ``k``/``v``) gets the
     source's K/V written into it, whatever T is.
+    bk: the model axis's backend; this rank's heads are the weights'.
     """
     b, t, _ = x.shape
-    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nq, nkv = params["wq"].shape[1] // hd, params["wk"].shape[1] // hd
 
     src = x if kv_source is None else kv_source
     ts = src.shape[1]
@@ -141,7 +155,7 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
             new_cache = {"k": ck, "v": cv}
 
     out = out.transpose(1, 2).reshape(b, t, nq * hd)
-    return out @ params["wo"], new_cache
+    return row_parallel(out, params["wo"], bk), new_cache
 
 
 def cross_decode(params, x, cfg, xk, xv):
@@ -181,17 +195,26 @@ def mla_init(gen: torch.Generator, cfg, dtype, device) -> dict:
     }
 
 
-def mla_attention(params, x, cfg, *, positions, cache=None, cache_len=None, impl="auto"):
+def cp_decode(cfg, bk) -> bool:
+    """Whether MLA decodes context-parallel: ``mla_cp_decode`` with
+    ``mla_absorb`` over more than one model rank."""
+    return cfg.mla_absorb and cfg.mla_cp_decode and bk is not None and bk.nprocs() > 1
+
+
+def mla_attention(params, x, cfg, *, positions, cache=None, cache_len=None, impl="auto",
+                  bk=None):
     """MLA over the compressed (c_kv, k_rope) cache. Returns (out, new_cache | None).
 
     cache: dict(c_kv (B,S,r), k_rope (B,S,rope)).  With T == 1 the step
     appends at ``cache_len`` and attends over the cache; otherwise it is a
     prefill that attends over x and writes its c_kv and k_rope into the
-    cache."""
+    cache.  Under :func:`cp_decode` the cache holds this model rank's
+    slice of the sequence, ``(B, S/P, .)``."""
     m = cfg.mla
     b, t, _ = x.shape
-    h = cfg.n_heads
     nope, rope, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    h = params["w_uq"].shape[1] // (nope + rope)
+    cp = cp_decode(cfg, bk)
 
     q = ((x @ params["w_dq"]) @ params["w_uq"]).reshape(b, t, h, nope + rope).transpose(1, 2)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -205,16 +228,25 @@ def mla_attention(params, x, cfg, *, positions, cache=None, cache_len=None, impl
     if cache is not None and t == 1:
         pos = cache_len
         c_full, r_full = cache["c_kv"], cache["k_rope"]
-        c_full[:, pos:pos + 1] = c_kv
-        r_full[:, pos:pos + 1] = k_rope
+        lpos = pos - bk.rank() * c_full.shape[1] if cp else pos
+        if 0 <= lpos < c_full.shape[1]:         # under cp: this rank's slice only
+            c_full[:, lpos:lpos + 1] = c_kv
+            r_full[:, lpos:lpos + 1] = k_rope
         new_cache = {"c_kv": c_full, "k_rope": r_full}
-        if cfg.mla_absorb:      # mla_cp_decode too: one rank, the same function
+        if cp:
+            out = _mla_cp_decode(params, cfg, q_nope, q_rope, c_full, r_full, pos, bk)
+            return row_parallel(out, params["wo"], bk), new_cache
+        if cfg.mla_absorb:      # mla_cp_decode too on one rank: the same function
             out = _mla_absorbed_decode(params, cfg, q_nope, q_rope, c_full, r_full, pos)
-            return out @ params["wo"], new_cache
+            return row_parallel(out, params["wo"], bk), new_cache
         c_kv, k_rope = c_full, r_full
-    elif cache is not None:     # prefill into the cache
-        cache["c_kv"][:, :t] = c_kv
-        cache["k_rope"][:, :t] = k_rope
+    elif cache is not None:     # prefill into the cache (under cp: this rank's slice)
+        s_loc = cache["c_kv"].shape[1]
+        lo = bk.rank() * s_loc if cp else 0
+        hi = min(lo + s_loc, t)
+        if hi > lo:
+            cache["c_kv"][:, :hi - lo] = c_kv[:, lo:hi]
+            cache["k_rope"][:, :hi - lo] = k_rope[:, lo:hi]
         new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}
 
     k, v = _expand_kv(params, cfg, c_kv, k_rope)
@@ -231,16 +263,18 @@ def mla_attention(params, x, cfg, *, positions, cache=None, cache_len=None, impl
         out = ops.flash_attention(q_full, k, v, causal=True, impl=impl,
                                   probs_bf16=cfg.attn_probs_bf16)[..., :vdim]
     out = out.transpose(1, 2).reshape(b, t, h * vdim)
-    return out @ params["wo"], new_cache
+    return row_parallel(out, params["wo"], bk), new_cache
 
 
 def _expand_kv(params, cfg, c_kv, k_rope):
-    """K (B,H,S,nope+rope) and V (B,H,S,v) of every head, expanded from the
-    compressed c_kv (B,S,r) through ``w_ukv`` in the model's dtype, with
-    the shared k_rope (B,S,rope) broadcast over the heads."""
+    """K (B,H,S,nope+rope) and V (B,H,S,v) of every head of this rank,
+    expanded from the compressed c_kv (B,S,r) through ``w_ukv`` in the
+    model's dtype, with the shared k_rope (B,S,rope) broadcast over the
+    heads."""
     m = cfg.mla
     b, s_len, _ = c_kv.shape
-    h, nope = cfg.n_heads, m.qk_nope_head_dim
+    nope = m.qk_nope_head_dim
+    h = params["w_ukv"].shape[1] // (nope + m.v_head_dim)
     kv = (c_kv @ params["w_ukv"]).reshape(b, s_len, h, nope + m.v_head_dim).transpose(1, 2)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope[:, None].expand(b, h, s_len, m.qk_rope_head_dim)], dim=-1)
@@ -278,3 +312,38 @@ def _mla_absorbed_decode(params, cfg, q_nope, q_rope, c_kv, k_rope, pos: int):
     ctx = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), cf)
     out = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
     return out.reshape(q_nope.shape[0], 1, -1).to(q_nope.dtype)
+
+
+def _cp_combine(bk, m_i, l_i, ctx_i):
+    """The two-pass softmax combine of the ranks' partials: ``M = pmax(m_i)``,
+    then ``psum`` of ``l_i`` and ``ctx_i`` each rescaled by
+    ``exp(m_i - M)``.  m_i, l_i (B,H); ctx_i (B,H,r) -> (B,H,r)."""
+    m_g = bk.pmax(m_i)
+    w = torch.exp(m_i - m_g)
+    l_g = bk.psum(l_i * w)
+    ctx = bk.psum(ctx_i * w[..., None])
+    return ctx / l_g.clamp(min=1e-30)[..., None]
+
+
+def _mla_cp_decode(params, cfg, q_nope, q_rope, c_kv, k_rope, pos: int, bk):
+    """Context-parallel latent-space MLA decode, the port of
+    ``repro/models/attention.py:332-404``: c_kv (B,S/P,r) and k_rope
+    (B,S/P,rope) are this model rank's slice of the sequence; q_nope and
+    q_rope (B,h,1,.) this rank's heads.  Every head's latent query is
+    gathered, each rank attends its slice in float32, :func:`_cp_combine`
+    merges the partials, and this rank's heads are expanded through its
+    ``W_uv``.  Returns (B, 1, h*vdim)."""
+    q_lat, qr, w_uv, scale = _absorbed(params, cfg, q_nope, q_rope)
+    b, h, r = q_lat.shape
+    rank, s_loc = bk.rank(), c_kv.shape[1]
+    q_all = torch.cat(list(bk.all_gather(torch.cat([q_lat, qr], dim=-1))), dim=1)
+    cf = c_kv.float()
+    s = torch.einsum("bhr,bsr->bhs", q_all[..., :r], cf)
+    s = (s + torch.einsum("bhp,bsp->bhs", q_all[..., r:], k_rope.float())) * scale
+    seen = rank * s_loc + torch.arange(s_loc, device=c_kv.device) <= pos
+    s = s.masked_fill(~seen, _NEG)
+    m_i = s.max(dim=-1).values
+    e = torch.where(seen, torch.exp(s - m_i[..., None]), 0.0)
+    ctx = _cp_combine(bk, m_i, e.sum(dim=-1), torch.einsum("bhs,bsr->bhr", e, cf))
+    out = torch.einsum("bhr,rhv->bhv", ctx[:, rank * h:(rank + 1) * h], w_uv)
+    return out.reshape(b, 1, -1).to(q_nope.dtype)

@@ -22,9 +22,7 @@ kind in the pattern, ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``)
 is the one parameter set every ``a`` layer runs.  The JAX package stacks
 its repeating units on a leading axis for ``scan``;
 ``repro_torch.interop.lm_params_from_numpy`` unstacks them.  The layer
-loop is a Python loop (no scan, no remat).  MoE layers dispatch on a
-``SerialBackend`` (one rank): a model axis over several ranks waits for
-the multi-rank LM (ROADMAP Queue 1 item 6.2).  An MLA layer's cache is
+loop is a Python loop (no scan, no remat).  An MLA layer's cache is
 ``{c_kv, k_rope}``; an ``m`` layer's ``{conv, ssd}`` (both float32), an
 ``r`` layer's ``{s, prev, cm_prev}``, an ``a`` layer's own K/V.  With
 ``cfg.mtp`` the parameters carry the MTP head
@@ -44,8 +42,19 @@ the port computes what its decode branch defines.  ``patch_embeds`` (the
 ``patch`` frontend's output) go before the scaled token embeddings, cast
 to the model's dtype, and positions run over patches and text.  JAX's
 ``n_skip`` (the patch count ``loss_fn`` drops) comes with ``loss_fn``
-and training, ROADMAP Queue 1 item 7; the vocab-sharded lookup and the
-model axis over several ranks with the multi-rank LM, item 6.2.
+and training, ROADMAP Queue 1 item 7.
+
+Over several ranks (``layout``, a :class:`~repro_torch.models.sharding.Layout`;
+None is one rank): each data rank serves its own batch rows; over the
+model axis each rank holds its slice of every parameter
+(``sharding.shard_params``; ``init_params`` draws the one-rank sequence
+and keeps only the slice), the embedding is the vocab-sharded lookup,
+attention and the MLPs are tensor-parallel with one ``psum`` each, MoE
+layers dispatch over the model axis, the head's logits are all-gathered,
+and each rank's cache holds its kv heads (or, for the context-parallel
+MLA decode, its slice of the sequence).  The recurrent kinds, the
+encoder-decoder and the ``frame`` frontend at P>1 raise ``ValueError``
+(ROADMAP Queue 1 item 6.2b); ``patch_embeds`` are replicated inputs.
 """
 
 from __future__ import annotations
@@ -53,14 +62,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.backend import SerialBackend
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_SERIAL = SerialBackend()
 #: the layer kinds the port runs
 KINDS = "glmra"
 
@@ -91,7 +99,7 @@ def _layer_is_moe(cfg: ArchConfig, layer_idx: int) -> bool:
 # ---------------------------------------------------------------------------
 
 def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool,
-                cross: bool = False) -> dict:
+                cross: bool = False, experts: slice | None = None) -> dict:
     d = cfg.d_model
     p = {"ln1": torch.ones(d, dtype=dtype, device=device)}
     if kind in ("g", "l"):
@@ -99,7 +107,7 @@ def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool,
         p["attn"] = init(gen, cfg, dtype, device)
         p["ln2"] = torch.ones(d, dtype=dtype, device=device)
         if moe_layer:
-            p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
+            p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, experts)
         else:
             p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)
         if cross:
@@ -116,24 +124,42 @@ def _block_init(gen, cfg, dtype, device, kind: str, moe_layer: bool,
     return p
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator | None, device) -> dict:
+def init_params(cfg: ArchConfig, gen: torch.Generator | None, device, layout=None) -> dict:
     """Random parameters from ``gen`` (a generator on ``device``; on the
     ``meta`` device, shapes and dtypes only, and ``gen`` may be None).
 
     The same shapes, scales and dtypes as the JAX package's
     ``init_params``; the draws differ (carry JAX parameters across with
-    ``interop.lm_params_from_numpy``)."""
+    ``interop.lm_params_from_numpy``).  With a ``layout`` of several model
+    ranks the same sequence is drawn and each piece is cut to this rank's
+    slice as it is drawn (a MoE layer expert by expert), so the ranks'
+    slices are the one-rank parameters bit for bit and no rank holds the
+    whole tree."""
     check_supported(cfg)
+    sharding.check_layout(cfg, layout)
+    lay = sharding.of(layout)
+    e_loc = cfg.moe.n_experts // lay.model if cfg.moe else 0
+    experts = slice(lay.model_rank * e_loc, (lay.model_rank + 1) * e_loc)
+
+    def mine(tree, *path):
+        return sharding.shard_params(tree, cfg, layout, path)
+
+    def layer(i):
+        bp = _block_init(gen, cfg, dtype, device, kind_at(cfg, i), _layer_is_moe(cfg, i),
+                         cross, experts)
+        drawn = bp["moe"].pop("experts") if "moe" in bp else None   # this rank's already
+        bp = mine(bp, "layers", i)
+        if drawn is not None:
+            bp["moe"]["experts"] = drawn
+        return bp
     dtype = dtype_of(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    params = {"embed": L.normal(gen, (v, d), d ** -0.5, dtype, device),
+    params = {"embed": mine(L.normal(gen, (v, d), d ** -0.5, dtype, device), "embed"),
               "final_norm": torch.ones(d, dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.normal(gen, (v, d), d ** -0.5, dtype, device)
+        params["lm_head"] = mine(L.normal(gen, (v, d), d ** -0.5, dtype, device), "lm_head")
     cross = cfg.encoder_layers > 0
-    params["layers"] = [_block_init(gen, cfg, dtype, device, kind_at(cfg, i),
-                                    _layer_is_moe(cfg, i), cross)
-                        for i in range(cfg.n_layers)]
+    params["layers"] = [layer(i) for i in range(cfg.n_layers)]
     if "a" in cfg.layer_pattern:
         params["shared_attn"] = {
             "ln1": torch.ones(d, dtype=dtype, device=device),
@@ -145,16 +171,17 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device) -> dict:
                              for _ in range(cfg.encoder_layers)]
         params["enc_norm"] = torch.ones(d, dtype=dtype, device=device)
     if cfg.mtp:
-        params["mtp_block"] = _block_init(gen, cfg, dtype, device, "g", False)
+        params["mtp_block"] = mine(_block_init(gen, cfg, dtype, device, "g", False),
+                                   "mtp_block")
         params["mtp_norm"] = torch.ones(d, dtype=dtype, device=device)
         params["mtp_proj"] = L.normal(gen, (2 * d, d), (2 * d) ** -0.5, dtype, device)
     return params
 
 
-def abstract_params(cfg: ArchConfig) -> dict:
+def abstract_params(cfg: ArchConfig, layout=None) -> dict:
     """The parameters' shapes and dtypes without allocation: ``init_params``
-    on the ``meta`` device."""
-    return init_params(cfg, None, torch.device("meta"))
+    on the ``meta`` device (this rank's, with a ``layout``)."""
+    return init_params(cfg, None, torch.device("meta"), layout)
 
 
 def _leaves(tree, path=()):
@@ -184,17 +211,29 @@ def active_param_count_exact(cfg: ArchConfig) -> int:
 
 
 def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
-               cross_len: int = 0) -> dict:
+               cross_len: int = 0, layout=None) -> dict:
     """Zeroed caches, one per layer: K/V (an ``a`` layer's too), with
     ``window_cache`` capping an ``l`` layer's at the window (a ring); an
     MLA layer's ``c_kv`` and ``k_rope``; an ``m`` layer's float32 ``conv``
     and ``ssd``; an ``r`` layer's float32 ``s`` and its ``prev`` and
     ``cm_prev`` in the model's dtype.  An encoder-decoder's ``g``/``l``
     layers also get the cross K/V ``xk``/``xv`` of ``cross_len`` source
-    positions."""
+    positions.  With a ``layout``: this model rank's kv heads, and under
+    the context-parallel MLA decode its ``cache_len / P`` positions."""
     check_supported(cfg)
+    sharding.check_layout(cfg, layout)
+    lay = sharding.of(layout)
     dtype = dtype_of(cfg)
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nkv = (cfg.n_kv_heads // lay.model
+           if sharding.kv_split(cfg, lay.model) == "split" else 1) \
+        if lay.model > 1 else cfg.n_kv_heads
+    s_mla = cache_len
+    if attn_mod.cp_decode(cfg, lay.model_bk):
+        if cache_len % lay.model:
+            raise ValueError(f"{cfg.name}: the context-parallel MLA cache of {cache_len} "
+                             f"positions does not split over {lay.model} model ranks")
+        s_mla = cache_len // lay.model
     layers = []
     for i in range(cfg.n_layers):
         kind = kind_at(cfg, i)
@@ -208,9 +247,9 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
             continue
         if cfg.mla is not None and kind != "a":
             m = cfg.mla
-            c = {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+            c = {"c_kv": torch.zeros((batch, s_mla, m.kv_lora_rank), dtype=dtype,
                                      device=device),
-                 "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim), dtype=dtype,
+                 "k_rope": torch.zeros((batch, s_mla, m.qk_rope_head_dim), dtype=dtype,
                                        device=device)}
         else:
             s_len = cache_len
@@ -231,8 +270,9 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_out=None,
-                 cache=None, cache_len=None, impl="auto"):
+                 cache=None, cache_len=None, impl="auto", layout=None):
     """Pre-norm block. Returns (x, new_cache)."""
+    bk = None if layout is None else layout.model_bk
     if kind == "m":
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         o, new_cache = ssm_mod.mamba_apply(bp["mamba"], h, cfg, cache, impl=impl)
@@ -255,11 +295,12 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_ou
         sub_cache = {k: v for k, v in cache.items() if k not in ("xk", "xv")}
     if cfg.mla is not None and kind != "a":
         o, new_cache = attn_mod.mla_attention(bp["attn"], h, cfg, positions=positions,
-                                              cache=sub_cache, cache_len=cache_len, impl=impl)
+                                              cache=sub_cache, cache_len=cache_len, impl=impl,
+                                              bk=bk)
     else:
         o, new_cache = attn_mod.attention(bp["attn"], h, cfg, positions=positions,
                                           causal=True, window=window, cache=sub_cache,
-                                          cache_len=cache_len, impl=impl)
+                                          cache_len=cache_len, impl=impl, bk=bk)
     x = x + o
     if "xattn" in bp and enc_out is not None:
         # cross-attention over the encoder's output; the prefill keeps its K/V
@@ -278,9 +319,9 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_ou
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         # expert_load and the wire drops ride the dispatch; serving reads neither
-        y, _aux, _stats = moe_mod.moe_apply(bp["moe"], h, cfg, _SERIAL, impl=impl)
+        y, _aux, _stats = moe_mod.moe_apply(bp["moe"], h, cfg, layout, impl=impl)
     else:
-        y = L.mlp(bp["mlp"], h, cfg.activation)
+        y = L.mlp(bp["mlp"], h, cfg.activation, bk)
     return x + y, new_cache
 
 
@@ -302,16 +343,18 @@ def encode(params, cfg: ArchConfig, src_embeds, *, impl: str = "auto"):
 
 
 def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=None,
-            cache=None, decode: bool = False, impl: str = "auto"):
+            cache=None, decode: bool = False, impl: str = "auto", layout=None):
     """Returns (hidden (B,T,D), new_cache | None).  ``patch_embeds`` (B,P,D)
     go before the tokens (T counts them); ``src_embeds`` (B,S,D) are encoded
-    once and cross-attended by an encoder-decoder's decoder."""
+    once and cross-attended by an encoder-decoder's decoder.  ``layout``:
+    the ranks (None: one); ``params`` and ``cache`` are this rank's."""
     check_supported(cfg)
+    sharding.check_layout(cfg, layout)
     b, t = tokens.shape
     dtype = dtype_of(cfg)
     dev = tokens.device
 
-    x = L.embed_lookup_dense(params["embed"], tokens)
+    x = L.embed_lookup(params["embed"], tokens, None if layout is None else layout.model_bk)
     # the scale is rounded to the model's dtype first, as in JAX
     x = (x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=dev)).to(dtype)
     if patch_embeds is not None:
@@ -336,7 +379,7 @@ def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=No
         bc = cache["layers"][i] if cache is not None else None
         x, nc = _apply_block(bp, x, cfg, kind_at(cfg, i), positions=positions,
                              shared_params=params.get("shared_attn"), enc_out=enc_out,
-                             cache=bc, cache_len=cache_len, impl=impl)
+                             cache=bc, cache_len=cache_len, impl=impl, layout=layout)
         new_layers.append(nc)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -358,25 +401,34 @@ def _mask_pad_vocab(logits, cfg):
     return logits.masked_fill(pad, -1e30)
 
 
-def prefill(params, cfg: ArchConfig, batch: dict, cache_len: int, *, impl: str = "auto"):
+def _logits(h, params, cfg, layout):
+    """The last position's logits over the whole (padded) vocab."""
+    table = head_table(params, cfg)
+    return _mask_pad_vocab(
+        L.output_logits(h[:, -1], table, None if layout is None else layout.model_bk), cfg)
+
+
+def prefill(params, cfg: ArchConfig, batch: dict, cache_len: int, *, impl: str = "auto",
+            layout=None):
     """Run the prompt, build the cache, return (cache, last_logits).
 
     batch: ``tokens`` (B,T), and ``patch_embeds`` (B,P,D) or ``src_embeds``
     (B,S,D) as the frontend gives them.  ``cache_len`` must hold the
     patches too: ``pos`` advances by P + T.  The cross cache is sized to
-    the source (S positions; 0 without ``src_embeds``)."""
+    the source (S positions; 0 without ``src_embeds``).  With a
+    ``layout``, every model rank of a data group returns the same logits."""
     tokens, src = batch["tokens"], batch.get("src_embeds")
     cache = cache_init(cfg, tokens.shape[0], cache_len, tokens.device,
-                       cross_len=0 if src is None else src.shape[1])
+                       cross_len=0 if src is None else src.shape[1], layout=layout)
     h, new_cache = forward(params, cfg, tokens, patch_embeds=batch.get("patch_embeds"),
-                           src_embeds=src, cache=cache, decode=False, impl=impl)
-    logits = h[:, -1] @ head_table(params, cfg).T
-    return new_cache, _mask_pad_vocab(logits, cfg)
+                           src_embeds=src, cache=cache, decode=False, impl=impl,
+                           layout=layout)
+    return new_cache, _logits(h, params, cfg, layout)
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens, *, impl: str = "auto"):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, impl: str = "auto", layout=None):
     """One token in, one logits row out; the cache advances by one (its
     buffers are written in place)."""
-    h, new_cache = forward(params, cfg, tokens, cache=cache, decode=True, impl=impl)
-    logits = h[:, -1] @ head_table(params, cfg).T
-    return _mask_pad_vocab(logits, cfg), new_cache
+    h, new_cache = forward(params, cfg, tokens, cache=cache, decode=True, impl=impl,
+                           layout=layout)
+    return _logits(h, params, cfg, layout), new_cache

@@ -15,17 +15,27 @@ ISx.  One call of :func:`moe_apply`:
      inverse all-to-all (``CommittedPlan.finish``) and merges them with
      the router weights.
 
-Parallelism: the model axis is a :class:`~repro_torch.core.backend.Backend`
-in place of the JAX package's ``(mesh, axes)``; rank ``r`` holds experts
-``[r*e_loc, (r+1)*e_loc)`` (``interop.moe_params_for_rank``).  Every rank
-is given the whole ``x``; when ``T % P == 0`` and ``P > 1`` each rank
-dispatches its slice of the sequence and the outputs are all-gathered
-(the JAX ``shard_map``'s sequence split), otherwise every rank dispatches
-all of its tokens (decode).  The capacities are the JAX package's
-formulas.  On the card the wire runs the exchange's kernels
-(``multi_bin_offsets``, ``pack_rows``, ``place_rows``); ``impl="torch"``
-takes their plain versions.  Inference only: the wire kernels have no
-autograd.
+Parallelism: a :class:`~repro_torch.models.sharding.Layout` in place of
+the JAX package's ``(mesh, axes)``.  Over the model axis rank ``r`` holds
+experts ``[r*E/P, (r+1)*E/P)`` (``sharding.shard_params``; ``E % P != 0``
+is refused, as JAX's ``shard_map`` refuses it); the shared expert and the
+dense residual MLP are tensor-parallel like the MLP, with one ``psum``.
+Every model rank of a data group is given the group's whole ``x`` and
+each token is dispatched once, by one rank: when ``T % P == 0`` each rank
+takes its slice of the sequence (the JAX ``shard_map``'s split, bit for
+bit); otherwise, when ``B*T % P == 0``, rows ``[r*B*T/P, (r+1)*B*T/P)``
+of the flattened tokens, which is JAX's split of ``x.reshape(1, B*T, D)``
+with the same capacities; otherwise ``ValueError``.  The outputs are
+all-gathered, so every rank returns the same ``y``.  (JAX's own
+``moe_apply`` at ``T % P != 0`` has every rank dispatch every token and
+returns the first rank's output: each owner's bins get P copies of each
+token and drop the later ranks'.)  The batch is split over the data axis
+by the caller; ``expert_load`` and ``dispatch_dropped`` are summed over it,
+as JAX's ``load.sum(axis=0)`` does, and so is the aux loss's routing.
+The capacities are the JAX package's formulas.  On the card the wire runs
+the exchange's kernels (``multi_bin_offsets``, ``pack_rows``,
+``place_rows``); ``impl="torch"`` takes their plain versions.  Inference
+only: the wire kernels have no autograd.
 """
 
 from __future__ import annotations
@@ -33,39 +43,48 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.backend import Backend
 from repro_torch.core.exchange import ExchangePlan
 from repro_torch.core.transport import make_transport
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 
 _F32 = torch.float32
 _I32 = torch.int32
+#: float32 elements of one block of a per-owner reply's weighted products
+_REPLY_BLOCK = 1 << 26
 
 
-def _experts(gen, n: int, shape: tuple, scale: float, dtype, device) -> torch.Tensor:
-    """(n, *shape) ``N(0, 1) * scale`` drawn one expert at a time into a
-    preallocated tensor of ``dtype``, so the float32 draw of the whole
-    stack never exists."""
-    out = torch.empty((n, *shape), dtype=dtype, device=device)
+def _experts(gen, n: int, shape: tuple, scale: float, dtype, device,
+             keep: slice) -> torch.Tensor:
+    """Experts ``keep`` of an (n, *shape) ``N(0, 1) * scale`` stack: all n
+    drawn one at a time, in order, the kept ones into a preallocated
+    tensor of ``dtype``, so the float32 draw of the whole stack never
+    exists."""
+    lo, hi, _ = keep.indices(n)
+    out = torch.empty((hi - lo, *shape), dtype=dtype, device=device)
     if out.is_meta:
         return out
     for i in range(n):
-        out[i] = L.normal(gen, shape, scale, dtype, device)
+        w = L.normal(gen, shape, scale, dtype, device)
+        if lo <= i < hi:
+            out[i - lo] = w
     return out
 
 
-def moe_init(gen: torch.Generator, cfg, dtype, device) -> dict:
+def moe_init(gen: torch.Generator, cfg, dtype, device, experts: slice | None = None) -> dict:
     """Router float32 (D, E); experts ``w_gate``/``w_in`` (E, D, F) and
-    ``w_out`` (E, F, D); ``shared``, ``dense`` and ``moe_bias`` as the
-    config asks.  The JAX package's shapes, scales and dtypes; the draws
-    differ."""
+    ``w_out`` (E, F, D), or only the slice ``experts`` of each stack (the
+    whole sequence is drawn all the same); ``shared``, ``dense`` and
+    ``moe_bias`` as the config asks.  The JAX package's shapes, scales and
+    dtypes; the draws differ."""
     mo = cfg.moe
     d, f, e = cfg.d_model, mo.expert_d_ff, mo.n_experts
     s_in, s_out = d ** -0.5, f ** -0.5
+    keep = slice(None) if experts is None else experts
     p = {"router": L.normal(gen, (d, e), s_in, _F32, device),
-         "experts": {"w_gate": _experts(gen, e, (d, f), s_in, dtype, device),
-                     "w_in": _experts(gen, e, (d, f), s_in, dtype, device),
-                     "w_out": _experts(gen, e, (f, d), s_out, dtype, device)}}
+         "experts": {"w_gate": _experts(gen, e, (d, f), s_in, dtype, device, keep),
+                     "w_in": _experts(gen, e, (d, f), s_in, dtype, device, keep),
+                     "w_out": _experts(gen, e, (f, d), s_out, dtype, device, keep)}}
     if mo.shared_experts:
         p["shared"] = L.mlp_init(gen, d, f * mo.shared_experts, cfg.activation, dtype, device)
     if mo.dense_residual:
@@ -171,23 +190,30 @@ def router_topk(params, x, cfg):
     return top_w, top_idx, gate_logits, scores
 
 
-def _commit(plan, bk, cfg, transport, impl, xl, extras):
+def _always_on(extras, x, activation: str, bk):
+    """The always-on MLPs' (shared/dense) summed output on x (None without
+    them), tensor-parallel over ``bk``."""
+    out = None
+    for p in extras:
+        o = L.mlp(p, x, activation, bk)
+        out = o if out is None else out + o
+    return out
+
+
+def _commit(plan, bk, cfg, transport, impl, x, extras):
     """Commit the plan; under split-phase dispatch the always-on MLPs
-    (shared/dense) run between ``commit_async`` and ``finish``.  Returns
+    run on x between ``commit_async`` and ``finish``.  Returns
     ``(committed, window output | None)``."""
     if not cfg.moe_async_dispatch:
         return plan.commit(bk, impl=impl, max_rounds=cfg.moe_dispatch_rounds,
                            transport=transport), None
     pend = plan.commit_async(bk, impl=impl, max_rounds=cfg.moe_dispatch_rounds,
                              transport=transport)
-    win = None
-    for p in extras:
-        o = L.mlp(p, xl, cfg.activation)
-        win = o if win is None else win + o
+    win = _always_on(extras, x, cfg.activation, bk)
     return pend.finish(bk), win
 
 
-def _dispatch(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport, impl):
+def _dispatch(xl, idxl, wl, experts, extras, x, cfg, bk, nm, e_loc, transport, impl):
     """One exchange row per (token, expert) pair."""
     mo = cfg.moe
     d, k, e = xl.shape[2], mo.top_k, mo.n_experts
@@ -206,7 +232,7 @@ def _dispatch(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport, impl
     h_tok = plan.add(payload, ee // e_loc, cap, reply_lanes=act_lanes,
                      op_name="moe.dispatch")
     h_st = _stats_flow(plan, e, e_loc, xl.device)
-    c, win = _commit(plan, bk, cfg, transport, impl, xl, extras)
+    c, win = _commit(plan, bk, cfg, transport, impl, x, extras)
     res = c.view(h_tok)
 
     rows = _unpack_act(res.payload[:, :act_lanes], bf16)
@@ -224,12 +250,10 @@ def _dispatch(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport, impl
     load = outs[h_st][0][:, 0].float()
     yk = _unpack_act(outs[h_tok][0], bf16).reshape(bl, tl, k, d)
     ybt = torch.einsum("btkd,btk->btd", yk, wl.float())
-    if win is not None:
-        ybt = ybt.to(xl.dtype) + win
-    return ybt, load, res.dropped
+    return ybt, load, res.dropped, win
 
 
-def _dispatch_dedup(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport, impl):
+def _dispatch_dedup(xl, idxl, wl, experts, extras, x, cfg, bk, nm, e_loc, transport, impl):
     """One exchange row per (token, distinct owner rank): the owner runs
     all of its experts the token picked and replies their weighted sum."""
     mo = cfg.moe
@@ -264,7 +288,7 @@ def _dispatch_dedup(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport
     h_tok = plan.add(payload, owners.reshape(-1), cap, reply_lanes=act_lanes,
                      valid=first.reshape(-1), op_name="moe.dispatch")
     h_st = _stats_flow(plan, e, e_loc, xl.device)
-    c, win = _commit(plan, bk, cfg, transport, impl, xl, extras)
+    c, win = _commit(plan, bk, cfg, transport, impl, x, extras)
     res = c.view(h_tok)
 
     m = res.payload.shape[0]
@@ -282,9 +306,15 @@ def _dispatch_dedup(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport
 
     flat_y = y.reshape(e_loc * e_cap, d).float()
     take = slot.clamp(max=e_loc * e_cap - 1)
-    part = flat_y[take] * flat_w[:, None] * okb[:, None]
-    # each arrival row owns k consecutive entries: their sum is its reply
-    out_rows = torch.where(okb[:, None], part, 0).reshape(m, k, d).sum(dim=1)
+    # each arrival row owns k consecutive entries: their sum is its reply,
+    # taken a block of rows at a time so the (M*k, D) products never exist
+    # whole (4 GB a temporary at deepseek-v3's width on four ranks)
+    out_rows = torch.empty((m, d), dtype=_F32, device=xl.device)
+    step = max(1, _REPLY_BLOCK // (k * d))
+    for r0 in range(0, m, step):
+        e = slice(r0 * k, min(m, r0 + step) * k)
+        part = flat_y[take[e]] * flat_w[e, None] * okb[e, None]
+        out_rows[r0:r0 + step] = torch.where(okb[e, None], part, 0).reshape(-1, k, d).sum(dim=1)
 
     _stats_reply(c, h_st, _served(flat_ids, okb, e_loc))
     c.set_reply(h_tok, _pack_act(out_rows, bf16))
@@ -292,68 +322,85 @@ def _dispatch_dedup(xl, idxl, wl, experts, extras, cfg, bk, nm, e_loc, transport
     load = outs[h_st][0][:, 0].float()
     yk = _unpack_act(outs[h_tok][0], bf16).reshape(n_tok, k, d)
     ybt = yk.sum(dim=1).reshape(bl, tl, d)                       # weights applied at owner
-    if win is not None:
-        ybt = ybt.to(xl.dtype) + win
-    return ybt, load, res.dropped
+    return ybt, load, res.dropped, win
 
 
-def _gather_seq(bk: Backend, y: torch.Tensor) -> torch.Tensor:
-    """Every rank's (B, T/P, D) slice -> the whole (B, T, D), in rank order."""
-    wire = y.view(torch.int16) if y.dtype == torch.bfloat16 else y
-    parts = bk.all_gather(wire)
-    if y.dtype == torch.bfloat16:
-        parts = parts.view(torch.bfloat16)
-    return torch.cat(list(parts), dim=1)
+def token_split(b: int, t: int, nm: int) -> str:
+    """How ``nm`` model ranks share the dispatch of (B, T) tokens:
+    ``"seq"`` (each rank its T/P positions of every row), ``"rows"`` (each
+    rank B*T/P rows of the flattened tokens) or, on one rank, ``"all"``."""
+    if nm == 1:
+        return "all"
+    if t % nm == 0:
+        return "seq"
+    if b * t % nm == 0:
+        return "rows"
+    raise ValueError(f"moe_apply: neither T = {t} nor B*T = {b * t} splits over {nm} model "
+                     f"ranks, and each token must be dispatched once")
 
 
-def moe_apply(params, x, cfg, backend: Backend, *, impl: str = "auto"):
-    """x (B, T, D) -> ``(y, aux, stats)``.
+def moe_apply(params, x, cfg, layout=None, *, impl: str = "auto"):
+    """x (B, T, D), this data rank's batch -> ``(y, aux, stats)``.
 
-    ``aux`` is the load-balance loss (GShard).  ``stats`` holds
-    ``expert_load``, the global post-capacity served-token count per
-    expert (E,) delivered by the stats flow, and ``dispatch_dropped``,
-    the global count of token copies the wire could not admit.  A copy
-    past its expert's bin capacity is served by no expert (its output
-    row is zero), as in the JAX package; only wire drops are counted.
+    ``layout``: a :class:`~repro_torch.models.sharding.Layout` (None: one
+    rank).  ``aux`` is the load-balance loss (GShard) over every data
+    rank's tokens.  ``stats`` holds ``expert_load``, the global
+    post-capacity served-token count per expert (E,) delivered by the
+    stats flow, and ``dispatch_dropped``, the global count of token copies
+    the wire could not admit.  A copy past its expert's bin capacity is
+    served by no expert (its output row is zero), as in the JAX package;
+    only wire drops are counted.
     """
     mo = cfg.moe
     b, t, d = x.shape
     e = mo.n_experts
+    lay = sharding.of(layout)
+    bk, dbk = lay.model_bk, lay.data_bk
+    nm, nd = bk.nprocs(), dbk.nprocs()
+    if e % nm:
+        raise ValueError(f"moe_apply: n_experts = {e} does not split over {nm} model ranks")
+    e_loc = e // nm
+    experts = params["experts"]
+    if experts["w_gate"].shape[0] != e_loc:
+        raise ValueError(f"moe_apply: rank {bk.rank()} of {nm} holds "
+                         f"{experts['w_gate'].shape[0]} experts, want {e_loc} "
+                         f"(sharding.shard_params slices them)")
     top_w, top_idx, gate_logits, _ = router_topk(params, x, cfg)
 
-    # load-balance aux loss (GShard)
+    # load-balance aux loss (GShard), over every data rank's tokens
     probs_mean = torch.softmax(gate_logits, dim=-1).mean(dim=(0, 1))
     hard = torch.zeros(e, dtype=_F32, device=x.device).index_add_(
         0, top_idx.reshape(-1), torch.ones(top_idx.numel(), dtype=_F32, device=x.device))
+    if nd > 1:
+        probs_mean, hard = dbk.psum(probs_mean) / nd, dbk.psum(hard)
     hard = hard / hard.sum().clamp(min=1.0)
     aux = mo.aux_loss_coef * e * torch.sum(probs_mean * hard)
 
     # ---- dispatch over the model axis (the BCL exchange) ----
-    nm = backend.nprocs()
-    e_loc = -(-e // nm)
-    experts = params["experts"]
-    if experts["w_gate"].shape[0] != e_loc:
-        raise ValueError(f"moe_apply: rank {backend.rank()} of {nm} holds "
-                         f"{experts['w_gate'].shape[0]} experts, want {e_loc} "
-                         f"(interop.moe_params_for_rank slices them)")
     transport = make_transport(cfg.exchange_transport)
     extras = [params[kk] for kk in ("shared", "dense") if kk in params]
-    seq_split = t % nm == 0 and nm > 1
+    split = token_split(b, t, nm)
     xl, idxl, wl = x, top_idx, top_w
-    if seq_split:
-        tl = t // nm
-        sl = slice(backend.rank() * tl, (backend.rank() + 1) * tl)
+    r = bk.rank()
+    if split == "seq":
+        sl = slice(r * (t // nm), (r + 1) * (t // nm))
         xl, idxl, wl = x[:, sl], top_idx[:, sl], top_w[:, sl]
+    elif split == "rows":
+        sl = slice(r * (b * t // nm), (r + 1) * (b * t // nm))
+        xl, idxl, wl = (a.reshape(1, b * t, -1)[:, sl] for a in (x, top_idx, top_w))
     dispatch = _dispatch_dedup if cfg.moe_dedup_dispatch else _dispatch
-    y, load, dropped = dispatch(xl, idxl, wl, experts,
-                                extras if cfg.moe_async_dispatch else [], cfg, backend,
-                                nm, e_loc, transport, impl)
+    y, load, dropped, win = dispatch(xl, idxl, wl, experts,
+                                     extras if cfg.moe_async_dispatch else [], x, cfg, bk,
+                                     nm, e_loc, transport, impl)
     y = y.to(x.dtype)
-    if seq_split:
-        y = _gather_seq(backend, y)
+    if split != "all":          # every rank's share, in rank order
+        y = torch.cat(list(bk.all_gather(y)), dim=1).reshape(b, t, d)
+    if nd > 1:
+        load, dropped = dbk.psum(load), dbk.psum(dropped)
 
     # ---- always-on paths (under async dispatch they ran in the window) ----
     if not cfg.moe_async_dispatch:
-        for p in extras:
-            y = y + L.mlp(p, x, cfg.activation)
+        win = _always_on(extras, x, cfg.activation, bk)
+    if win is not None:
+        y = y + win
     return y, aux, {"expert_load": load, "dispatch_dropped": dropped}

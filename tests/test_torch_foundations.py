@@ -210,7 +210,7 @@ def _imports(path: pathlib.Path):
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_hashmap.py",
                  ROOT / "scripts" / "torch_flash_ab.py", ROOT / "scripts" / "torch_scan_ab.py",
-                 ROOT / "scripts" / "kernel_ab.py",
+                 ROOT / "scripts" / "kernel_ab.py", ROOT / "scripts" / "torch_gloo_probe.py",
                  ROOT / "examples" / "torch_quickstart.py",
                  ROOT / "examples" / "torch_isx_sort.py",
                  ROOT / "examples" / "torch_genome_assembly.py"])

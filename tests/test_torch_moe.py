@@ -1,6 +1,6 @@
 """The port's MoE dispatch (on the CPU, P=1) against the JAX package.
 
-``repro_torch.models.moe.moe_apply`` on a ``SerialBackend`` with the
+``repro_torch.models.moe.moe_apply`` on one rank with the
 plain versions (``impl="torch"``) against ``repro.models.moe.moe_apply``
 on a 1 x 1 mesh (its ``jnp`` path, under a fresh ``jax.jit`` so its
 cost log is the trace-time log), at reduced arctic-480b (float32,
@@ -24,8 +24,9 @@ steps against the JAX ones (float32 logits within 1e-5 relative L2; a
 bf16 case at 2e-2, whose routers' margins are asserted above 1e-2 so
 that a bf16 rounding cannot flip a pick), ``serve.main --arch
 arctic-480b --reduced --cpu``, the parameters' round trip through
-``interop`` with each rank's expert slice, and the int32 word-slot
-bounds of the wire.  The card runs the same path through the wire
+``interop`` with each rank's expert slice, the int32 word-slot bounds
+of the wire, and, at two model ranks, the gather of the ranks' dispatch
+outputs in rank order, bit for bit in float32 and bf16.  The card runs the same path through the wire
 kernels (``chip_smoke.py``'s MoE serving phase).
 """
 
@@ -52,6 +53,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
+from repro_torch.models.sharding import Layout, shard_params
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ARCH = "arctic-480b"
@@ -126,7 +128,7 @@ def test_moe_apply_matches_jax(mesh11, case):
         yj, auxj, sj = jax.jit(lambda p, xx: jmoe.moe_apply(p, xx, cfg_j, mesh11, axes))(
             pj, jnp.asarray(x))
     with tcosts.recording() as log_t:
-        yt, auxt, st = tmoe.moe_apply(pt, xt, cfg_t, SerialBackend(), impl="torch")
+        yt, auxt, st = tmoe.moe_apply(pt, xt, cfg_t, impl="torch")
 
     yj = np.asarray(yj)
     assert yt.shape == yj.shape and yt.dtype == torch.float32
@@ -243,20 +245,25 @@ def test_moe_params_round_trip_and_rank_slices(dtype):
                             jax.tree_util.tree_leaves(back)):
         assert a.shape == b.shape and np.array_equal(np.asarray(a, np.float32), b), path
     nprocs, e = 4, cfg_t.moe.n_experts
-    for bp in params_t["layers"]:
-        ranks = [interop.moe_params_for_rank(bp["moe"], cfg_t, r, nprocs)
+
+    def layout(r, n=nprocs):        # slicing reads the model rank alone
+        return Layout(1, n, 0, r, SerialBackend(), SerialBackend())
+    for i, bp in enumerate(params_t["layers"]):
+        ranks = [shard_params(bp["moe"], cfg_t, layout(r), ("layers", i, "moe"))
                  for r in range(nprocs)]
         for name, full in bp["moe"]["experts"].items():
             parts = [rk["experts"][name] for rk in ranks]
             assert all(p.shape[0] == e // nprocs for p in parts)
             assert torch.equal(torch.cat(parts), full)
-        assert all(rk["router"] is bp["moe"]["router"] and rk["dense"] is bp["moe"]["dense"]
-                   for rk in ranks)
-    with pytest.raises(ValueError, match="do not split"):
-        interop.moe_params_for_rank(params_t["layers"][0]["moe"], cfg_t, 0, 3)
+        assert all(rk["router"] is bp["moe"]["router"] for rk in ranks)
+        for name, full in bp["moe"]["dense"].items():     # tensor-parallel, like the MLP
+            dim = 0 if name == "w_out" else 1
+            assert torch.equal(torch.cat([rk["dense"][name] for rk in ranks], dim=dim), full)
+    with pytest.raises(ValueError, match="does not split over 3 model ranks"):
+        shard_params(params_t["layers"][0]["moe"], cfg_t, layout(0, 3))
     with pytest.raises(ValueError, match="holds 2 experts, want 8"):
         tmoe.moe_apply(ranks[1], torch.zeros(1, 2, cfg_t.d_model, dtype=tlm.dtype_of(cfg_t)),
-                       cfg_t, SerialBackend())
+                       cfg_t)
 
 
 def test_wire_word_slots_past_int32_raise():
@@ -281,22 +288,49 @@ def test_wire_word_slots_past_int32_raise():
             specs=[spec], pr=1, pc=1, c1=[1], c2=[1], plan_op="moe.dispatch"))(), staged)
 
 
-def test_gather_seq_carries_bf16_as_words():
-    """The sequence gather moves bf16 slices as 16-bit words (gloo's
-    collectives are not asked for bf16) and returns them bit for bit, in
-    rank order."""
-    class TwoRanks(SerialBackend):
-        def nprocs(self):
-            return 2
+class _TwoRanks(SerialBackend):
+    """Model rank 0 of two: ``all_gather`` stacks this rank's share on the
+    other rank's (``other``) and keeps each dtype it is given."""
 
-        def all_gather(self, x):
-            assert x.dtype != torch.bfloat16
-            return torch.stack([x, x + 1])
+    def __init__(self, other: torch.Tensor):
+        self.other, self.dtypes = other, []
 
-    y = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(0))
-    got = tmoe._gather_seq(TwoRanks(), y.to(torch.bfloat16))
-    want = torch.cat([y.to(torch.bfloat16), (y.to(torch.bfloat16).view(torch.int16) + 1)
-                      .view(torch.bfloat16)], dim=1)
-    assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
-                                                       want.view(torch.int16))
-    assert torch.equal(tmoe._gather_seq(TwoRanks(), y), torch.cat([y, y + 1], dim=1))
+    def nprocs(self):
+        return 2
+
+    def all_gather(self, x):
+        self.dtypes.append(x.dtype)
+        return torch.stack([x, self.other])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,split", [(2, 4, "seq"), (2, 3, "rows")], ids=["seq", "rows"])
+def test_moe_gather_carries_outputs_bit_for_bit(monkeypatch, b, t, split, dtype):
+    """At two model ranks ``moe_apply`` dispatches this rank's share of the
+    tokens (T/P positions of every row, or B*T/P rows of the flattened
+    tokens), gathers the ranks' outputs in the model's dtype (bf16 as
+    bf16: no int16 words, which gloo refuses) and returns them bit for
+    bit, in rank order."""
+    cfg = tcfg.reduced(tcfg.get_config(ARCH))
+    d, e = cfg.d_model, cfg.moe.n_experts
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(b, t, d, generator=g).to(dtype)
+    share = (b, t // 2, d) if split == "seq" else (1, b * t // 2, d)
+    mine = torch.randn(share, generator=g)                 # float32, as a dispatch returns it
+    other = torch.randn(share, generator=g).to(dtype)
+    want_x = x[:, :t // 2] if split == "seq" else x.reshape(1, b * t, d)[:, :b * t // 2]
+
+    def dispatch(xl, *args):
+        assert torch.equal(xl, want_x)
+        return mine, torch.zeros(e), torch.zeros((), dtype=torch.int32), None
+    monkeypatch.setattr(tmoe, "_dispatch", dispatch)
+    monkeypatch.setattr(tmoe, "_dispatch_dedup", dispatch)
+    assert tmoe.token_split(b, t, 2) == split
+    bk = _TwoRanks(other)
+    params = {"router": torch.randn(d, e, generator=g),
+              "experts": {"w_gate": torch.zeros(e // 2, 1, 1)}}
+    y, _, _ = tmoe.moe_apply(params, x, cfg, Layout(1, 2, 0, 0, SerialBackend(), bk))
+    want = torch.cat([mine.to(dtype), other], dim=1).reshape(b, t, d)
+    words = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert y.dtype == dtype and torch.equal(y.view(words), want.view(words))
+    assert bk.dtypes == [dtype]
