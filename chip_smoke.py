@@ -3056,12 +3056,13 @@ def flash_calls(cfg) -> int:
     return sum(k in "gla" for k in kinds) + cfg.encoder_layers + cross
 
 
-def serving_launches(cfg, n_waves: int, gen: int, prompt_len: int) -> dict:
-    """The kernel launches one ``serve`` run makes without MoE layers: the
-    flash route of the model's dtype ``flash_calls`` times a wave, each
-    mixer's scan once per ``m`` or ``r`` layer and call (a prefill of
-    ``prompt_len`` steps and ``gen`` decode steps a wave); Mamba2's by the
-    route each call's shape picks."""
+def serving_launches(cfg, n_waves: int, gen: int, prompt_len: int, nm: int = 1) -> dict:
+    """The kernel launches one ``serve`` run makes without MoE layers (on
+    each of ``nm`` model ranks): the flash route of the model's dtype
+    ``flash_calls`` times a wave, each mixer's scan once per ``m`` or ``r``
+    layer and call (a prefill of ``prompt_len`` steps and ``gen`` decode
+    steps a wave); Mamba2's by the route each call's shape (a rank's
+    heads) picks."""
     kinds = [lm.kind_at(cfg, i) for i in range(cfg.n_layers)]
     route = "flash_attention_f32" if cfg.dtype == "float32" else "flash_attention"
     per_call = {route: flash_calls(cfg) * n_waves,
@@ -3070,7 +3071,7 @@ def serving_launches(cfg, n_waves: int, gen: int, prompt_len: int) -> dict:
     if "m" in kinds:
         _inner, nh, head = ssm_mod.mamba_dims(cfg)
         for t, calls in ((prompt_len, 1), (1, gen)):
-            chunked = ssm_scan.mamba_route(t, nh, head, cfg.ssm.d_state) > 0
+            chunked = ssm_scan.mamba_route(t, nh // nm, head, cfg.ssm.d_state) > 0
             per_call["mamba_scan" if chunked else "mamba_scan_seq"] += \
                 kinds.count("m") * n_waves * calls
     return {name: n for name, n in per_call.items() if n}
@@ -3259,18 +3260,18 @@ def scan_check(name: str, calls: dict, reps: int, dev) -> dict:
 
 
 def _conv_state_zeroed(real):
-    def fault(params, x, cfg, state=None, impl="auto"):
+    def fault(params, x, cfg, state=None, impl="auto", bk=None):
         if state is not None and x.shape[1] == 1:
             state = dict(state, conv=torch.zeros_like(state["conv"]))
-        return real(params, x, cfg, state, impl=impl)
+        return real(params, x, cfg, state, impl=impl, bk=bk)
     return fault
 
 
 def _prev_dropped(real):
-    def fault(params, x, cfg, state=None, impl="auto"):
+    def fault(params, x, cfg, state=None, impl="auto", bk=None):
         if state is not None and x.shape[1] == 1:
             state = dict(state, prev=torch.zeros_like(state["prev"]))
-        return real(params, x, cfg, state, impl=impl)
+        return real(params, x, cfg, state, impl=impl, bk=bk)
     return fault
 
 
@@ -3848,17 +3849,19 @@ MR_RANKS = 4
 #: the MoE agreement check's slack: the old every-rank dispatch drops there
 MR_DROP_SLACK = 1.0
 MR_RANKS_TIMEOUT_S = 900
-#: the first layer's output at four ranks against one rank's, relative L2
-#: over the whole output (prefill and decode): sound 4.9e-4 to 1.4e-3 on an
-#: H100, the CP combine planted without its rescale 2.1e-2 at decode
+#: each kind's first layer's output (before the final norm: READ_AT) at four
+#: ranks against one rank's, relative L2 over the whole output (prefill and
+#: decode): sound 9.7e-5 to 2.3e-3 on an H100 (seamless-m4t-medium's decoder
+#: layer the largest), the faults 8.9e-3 (RWKV's decay columns of the
+#: neighbouring heads, in the time mix) to 1.4
 MR_LAYER_REL_L2 = 5e-3
-#: largest per-position relative L2 gap of the first layer's prefill output
-#: at four ranks to one rank's (its decode is held to LAYER_REL_L2, as at one
-#: rank).  Over 8 x 1024 or 8 x 2048 positions a few differ by one-ulp bf16
-#: flips of the summed partials: sound 5.9e-3 (qwen3-4b) and 8.8e-3
-#: (deepseek-v3) on an H100, 9.2e-3 with each partial rounded to bf16; the
-#: faults that act at prefill 0.71 (the psum after wo skipped) and 1.4 (a
-#: vocab shard one row off)
+#: largest per-position relative L2 gap of the first layer's output over a
+#: prefill's (or the encoder's) positions at four ranks to one rank's (at
+#: decode, LAYER_REL_L2, as at one rank).  Over 8 x 1024 or 8 x 2048
+#: positions a few differ by one-ulp bf16 flips of the summed partials:
+#: sound 5.6e-3 to 9.5e-3 on an H100 (9.2e-3 in qwen3-4b with each partial
+#: rounded to bf16); the faults at prefill 1.4e-2 (RWKV's decay columns, which
+#: MR_LAYER_REL_L2 catches) and 0.15 to 1.5
 MR_PREFILL_POSITION_GAP = 3e-2
 #: deepseek-v3's options in its multi-rank cell, at which no MoE copy drops on
 #: the wire at one rank or four: one row per (token, owner rank), whose wire
@@ -3875,14 +3878,41 @@ MR_PREFILL_POSITION_GAP = 3e-2
 #: owner bins its arrivals in token order; bf16 runs can route a near tie
 #: differently), and the cell prints how many.
 MR_DEEPSEEK = dict(mla_absorb=True, mla_cp_decode=True, moe_dedup_dispatch=True)
+#: the cells, each its P=1 cell's model and a wave of 8 of its requests; the
+#: recurrent and encoder-decoder ones: zamba2-7b at full width cut to 12 of 81
+#: layers (``mmmmma`` twice: the shared block runs twice on one parameter
+#: set), 28 Mamba2 heads, 8 attention heads over 8 kv heads a rank; rwkv6-1.6b
+#: whole, 8 of 32 heads a rank; seamless-m4t-medium whole (12 + 12 layers), 4
+#: of 16 heads a rank, each request's 512 source frames as its P=1 cell draws
+#: them (``seq``: ``frontend_batch``).  16 tokens for the recurrent cells,
+#: whose prefills make the most all-reduces of 235 MB and 134 MB.
 MR_FULL = (dict(arch="qwen3-4b", reduced=False, layers=None, requests=16, batch=8,
                 prompt_len=2048, gen=32, over={}),
            dict(arch="deepseek-v3-671b", reduced=False, layers=4, requests=16, batch=8,
-                prompt_len=1024, gen=16, over=MR_DEEPSEEK))
+                prompt_len=1024, gen=16, over=MR_DEEPSEEK),
+           dict(arch="zamba2-7b", reduced=False, layers=12, requests=16, batch=8,
+                prompt_len=2048, gen=16, over={}),
+           dict(arch="rwkv6-1.6b", reduced=False, layers=None, requests=16, batch=8,
+                prompt_len=2048, gen=16, over={}),
+           dict(arch="seamless-m4t-medium", reduced=False, layers=None, requests=16, batch=8,
+                seq=2048, gen=32, over={}))
 MR_REHEARSAL = (dict(arch="qwen3-4b", reduced=True, layers=None, requests=4, batch=4,
                      prompt_len=40, gen=4, over={}),
                 dict(arch="deepseek-v3-671b", reduced=True, layers=2, requests=4, batch=4,
-                     prompt_len=40, gen=4, over=dict(MR_DEEPSEEK, moe_capacity_slack=2.5)))
+                     prompt_len=40, gen=4, over=dict(MR_DEEPSEEK, moe_capacity_slack=2.5)),
+                # reduced zamba2-7b's Mamba2 at 8 heads (2 a rank; the reduced config has 2)
+                dict(arch="zamba2-7b", reduced=True, layers=None, requests=4, batch=4,
+                     prompt_len=40, gen=4,
+                     over=dict(ssm=dataclasses.replace(reduced(get_config("zamba2-7b")).ssm,
+                                                       n_heads=8))),
+                # 512 steps: a decay column acts on the ~150 steps a state keeps
+                # (exp(-exp(-5)) a step), so a neighbour's columns (the same w0,
+                # only ww's small terms apart) moved the time mix by 2.9e-3 at 40
+                # steps, under the check's 5e-3, and past it here
+                dict(arch="rwkv6-1.6b", reduced=True, layers=None, requests=4, batch=4,
+                     prompt_len=512, gen=4, over={}),
+                dict(arch="seamless-m4t-medium", reduced=True, layers=None, requests=4, batch=4,
+                     seq=40, gen=4, over={}))
 
 
 def mr_config(mz: dict):
@@ -3896,11 +3926,16 @@ def mr_config(mz: dict):
     return dataclasses.replace(cfg, **mz["over"])
 
 
-def mr_prompts(mz: dict, cfg, seed: int, dev) -> torch.Tensor:
-    """The first ``batch`` of the one-rank cell's prompts (its seeded draw)."""
+def mr_prompts(mz: dict, cfg, seed: int, dev) -> tuple[torch.Tensor, dict]:
+    """The first ``batch`` of the one-rank cell's prompts (its seeded draw)
+    and their frontend embeddings (a frontend cell's ``frontend_batch``,
+    as ``frontend_setup`` draws it)."""
+    if cfg.frontend:
+        batch = frontend_batch(cfg, mz["requests"], mz["seq"], dev, seed)
+        return batch.pop("tokens")[:mz["batch"]], rows_of(batch, slice(0, mz["batch"]))
     p = np.random.default_rng(seed).integers(0, cfg.vocab, (mz["requests"], mz["prompt_len"]),
                                              dtype=np.int32)
-    return torch.from_numpy(p[:mz["batch"]]).to(dev)
+    return torch.from_numpy(p[:mz["batch"]]).to(dev), {}
 
 
 def route_of(params, x: torch.Tensor, cfg, load: torch.Tensor) -> dict:
@@ -3946,17 +3981,117 @@ def lost_copies(seen: list) -> dict:
             "bin_overflow": sum(n - served - d for n, served, d in seen)}
 
 
-def mr_first_layer(params, cfg, prompts: torch.Tensor, token: torch.Tensor,
-                   layout=None) -> tuple:
-    """The first layer's output (``lm.forward`` of the model cut to it) at
-    the prefill of ``prompts`` and at the decode of ``token`` after it."""
-    cfg1 = dataclasses.replace(cfg, n_layers=1)
-    p1 = dict(params, layers=params["layers"][:1])
+def mr_first_layers(params, cfg, prompts: torch.Tensor, token: torch.Tensor, embeds: dict,
+                    layout=None) -> dict:
+    """The first layer of each kind the model runs, alone (``lm.forward`` of
+    the model cut to that one layer; an encoder-decoder's encoder cut to its
+    first block): its output (before the final norm, :data:`READ_AT`) at
+    the prefill of ``prompts`` with the frontend's ``embeds`` and at the
+    decode of ``token`` after it, as "<kind> prefill" and "<kind> decode"
+    (an ``r`` layer's time mix and channel mix outputs apart too); an
+    encoder-decoder's first encoder block's output as "encoder"."""
+    out = {}
     b, t = prompts.shape
-    cache = lm.cache_init(cfg1, b, t + MR_RANKS, prompts.device, layout=layout)
-    pre, cache = lm.forward(p1, cfg1, prompts, cache=cache, layout=layout)
-    dec, _ = lm.forward(p1, cfg1, token, cache=cache, decode=True, layout=layout)
-    return pre, dec
+    src = embeds.get("src_embeds")
+    for kind in dict.fromkeys(cfg.layer_pattern):
+        i = next(i for i in range(cfg.n_layers) if lm.kind_at(cfg, i) == kind)
+        cfg1 = dataclasses.replace(cfg, n_layers=1, layer_pattern=kind,
+                                   encoder_layers=min(cfg.encoder_layers, 1))
+        p1 = dict(params, layers=params["layers"][i:i + 1])
+        if cfg.encoder_layers:
+            p1["encoder"] = params["encoder"][:1]
+        cache = lm.cache_init(cfg1, b, n_patches(embeds) + t + MR_RANKS, prompts.device,
+                              cross_len=0 if src is None else src.shape[1], layout=layout)
+        for phase in ("prefill", "decode"):
+            seen = {}
+            with outputs_read(seen):
+                _, cache = lm.forward(p1, cfg1, prompts if phase == "prefill" else token,
+                                      cache=cache, decode=phase == "decode", layout=layout,
+                                      **(embeds if phase == "prefill" else {}))
+            out[f"{kind} {phase}"] = seen.pop("layer")
+            seen.pop("encoder", None)
+            out.update({f"{kind} {mix} {phase}": y for mix, y in seen.items()})
+    if src is not None:
+        seen = {}
+        with outputs_read(seen):
+            lm.encode(p1, cfg1, src, layout=layout)
+        out["encoder"] = seen["encoder"]
+    return out
+
+
+#: the outputs the first-layer check reads, by (owner, function): a layer
+#: (``lm._apply_block``) and an encoder block before the final norms (a
+#: row's bf16 norm scale that rounds one ulp apart moves the whole row by
+#: 2**-8 to 2**-7, which a per-position limit of 5e-3 cannot tell from a
+#: fault), and RWKV-6's time mix and channel mix apart (the decay acts
+#: inside the time mix, the residual around both)
+READ_AT = {(lm, "_apply_block"): "layer", (lm, "_encoder_block"): "encoder",
+           (ssm_mod, "rwkv_apply"): "time mix", (ssm_mod, "rwkv_channel_mix"): "channel mix"}
+
+
+@contextlib.contextmanager
+def tapped(targets, record):
+    """While the block runs, each ``(owner, name)`` of ``targets`` calls
+    through: ``record((owner, name), args, outputs)`` after every call."""
+    reals = {key: getattr(*key) for key in targets}
+
+    def tap(key):
+        def call(*args, **kwargs):
+            out = reals[key](*args, **kwargs)
+            record(key, args, out)
+            return out
+        return call
+    for key in reals:
+        setattr(*key, tap(key))
+    try:
+        yield
+    finally:
+        for key, real in reals.items():
+            setattr(*key, real)
+
+
+def outputs_read(seen: dict):
+    """While the block runs, the first output of each :data:`READ_AT`
+    function's last call, by its label."""
+    return tapped(READ_AT, lambda key, args, out: seen.__setitem__(
+        READ_AT[key], out[0] if isinstance(out, tuple) else out))
+
+
+def layer_gaps(got: dict, want: dict) -> dict:
+    """Each first-layer reading's gap to the one-rank run's: relative L2
+    over the whole output and the largest per-position one."""
+    return {k: dict(rel=rel_l2(got[k], want[k]), pos=position_gap(got[k], want[k])) for k in want}
+
+
+def layer_within(g: dict) -> bool:
+    """Every first-layer reading at four ranks within its limits: the whole
+    output within MR_LAYER_REL_L2, each position within
+    MR_PREFILL_POSITION_GAP over many positions (a prefill, the encoder)
+    and LAYER_REL_L2 at decode."""
+    return all(v["rel"] <= MR_LAYER_REL_L2
+               and v["pos"] <= (LAYER_REL_L2 if k.endswith("decode") else MR_PREFILL_POSITION_GAP)
+               for k, v in g.items())
+
+
+def first_scans(seen: dict):
+    """While the block runs, each scan's first prefill (T > 1) and first
+    decode call at ``ops`` as served: ``seen[(name, "prefill" | "decode")]
+    = (operands, outputs)``."""
+    return tapped([(ops, "mamba_scan"), (ops, "rwkv_scan")], lambda key, args, out: seen.setdefault(
+        (key[1], "prefill" if args[0].shape[1] > 1 else "decode"), (args, out)))
+
+
+def scans_held(seen: dict) -> dict:
+    """Each captured scan call's served outputs against the plain version
+    on the same operands: the kernel its shape picks, the operands' shape,
+    the output's and the final state's relative L2 gaps."""
+    out = {}
+    for (name, label), (args, got) in seen.items():
+        want = getattr(ssm_scan, name + "_plain")(*args)
+        out[f"{name} {label}"] = dict(kernel=scan_kernel(name, args),
+                                      shape=list(args[0].shape),
+                                      output=rel_l2(got[0], want[0]), state=rel_l2(got[1], want[1]))
+    return out
 
 
 def rank_param_bytes(cfg, nm: int, r: int) -> int:
@@ -3966,10 +4101,11 @@ def rank_param_bytes(cfg, nm: int, r: int) -> int:
     return _tree_bytes(sharding.shard_params(lm.abstract_params(cfg), cfg, lay))
 
 
-def mr_launches(cfg, gen: int) -> dict:
-    """One rank's launches of one wave: flash once per attention layer,
-    and each MoE layer's wire kernels once per pass."""
-    want = {"flash_attention": flash_calls(cfg)}
+def mr_launches(cfg, gen: int, prompt_len: int, nm: int) -> dict:
+    """One of ``nm`` model ranks' launches of one wave: flash once per
+    attention call, the scans once per mixer layer and call, and each MoE
+    layer's wire kernels once per pass."""
+    want = serving_launches(cfg, 1, gen, prompt_len, nm)
     if cfg.moe is not None:
         want.update(moe_wire_launches(cfg, gen + 1))
     return want
@@ -3980,23 +4116,25 @@ def mr_reference(mz: dict, cfg, dev, seed: int, path: Path) -> dict:
     kernels), its tokens, every step's logits and the first layer's outputs
     saved to ``path`` for the ranks."""
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    prompts = mr_prompts(mz, cfg, seed, dev)
+    prompts, embeds = mr_prompts(mz, cfg, seed, dev)
     logits, timings, stats, routes = {}, {}, [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     with moe_stats(stats, routes):
         toks = serve(params, cfg, prompts, mz["batch"], mz["gen"], "auto", timings=timings,
-                     on_logits=lambda w, s, lg: logits.__setitem__(s, lg.float().cpu()))
+                     on_logits=lambda w, s, lg: logits.__setitem__(s, lg.float().cpu()),
+                     **embeds)
     sync(dev)
     launches = build.launch_counts()
     forced = torch.tensor([toks[i] for i in range(mz["batch"])])
-    pre, dec = mr_first_layer(params, cfg, prompts, forced[:, :1].to(dev))
+    first = mr_first_layers(params, cfg, prompts, forced[:, :1].to(dev), embeds)
     routes = [{k: v.cpu() for k, v in rt.items()} for rt in routes]
-    torch.save(dict(prompts=prompts.cpu(), forced=forced, logits=logits, routes=routes,
-                    first=(pre.float().cpu(), dec.float().cpu())), path)
+    torch.save(dict(prompts=prompts.cpu(), embeds={k: e.cpu() for k, e in embeds.items()},
+                    forced=forced, logits=logits, routes=routes,
+                    first={k: v.float().cpu() for k, v in first.items()}), path)
     return dict(timings=timings, lost=lost_copies(stats), n_params=_tree_sum(params),
-                tokens=forced.tolist(), launches=launches,
+                tokens=forced.tolist(), launches=launches, prompt_len=prompts.shape[1],
                 peak=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
 
 
@@ -4020,11 +4158,75 @@ def _cp_unscaled(real):
     return fault
 
 
+def _norm_local(real):
+    """Fault: the gated norm over this rank's columns only."""
+    return lambda x, gamma_loc, eps, bk: layers_mod.rms_norm(x, gamma_loc, eps)
+
+
+def _bc_split_with_heads(real):
+    """Fault: the B/C columns split over the ranks with the heads, as JAX's
+    contiguous ``in_proj`` rule read literally hands them out: each rank
+    sees its own share of B's and of C's state columns (the rest zero)."""
+    def fault(params, x, cfg, state=None, impl="auto", bk=None):
+        nm, r = bk.nprocs(), bk.rank()
+        ds, il = cfg.ssm.d_state, params["norm"].shape[0]
+        keep = torch.ones(params["in_proj"].shape[1], dtype=torch.bool, device=x.device)
+        for lo in (2 * il, 2 * il + ds):             # B's columns, then C's
+            keep[lo:lo + ds] = False
+            keep[lo + r * ds // nm:lo + (r + 1) * ds // nm] = True
+        return real(dict(params, in_proj=params["in_proj"] * keep), x, cfg, state,
+                    impl=impl, bk=bk)
+    return fault
+
+
+def _cols_shifted(real):
+    """Fault: the decay columns of the neighbouring rank's heads."""
+    def fault(bk, n):
+        r = (bk.rank() + 1) % bk.nprocs()
+        return slice(r * n, (r + 1) * n)
+    return fault
+
+
+def _cross_unsummed(real):
+    """Fault: ``cross_decode`` without its psum after ``wo``."""
+    return lambda params, x, cfg, xk, xv, bk=None: real(params, x, cfg, xk, xv)
+
+
+def _encoder_mlp_unsummed(real):
+    """Fault: the encoder blocks' MLP outputs not summed over the ranks
+    (the decoder's are)."""
+    def fault(params, cfg, src_embeds, *, impl="auto", layout=None):
+        with planted((layers_mod, "mlp",
+                      lambda m: lambda p, x, activation="swiglu", bk=None: m(p, x, activation))):
+            return real(params, cfg, src_embeds, impl=impl, layout=layout)
+    return fault
+
+
 def mr_faults(cfg) -> dict:
-    """The faults the first-layer check must see (the CP combine's where
-    the cell decodes context-parallel)."""
-    faults = {"a vocab shard read one row off": (layers_mod, "embed_lookup", _vocab_shifted),
-              "the psum after wo skipped": (lm.attn_mod, "row_parallel", _psum_skipped)}
+    """The faults the first-layer check must see: the vocab shard's always,
+    and each of the model's kinds' (attention's psum, Mamba2's, RWKV-6's,
+    the encoder-decoder's, the CP combine's where the cell decodes
+    context-parallel)."""
+    kinds = set(cfg.layer_pattern)
+    faults = {"a vocab shard read one row off": (layers_mod, "embed_lookup", _vocab_shifted)}
+    if kinds & set("gla") or cfg.encoder_layers:
+        faults["the psum after wo skipped"] = (lm.attn_mod, "row_parallel", _psum_skipped)
+    if "m" in kinds:
+        faults["Mamba2's gated norm over the rank's slice only"] = (
+            ssm_mod, "rms_norm_split", _norm_local)
+        faults["the B/C columns split with the heads"] = (
+            ssm_mod, "mamba_apply", _bc_split_with_heads)
+        faults["the psum after out_proj skipped"] = (ssm_mod, "row_parallel", _psum_skipped)
+    if "r" in kinds:
+        faults["RWKV's ln_x over the rank's slice only"] = (ssm_mod, "rms_norm_split",
+                                                             _norm_local)
+        faults["the decay columns taken from the neighbouring rank's heads"] = (
+            ssm_mod, "rank_cols", _cols_shifted)
+        faults["the psum after wo and the channel mix's w_out skipped"] = (
+            ssm_mod, "row_parallel", _psum_skipped)
+    if cfg.encoder_layers:
+        faults["cross_decode without its psum"] = (lm.attn_mod, "cross_decode", _cross_unsummed)
+        faults["the encoder MLP's psum skipped"] = (lm, "encode", _encoder_mlp_unsummed)
     if cfg.mla is not None and cfg.mla_absorb and cfg.mla_cp_decode:
         faults["the CP combine without its exp(m_i - M) rescale"] = (
             lm.attn_mod, "_cp_combine", _cp_unscaled)
@@ -4099,21 +4301,23 @@ def _old_dispatch(real):
 def mr_rank_run(rank: int, mz: dict, seed: int, ref_path: str, dev) -> dict:
     """One rank of a multi-rank cell: its slice of the seeded model, the
     wave served teacher-forced with the one-rank run's tokens (launches
-    counted), then the first-layer check, the planted faults and the MoE
-    agreement check; for an MoE model the first prefill and decode MoE
-    calls of the wave rerun with the plain wire versions, and each call's
-    expert loads against the one-rank run's."""
+    counted; each scan's first prefill and decode call kept and held
+    against its plain version), then the first-layer check, the planted
+    faults and the MoE agreement check; for an MoE model the first prefill
+    and decode MoE calls of the wave rerun with the plain wire versions,
+    and each call's expert loads against the one-rank run's."""
     from repro_torch.models.sharding import Layout
     cfg = mr_config(mz)
     lay = Layout.over(1, MR_RANKS)
     ref = torch.load(ref_path)
     prompts, forced = ref["prompts"].to(dev), ref["forced"].to(dev)
+    embeds = {k: e.to(dev) for k, e in ref["embeds"].items()}
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev, lay)
     sync(dev)
     res = dict(rank=rank, init_s=time.perf_counter() - t0, param_bytes=_tree_bytes(params))
 
-    gaps, picks, timings, stats, busy, routes, calls = {}, [], {}, [], {}, [], {}
+    gaps, picks, timings, stats, busy, routes, calls, scans = {}, [], {}, [], {}, [], {}, {}
     vocab = cfg.vocab
 
     def keep(wave, step, lg):
@@ -4132,9 +4336,9 @@ def mr_rank_run(rank: int, mz: dict, seed: int, ref_path: str, dev) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    with moe_stats(stats, routes, calls):
+    with moe_stats(stats, routes, calls), first_scans(scans):
         serve(params, cfg, prompts, mz["batch"], mz["gen"], "auto", forced=forced,
-              on_logits=keep, timings=timings, layout=lay)
+              on_logits=keep, timings=timings, layout=lay, **embeds)
     sync(dev)
     res.update(launches=build.launch_counts(), logits_rel_l2=gaps, picks=picks,
                lost=lost_copies(stats), ttft_s=timings["prefill_s"][0],
@@ -4147,14 +4351,15 @@ def mr_rank_run(rank: int, mz: dict, seed: int, ref_path: str, dev) -> dict:
         res["busy"] = dict(device_ms=device_ms, wall_ms=busy["wall_ms"],
                            share=device_ms / busy["wall_ms"])
 
-    want_pre, want_dec = (w.to(dev) for w in ref["first"])
+    res["scans"] = scans_held(scans)
+    scans.clear()
+
+    want = {k: w.to(dev) for k, w in ref["first"].items()}
     first = {}
     for name, plant in {"sound": None, **mr_faults(cfg)}.items():
         with planted(plant):
-            pre, dec = mr_first_layer(params, cfg, prompts, forced[:, :1], lay)
-        first[name] = dict(prefill=rel_l2(pre, want_pre), decode=rel_l2(dec, want_dec),
-                           prefill_position_max=position_gap(pre, want_pre),
-                           decode_position_max=position_gap(dec, want_dec))
+            got = mr_first_layers(params, cfg, prompts, forced[:, :1], embeds, lay)
+        first[name] = layer_gaps(got, want)
     res["first_layer"] = first
     if cfg.moe is not None:
         res["moe_exact"] = {name: moe_rank_exact(call, cfg, lay) for name, call in calls.items()}
@@ -4221,13 +4426,6 @@ def mr_spawn(mz: dict, seed: int, ref_path: Path, out_dir: Path, dev) -> list[di
     return [json.loads(Path(out_dir, f"rank{r}.json").read_text()) for r in range(MR_RANKS)]
 
 
-def layer_within(g: dict) -> bool:
-    """The first layer's readings at four ranks within their limits."""
-    return (max(g["prefill"], g["decode"]) <= MR_LAYER_REL_L2
-            and g["prefill_position_max"] <= MR_PREFILL_POSITION_GAP
-            and g["decode_position_max"] <= LAYER_REL_L2)
-
-
 def check_multirank(ranks: list, one: dict, mz: dict, cfg, rehearsal: bool) -> None:
     """The gates of a multi-rank cell, each fatal; nothing is printed of a
     cell whose gate fails."""
@@ -4240,10 +4438,10 @@ def check_multirank(ranks: list, one: dict, mz: dict, cfg, rehearsal: bool) -> N
     for r in ranks:
         first = dict(r["first_layer"])
         check(layer_within(first.pop("sound")),
-              f"{label} rank {r['rank']}: the first layer within {MR_LAYER_REL_L2} relative L2 "
-              f"of one rank's at prefill and decode, its positions within "
-              f"{MR_PREFILL_POSITION_GAP} at prefill and {LAYER_REL_L2} at decode: "
-              f"{r['first_layer']['sound']}")
+              f"{label} rank {r['rank']}: each kind's first layer within {MR_LAYER_REL_L2} "
+              f"relative L2 of one rank's at prefill and decode (and the encoder's), its "
+              f"positions within {MR_PREFILL_POSITION_GAP} at prefill and {LAYER_REL_L2} at "
+              f"decode: {r['first_layer']['sound']}")
         for name, gap in first.items():
             check(not layer_within(gap),
                   f"{label} rank {r['rank']}: the fault '{name}' breaks the first-layer check: "
@@ -4252,10 +4450,18 @@ def check_multirank(ranks: list, one: dict, mz: dict, cfg, rehearsal: bool) -> N
     check([r["param_bytes"] for r in ranks] == want_bytes,
           f"{label}: each rank holds the bytes shard_params gives it {want_bytes}: "
           f"{[r['param_bytes'] for r in ranks]}")
+    scans = {f"{name} {call}" for kind, name in (("m", "mamba_scan"), ("r", "rwkv_scan"))
+             if kind in cfg.layer_pattern for call in ("prefill", "decode")}
+    for r in ranks:
+        held = r["scans"]
+        check(set(held) == scans and all(max(g["output"], g["state"]) <= SCAN_REL_L2
+                                         for g in held.values()),
+              f"{label} rank {r['rank']}: each scan's first served prefill and decode call "
+              f"within {SCAN_REL_L2} of its plain version, output and state: {held}")
     if not rehearsal:
-        want = mr_launches(cfg, mz["gen"])
-        for who, counts in [("one rank", one["launches"])] + [
-                (f"rank {r['rank']}", r["launches"]) for r in ranks]:
+        for who, counts, nm in [("one rank", one["launches"], 1)] + [
+                (f"rank {r['rank']}", r["launches"], MR_RANKS) for r in ranks]:
+            want = mr_launches(cfg, mz["gen"], one["prompt_len"], nm)
             got = {k: n for k, n in counts.items() if n}
             check(got == want, f"{label} {who}: launches {got}, want {want}")
     lost = [one["lost"]] + [r["lost"] for r in ranks]
@@ -4309,9 +4515,16 @@ def multirank_cell(mz: dict, dev, seed: int, smi: str, rehearsal: bool) -> tuple
           f"{one['peak']} bytes, {one['n_params']} parameters, MoE copies past their "
           f"experts' bins {one['lost']['bin_overflow']}; the ranks' greedy picks agree with "
           f"its tokens at {agree:.4f} of (slot, step)", flush=True)
+    worst = {name: max(max(v["rel"] / MR_LAYER_REL_L2,
+                           v["pos"] / (LAYER_REL_L2 if k.endswith("decode")
+                                       else MR_PREFILL_POSITION_GAP)) for k, v in g.items())
+             for name, g in ranks[0]["first_layer"].items()}
+    print(f"{cfg.name} P={MR_RANKS} first-layer check, rank 0, each reading's gap over its "
+          f"limit, the largest: " + json.dumps({k: round(v, 4) for k, v in worst.items()}),
+          flush=True)
     for r in ranks:
         row = {k: r[k] for k in ("rank", "init_s", "param_bytes", "ttft_s", "decode_ms",
-                                 "peak_bytes", "launches", "lost", "busy", "first_layer",
+                                 "peak_bytes", "launches", "lost", "busy", "scans", "first_layer",
                                  "moe_exact", "moe_agreement", "routing_apart") if k in r}
         row["launches"] = {k: n for k, n in row["launches"].items() if n}
         row["logits_rel_l2_max"] = max(r["logits_rel_l2"].values())

@@ -29,7 +29,9 @@ of the same values: numpy has no bfloat16 of its own).
 slice of the LM's parameters (``models/sharding.shard_params``: an MoE
 layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's ``shard_map``
 shards them, and the heads', hidden width's and vocab's slices, as its
-``param_spec`` places them).
+``param_spec`` places them, Zamba's shared block and the encoder's blocks
+included; Mamba2's and RWKV-6's leaves by whole heads, where JAX's rule
+cuts through them).
 """
 
 from __future__ import annotations

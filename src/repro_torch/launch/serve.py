@@ -21,8 +21,10 @@ fails there).
 
 ``serve(..., layout=...)`` serves over a ``(data, model)`` layout of
 ranks (``models/sharding.Layout``, each rank a process calling ``serve``
-with its own parameters): each wave's slots are split over the data
-ranks, every model rank of a data group feeds the same tokens, and the
+with its own parameters; every layer kind, the encoder-decoder and both
+frontends): each wave's slots are split over the data ranks (with their
+rows of ``patch_embeds`` or ``src_embeds``, replicated over the model
+ranks), every model rank of a data group feeds the same tokens, and the
 picks are all-gathered over the data axis, so every rank returns every
 request's tokens.  The CLI serves on one rank, as the JAX package's does
 (a 1 x 1 mesh).

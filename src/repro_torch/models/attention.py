@@ -158,15 +158,17 @@ def attention(params, x, cfg, *, positions, causal=True, window=0, cache=None,
     return row_parallel(out, params["wo"], bk), new_cache
 
 
-def cross_decode(params, x, cfg, xk, xv):
+def cross_decode(params, x, cfg, xk, xv, bk=None):
     """One decode step's cross-attention: x (B,1,D) against the cached
     source K/V (B,Hkv,S,hd) over their full length, with ``q = x @ wq``
     as the JAX package's decode branch computes it
-    (``repro/models/lm.py:293-302``: no rotary, no ``q_norm``)."""
-    b = x.shape[0]
-    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    (``repro/models/lm.py:293-302``: no rotary, no ``q_norm``).  ``bk``:
+    the model axis's backend; this rank's heads are the weights', and the
+    heads' parts after ``wo`` are summed, as in :func:`attention`."""
+    b, hd = x.shape[0], cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, 1, -1, hd).transpose(1, 2)
     out = decode_attention(q, xk, xv, xk.shape[2])
-    return out.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    return row_parallel(out.transpose(1, 2).reshape(b, 1, -1), params["wo"], bk)
 
 
 def _cache_append(buf, x, pos: int):

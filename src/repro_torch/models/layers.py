@@ -12,7 +12,10 @@ head multiplies by the rank's rows and all-gathers the logits, so every
 rank picks the same greedy token.  A product whose weight rows are split
 over the model ranks (:func:`row_parallel`: attention's ``wo``, the MLP's
 ``w_out``) keeps each rank's partial in float32 and rounds once after the
-sum, as the one-rank product rounds once.
+sum, as the one-rank product rounds once.  A norm over a width whose
+columns are split over the model ranks (:func:`rms_norm_split`: Mamba2's
+gated norm, RWKV-6's ``ln_x``) sums the float32 squares with one ``psum``
+and divides by the whole width.
 """
 
 from __future__ import annotations
@@ -107,6 +110,18 @@ def row_parallel(x: torch.Tensor, w_loc: torch.Tensor, bk) -> torch.Tensor:
     else:
         part = x.float() @ w_loc.float()
     return bk.psum(part).to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, gamma_loc: torch.Tensor, eps: float, bk) -> torch.Tensor:
+    """``rms_norm`` of the whole width when ``x`` holds this model rank's
+    columns of it and ``gamma_loc`` the matching gains: each rank's float32
+    sum of squares summed by one ``psum`` over ``bk``, then divided by the
+    whole width (every rank's columns count alike)."""
+    if bk is None or bk.nprocs() == 1:
+        return rms_norm(x, gamma_loc, eps)
+    ss = bk.psum(x.float().square().sum(dim=-1, keepdim=True))
+    var = ss / (x.shape[-1] * bk.nprocs())
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * gamma_loc
 
 
 def embed_lookup(table_loc: torch.Tensor, tokens: torch.Tensor, bk) -> torch.Tensor:

@@ -49,12 +49,13 @@ None is one rank): each data rank serves its own batch rows; over the
 model axis each rank holds its slice of every parameter
 (``sharding.shard_params``; ``init_params`` draws the one-rank sequence
 and keeps only the slice), the embedding is the vocab-sharded lookup,
-attention and the MLPs are tensor-parallel with one ``psum`` each, MoE
-layers dispatch over the model axis, the head's logits are all-gathered,
-and each rank's cache holds its kv heads (or, for the context-parallel
-MLA decode, its slice of the sequence).  The recurrent kinds, the
-encoder-decoder and the ``frame`` frontend at P>1 raise ``ValueError``
-(ROADMAP Queue 1 item 6.2b); ``patch_embeds`` are replicated inputs.
+attention (the shared ``a`` block's, the encoder's and the cross-attention
+included) and the MLPs are tensor-parallel with one ``psum`` each, MoE
+layers dispatch over the model axis, Mamba2 and RWKV-6 run the rank's
+heads (``models/ssm.py``), the head's logits are all-gathered, and each
+rank's cache holds its kv heads (``xk``/``xv`` too), its heads of the
+recurrent state (or, for the context-parallel MLA decode, its slice of the
+sequence).  ``patch_embeds`` and ``src_embeds`` are replicated inputs.
 """
 
 from __future__ import annotations
@@ -163,12 +164,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device, layout=Non
     if "a" in cfg.layer_pattern:
         params["shared_attn"] = {
             "ln1": torch.ones(d, dtype=dtype, device=device),
-            "attn": attn_mod.attn_init(gen, cfg, dtype, device),
+            "attn": mine(attn_mod.attn_init(gen, cfg, dtype, device), "shared_attn", "attn"),
             "ln2": torch.ones(d, dtype=dtype, device=device),
-            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device)}
+            "mlp": mine(L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype, device),
+                        "shared_attn", "mlp")}
     if cross:
-        params["encoder"] = [_block_init(gen, cfg, dtype, device, "g", False)
-                             for _ in range(cfg.encoder_layers)]
+        params["encoder"] = [mine(_block_init(gen, cfg, dtype, device, "g", False), "encoder", j)
+                             for j in range(cfg.encoder_layers)]
         params["enc_norm"] = torch.ones(d, dtype=dtype, device=device)
     if cfg.mtp:
         params["mtp_block"] = mine(_block_init(gen, cfg, dtype, device, "g", False),
@@ -218,8 +220,10 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
     and ``ssd``; an ``r`` layer's float32 ``s`` and its ``prev`` and
     ``cm_prev`` in the model's dtype.  An encoder-decoder's ``g``/``l``
     layers also get the cross K/V ``xk``/``xv`` of ``cross_len`` source
-    positions.  With a ``layout``: this model rank's kv heads, and under
-    the context-parallel MLA decode its ``cache_len / P`` positions."""
+    positions.  With a ``layout``: this model rank's kv heads (``xk``/``xv``
+    too) and heads of ``ssd`` and ``s`` (as JAX's ``cache_shardings``
+    splits them, ``repro/launch/steps.py:136-147``), and under the
+    context-parallel MLA decode its ``cache_len / P`` positions."""
     check_supported(cfg)
     sharding.check_layout(cfg, layout)
     lay = sharding.of(layout)
@@ -238,10 +242,10 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
     for i in range(cfg.n_layers):
         kind = kind_at(cfg, i)
         if kind == "m":
-            layers.append(ssm_mod.mamba_state_init(cfg, batch, device))
+            layers.append(ssm_mod.mamba_state_init(cfg, batch, device, model=lay.model))
             continue
         if kind == "r":
-            layers.append(dict(ssm_mod.rwkv_state_init(cfg, batch, device, dtype),
+            layers.append(dict(ssm_mod.rwkv_state_init(cfg, batch, device, dtype, model=lay.model),
                                cm_prev=torch.zeros((batch, cfg.d_model), dtype=dtype,
                                                    device=device)))
             continue
@@ -275,16 +279,16 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_ou
     bk = None if layout is None else layout.model_bk
     if kind == "m":
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        o, new_cache = ssm_mod.mamba_apply(bp["mamba"], h, cfg, cache, impl=impl)
+        o, new_cache = ssm_mod.mamba_apply(bp["mamba"], h, cfg, cache, impl=impl, bk=bk)
         return x + o, new_cache
     if kind == "r":
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         st = {k: cache[k] for k in ("s", "prev")} if cache is not None else None
-        o, new_cache = ssm_mod.rwkv_apply(bp["rwkv"], h, cfg, st, impl=impl)
+        o, new_cache = ssm_mod.rwkv_apply(bp["rwkv"], h, cfg, st, impl=impl, bk=bk)
         x = x + o
         h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
         o, new_cache["cm_prev"] = ssm_mod.rwkv_channel_mix(
-            bp["cmix"], h, cache["cm_prev"] if cache is not None else None)
+            bp["cmix"], h, cache["cm_prev"] if cache is not None else None, bk=bk)
         return x + o, new_cache
     if kind == "a":
         bp = shared_params
@@ -307,14 +311,14 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_ou
         h = L.rms_norm(x, bp["ln_x"], cfg.norm_eps)
         x_cache = None if cache is None else {"k": cache["xk"], "v": cache["xv"]}
         xo, xc = attn_mod.attention(bp["xattn"], h, cfg, positions=positions, causal=False,
-                                    cache=x_cache, kv_source=enc_out, impl=impl)
+                                    cache=x_cache, kv_source=enc_out, impl=impl, bk=bk)
         x = x + xo
         if xc is not None:
             new_cache.update(xk=xc["k"], xv=xc["v"])
     elif "xattn" in bp and cache is not None:
         # decode: attend the cross K/V the prefill wrote
         h = L.rms_norm(x, bp["ln_x"], cfg.norm_eps)
-        x = x + attn_mod.cross_decode(bp["xattn"], h, cfg, cache["xk"], cache["xv"])
+        x = x + attn_mod.cross_decode(bp["xattn"], h, cfg, cache["xk"], cache["xv"], bk=bk)
         new_cache.update(xk=cache["xk"], xv=cache["xv"])
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
@@ -325,21 +329,28 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_ou
     return x + y, new_cache
 
 
-def encode(params, cfg: ArchConfig, src_embeds, *, impl: str = "auto"):
+def encode(params, cfg: ArchConfig, src_embeds, *, impl: str = "auto", layout=None):
     """The bidirectional encoder over precomputed frontend embeddings
     (B, S, D): ``g`` blocks without a cache, non-causal self-attention with
-    rotary over source positions, then ``enc_norm``."""
+    rotary over source positions, then ``enc_norm``.  ``layout``: the
+    ranks (None: one); ``params`` are this rank's."""
+    bk = None if layout is None else layout.model_bk
     x = src_embeds.to(dtype_of(cfg))
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     for bp in params["encoder"]:
-        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        o, _ = attn_mod.attention(bp["attn"], h, cfg, positions=positions, causal=False,
-                                  impl=impl)
-        x = x + o
-        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(bp["mlp"], h, cfg.activation)
+        x = _encoder_block(bp, x, cfg, positions=positions, impl=impl, bk=bk)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _encoder_block(bp, x, cfg, *, positions, impl="auto", bk=None):
+    """One pre-norm encoder block: non-causal self-attention, then the MLP."""
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    o, _ = attn_mod.attention(bp["attn"], h, cfg, positions=positions, causal=False,
+                              impl=impl, bk=bk)
+    x = x + o
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg.activation, bk)
 
 
 def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=None,
@@ -363,7 +374,7 @@ def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=No
 
     enc_out = None
     if cfg.encoder_layers and src_embeds is not None:
-        enc_out = encode(params, cfg, src_embeds, impl=impl)
+        enc_out = encode(params, cfg, src_embeds, impl=impl, layout=layout)
     elif cfg.encoder_layers and cache is not None and not decode:
         # the JAX package fails here too (its decode branch meets T > 1)
         raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs src_embeds")

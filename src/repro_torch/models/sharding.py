@@ -12,17 +12,32 @@ at ``(g // model, g % model)`` as the JAX mesh orders its devices, and one
               training knob, is not taken).
   model axis  tensor parallelism: attention heads, the MLP's hidden
               width and the vocabulary; MoE experts; the context-parallel
-              MLA cache's sequence.
+              MLA cache's sequence; Mamba2's and RWKV-6's heads.
 
 :func:`param_spec` keeps the JAX package's rules by leaf name, as the dim
 of each leaf split over the model axis (or ``None``), and
-:func:`shard_params` slices a whole LM tree for one rank.  One deliberate
-difference: where ``n_kv_heads % P != 0`` and ``P % n_kv_heads == 0`` the
-JAX rule splits ``wk``/``wv`` columns through the middle of a head, and
-GSPMD then gathers them; here each rank holds its query group's K/V heads
-whole (:data:`KV_GROUP`), the layout JAX's ``cache_shardings`` gives the
-cache there (``kv_cache_rep``: the cache's heads replicated).  Any other
-split that does not divide raises ``ValueError``.
+:func:`shard_params` slices a whole LM tree for one rank.  GSPMD gathers
+behind a split that gives a device no whole heads; a process cannot, so
+where JAX's rule cuts through a head the port gives each rank whole heads
+instead, on purpose:
+
+- ``wk``/``wv`` where ``n_kv_heads % P != 0`` and ``P % n_kv_heads == 0``:
+  each rank holds its query group's K/V heads whole (:data:`KV_GROUP`),
+  the layout JAX's ``cache_shardings`` gives the cache there
+  (``kv_cache_rep``: the cache's heads replicated).
+- Mamba2's ``in_proj``, whose columns are ``[z | x | B | C | dt]``
+  (inner, inner, d_state, d_state and n_heads wide): JAX splits them
+  contiguously.  A rank holds the ``z``, ``x`` and ``dt`` columns of its
+  heads and all ``2 * d_state`` B/C columns, which every head reads
+  (ngroups = 1) (:data:`MAMBA_IN`); ``conv_w`` its ``x`` channels and all
+  B/C channels (:data:`MAMBA_CONV`; JAX replicates it).  ``a_log``,
+  ``dt_bias``, ``d_skip`` and the gated norm's ``norm`` are cut to the
+  rank's heads, and RWKV-6's bonus ``u`` and ``ln_x`` too (JAX replicates
+  all six): a rank holds what its heads read.  RWKV's ``ww``, ``w0`` and
+  ``mu`` stay replicated, as in JAX; each rank takes its heads' columns
+  of the decay.
+
+Any other split that does not divide raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -33,13 +48,17 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.backend import Backend, ProcessGroupBackend, SerialBackend
+from repro_torch.models import ssm as ssm_mod
 
 #: ``param_spec``'s answer for ``wk``/``wv`` when the kv heads are fewer
 #: than the model ranks: this rank's query group's K/V heads, whole
 KV_GROUP = "kv_group"
-#: the item of ROADMAP Queue 1 the refused kinds wait for
-_LATER = "the recurrent kinds, the encoder-decoder and the frame frontend at P>1 wait " \
-         "for ROADMAP Queue 1 item 6.2b"
+#: ``param_spec``'s answer for Mamba2's ``in_proj``: the ``z``, ``x`` and
+#: ``dt`` columns of this rank's heads, and every B/C column
+MAMBA_IN = "mamba_in"
+#: ``param_spec``'s answer for Mamba2's ``conv_w``: this rank's ``x``
+#: channels, and every B/C channel
+MAMBA_CONV = "mamba_conv"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,15 +129,16 @@ def check_layout(cfg, layout: Layout | None) -> None:
     lay = of(layout)
     if lay.size == 1:
         return
-    kinds = sorted(set(cfg.layer_pattern) - set("gl"))
-    if kinds:
-        raise ValueError(f"{cfg.name}: layer kinds {kinds} at {lay.data} x {lay.model} ranks: "
-                         + _LATER)
-    if cfg.encoder_layers:
-        raise ValueError(f"{cfg.name}: the encoder-decoder at {lay.data} x {lay.model} ranks: "
-                         + _LATER)
     nm = lay.model
-    dims = {"n_heads": cfg.n_heads, "padded_vocab": cfg.padded_vocab, "d_ff": cfg.d_ff}
+    kinds = set(cfg.layer_pattern)
+    attention = bool(kinds & set("gla")) or cfg.encoder_layers > 0
+    dims = {"padded_vocab": cfg.padded_vocab, "d_ff": cfg.d_ff}
+    if attention:
+        dims["n_heads"] = cfg.n_heads
+    if "m" in kinds:
+        dims["Mamba2's n_heads"] = ssm_mod.mamba_dims(cfg)[1]
+    if "r" in kinds:
+        dims["RWKV-6's heads"] = ssm_mod.rwkv_dims(cfg)[0]
     if cfg.moe is not None:
         dims["n_experts"] = cfg.moe.n_experts
         if cfg.moe.shared_experts:
@@ -126,7 +146,7 @@ def check_layout(cfg, layout: Layout | None) -> None:
     for name, n in dims.items():
         if n % nm:
             raise ValueError(f"{cfg.name}: {name} = {n} does not split over {nm} model ranks")
-    if cfg.mla is None and kv_split(cfg, nm) == "none":
+    if attention and cfg.mla is None and kv_split(cfg, nm) == "none":
         raise ValueError(f"{cfg.name}: n_kv_heads = {cfg.n_kv_heads} neither splits over nor "
                          f"groups {nm} model ranks")
 
@@ -138,25 +158,48 @@ def _name(path: tuple) -> str:
 def param_spec(cfg, path: tuple, ndim: int, nm: int = 1) -> int | str | None:
     """The dim of the leaf at ``path`` (a tuple of dict keys and list
     indices, as ``lm._leaves`` walks the tree) split over ``nm`` model
-    ranks, ``None`` where it is replicated, or :data:`KV_GROUP`.  The JAX
-    package's rules, matched on the leaf's name (``param_spec``,
-    ``repro/models/sharding.py:50-115``)."""
+    ranks, ``None`` where it is replicated, or one of :data:`KV_GROUP`,
+    :data:`MAMBA_IN` and :data:`MAMBA_CONV`.  The JAX package's rules,
+    matched on the leaf's name (``param_spec``,
+    ``repro/models/sharding.py:50-115``), but for the whole-head splits
+    the module docstring lists."""
     name = _name(path)
     keys = [p for p in path if isinstance(p, str)]
-    if (name in ("wk", "wv") and len(keys) > 1 and keys[-2] in ("attn", "xattn")
+    owner = keys[-2] if len(keys) > 1 else None
+    if (name in ("wk", "wv") and owner in ("attn", "xattn")
             and cfg.mla is None and kv_split(cfg, nm) == "group"):
         return KV_GROUP
+    if owner == "mamba" and name in ("in_proj", "conv_w"):
+        return MAMBA_IN if name == "in_proj" else MAMBA_CONV
     if name in ("embed", "lm_head"):
         dim = 0
     elif "experts" in keys and name in ("w_in", "w_gate", "w_out"):
         dim = 0
-    elif name in ("wq", "wk", "wv", "w_uq", "w_ukv", "in_proj", "wr", "wg", "w_in", "w_gate"):
+    elif name in ("wq", "wk", "wv", "w_uq", "w_ukv", "wr", "wg", "w_in", "w_gate"):
         dim = 1
     elif name in ("wo", "out_proj", "w_out"):
         dim = 0
-    else:       # router, moe_bias, MLA's down-projections, norms, mixing vectors
+    elif (owner == "mamba" and name in ("a_log", "dt_bias", "d_skip", "norm")) or (
+            owner == "rwkv" and name in ("u", "ln_x")):
+        dim = 0     # per head (norm, ln_x: per channel of the rank's heads)
+    else:       # router, moe_bias, MLA's down-projections, norms, mixing vectors, ww, w0
         dim = None
     return dim if dim is not None and dim < ndim else None
+
+
+def _mamba_columns(cfg, nm: int, r: int, conv: bool) -> torch.Tensor:
+    """Model rank ``r``'s columns of Mamba2's ``in_proj`` (``[z | x | B |
+    C | dt]``) or, with ``conv``, of ``conv_w`` (``[x | B | C]``)."""
+    inner, nh, _ = ssm_mod.mamba_dims(cfg)
+    ds = cfg.ssm.d_state
+    il, hl = inner // nm, nh // nm          # check_layout: the heads split
+
+    def mine(lo: int, n: int) -> torch.Tensor:
+        return torch.arange(lo + r * n, lo + (r + 1) * n)
+    if conv:
+        return torch.cat([mine(0, il), torch.arange(inner, inner + 2 * ds)])
+    return torch.cat([mine(0, il), mine(inner, il), torch.arange(2 * inner, 2 * inner + 2 * ds),
+                      mine(2 * inner + 2 * ds, hl)])
 
 
 def rank_slice(t: torch.Tensor, spec, cfg, layout: Layout, path: tuple = ()) -> torch.Tensor:
@@ -169,6 +212,8 @@ def rank_slice(t: torch.Tensor, spec, cfg, layout: Layout, path: tuple = ()) -> 
         hd = cfg.head_dim
         g = r // (nm // cfg.n_kv_heads)
         return t[:, g * hd:(g + 1) * hd].clone()
+    if spec in (MAMBA_IN, MAMBA_CONV):
+        return t[:, _mamba_columns(cfg, nm, r, spec == MAMBA_CONV).to(t.device)]
     n = t.shape[spec]
     if n % nm:
         raise ValueError(f"{'/'.join(map(str, path))}: dim {spec} of {n} does not split over "

@@ -21,6 +21,18 @@ hand-written CUDA kernel launch per layer and call on the card
 (``kernels/ssm_scan.py``), the per-step loop on the CPU.  Returned states
 are new tensors (the token shifts' ``prev`` a copy of the last row, so it
 does not hold the layer's input alive).
+
+Over several model ranks (``bk``, the model axis's backend; the layout is
+``models/sharding.py``'s) each rank runs its heads: Mamba2's ``z``, ``x``
+and ``dt`` columns of them beside every B/C column (ngroups = 1), RWKV-6's
+``wr``/``wk``/``wv``/``wg`` columns and its heads' columns of the decay
+(``ww`` and ``w0`` replicated, as in JAX), the channel mix's share of
+``d_ff``.  The head counts are read from the parameters' shapes.  Both
+gated norms span the whole width (``layers.rms_norm_split``: one ``psum``
+of the squares), and ``out_proj``, ``wo`` and the channel mix's ``w_out``
+sum the ranks' partial products (``layers.row_parallel``).  The states
+hold the rank's heads; ``prev`` and ``cm_prev`` are the replicated input's
+last row.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal, rms_norm
+from repro_torch.models.layers import normal, rms_norm_split, row_parallel
 
 _F32 = torch.float32
 
@@ -84,14 +96,23 @@ def _causal_conv(x, w, state=None):
     return y, new_state
 
 
-def mamba_apply(params, x, cfg, state=None, impl: str = "auto"):
+def rank_cols(bk, n: int) -> slice:
+    """This model rank's ``n`` columns of a replicated width: rank ``r``'s
+    ``r``-th block (all of it on one rank)."""
+    r = 0 if bk is None else bk.rank()
+    return slice(r * n, (r + 1) * n)
+
+
+def mamba_apply(params, x, cfg, state=None, impl: str = "auto", bk=None):
     """x (B,T,D) -> (y, new_state).
 
     state: dict(conv (B,K-1,C), ssd (B,H,ds,hd)); None => zeros (training).
+    bk: the model axis's backend; this rank's heads are the parameters'.
     """
     b, t, _ = x.shape
     ds = cfg.ssm.d_state
-    inner, nh, head = mamba_dims(cfg)
+    nh, inner = params["a_log"].shape[0], params["norm"].shape[0]
+    head = inner // nh
 
     proj = x @ params["in_proj"]
     z, xin, bc, dt = torch.split(proj, [inner, inner, 2 * ds, nh], dim=-1)
@@ -112,16 +133,18 @@ def mamba_apply(params, x, cfg, state=None, impl: str = "auto"):
     ys, h_fin = ops.mamba_scan(xh, dt, b_in.float(), c_in.float(), a, h0, impl=impl)
     y = ys + params["d_skip"][None, None, :, None] * xh
     y = y.reshape(b, t, inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["out_proj"]
-    return out, {"conv": new_conv, "ssd": h_fin}
+    y = rms_norm_split(y * F.silu(z), params["norm"], cfg.norm_eps, bk)
+    return row_parallel(y, params["out_proj"], bk), {"conv": new_conv, "ssd": h_fin}
 
 
-def mamba_state_init(cfg, batch: int, device, dtype=_F32) -> dict:
+def mamba_state_init(cfg, batch: int, device, dtype=_F32, model: int = 1) -> dict:
+    """Zeroed state of one rank of ``model`` model ranks: its heads'
+    ``x`` channels and every B/C channel of ``conv``, its heads of ``ssd``."""
     ds, dc = cfg.ssm.d_state, cfg.ssm.d_conv
     inner, nh, head = mamba_dims(cfg)
-    return {"conv": torch.zeros((batch, dc - 1, inner + 2 * ds), dtype=dtype, device=device),
-            "ssd": torch.zeros((batch, nh, ds, head), dtype=_F32, device=device)}
+    return {"conv": torch.zeros((batch, dc - 1, inner // model + 2 * ds), dtype=dtype,
+                                device=device),
+            "ssd": torch.zeros((batch, nh // model, ds, head), dtype=_F32, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -154,13 +177,16 @@ def _shifted(x, prev):
     return torch.cat([pv, x[:, :-1]], dim=1)
 
 
-def rwkv_apply(params, x, cfg, state=None, impl: str = "auto"):
+def rwkv_apply(params, x, cfg, state=None, impl: str = "auto", bk=None):
     """RWKV-6 time mixing. x (B,T,D) -> (y, new_state).
 
     state: dict(s (B,H,hd,hd) f32, prev (B,D)); None => zeros.
+    bk: the model axis's backend; this rank's heads are the parameters'.
     """
-    b, t, d = x.shape
-    nh, hd = rwkv_dims(cfg)
+    b, t, _ = x.shape
+    nh, hd = params["u"].shape
+    d = nh * hd                                   # this rank's heads' width
+    cols = rank_cols(bk, d)
     xshift = _shifted(x, state["prev"] if state is not None else None)
 
     def mix(i):
@@ -170,22 +196,23 @@ def rwkv_apply(params, x, cfg, state=None, impl: str = "auto"):
     kk = (mix(1) @ params["wk"]).reshape(b, t, nh, hd)
     v = (mix(2) @ params["wv"]).reshape(b, t, nh, hd)
     g = F.silu(mix(3) @ params["wg"])
-    w = torch.exp(-torch.exp(params["w0"] + (mix(4) @ params["ww"]).float()))   # (B,T,D)
+    w = torch.exp(-torch.exp(params["w0"][cols]
+                             + (mix(4) @ params["ww"][:, cols]).float()))     # (B,T,d)
     w = w.reshape(b, t, nh, hd)
 
     s0 = state["s"] if state is not None else \
         torch.zeros((b, nh, hd, hd), dtype=_F32, device=x.device)
     ys, s_fin = ops.rwkv_scan(r.float(), kk.float(), v.float(), w, params["u"], s0, impl=impl)
     y = ys.reshape(b, t, d).to(x.dtype)
-    y = rms_norm(y, params["ln_x"], cfg.norm_eps) * g
-    out = y @ params["wo"]
-    return out, {"s": s_fin, "prev": x[:, -1].clone()}
+    y = rms_norm_split(y, params["ln_x"], cfg.norm_eps, bk) * g
+    return row_parallel(y, params["wo"], bk), {"s": s_fin, "prev": x[:, -1].clone()}
 
 
-def rwkv_state_init(cfg, batch: int, device, dtype) -> dict:
-    """``s`` float32, ``prev`` in ``dtype``, the model's."""
+def rwkv_state_init(cfg, batch: int, device, dtype, model: int = 1) -> dict:
+    """``s`` float32 (one rank's heads of ``model`` model ranks), ``prev``
+    in ``dtype``, the model's."""
     nh, hd = rwkv_dims(cfg)
-    return {"s": torch.zeros((batch, nh, hd, hd), dtype=_F32, device=device),
+    return {"s": torch.zeros((batch, nh // model, hd, hd), dtype=_F32, device=device),
             "prev": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)}
 
 
@@ -196,9 +223,10 @@ def rwkv_channel_mix_init(gen, cfg, dtype, device) -> dict:
             "w_out": normal(gen, (f, d), f ** -0.5, dtype, device)}
 
 
-def rwkv_channel_mix(params, x, prev=None):
+def rwkv_channel_mix(params, x, prev=None, bk=None):
     """RWKV channel mixing (token-shifted squared-ReLU MLP); returns (y,
-    the last row of x)."""
+    the last row of x).  With ``bk``, this rank's share of ``d_ff``, the
+    ranks' outputs summed."""
     xk = x + (_shifted(x, prev) - x) * params["mu"][0]
     h = torch.square(F.relu(xk @ params["w_in"]))
-    return h @ params["w_out"], x[:, -1].clone()
+    return row_parallel(h, params["w_out"], bk), x[:, -1].clone()

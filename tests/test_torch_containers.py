@@ -322,30 +322,43 @@ def _assert_same(jout, tout, what):
         assert j.shape == t.shape and np.array_equal(j, t), f"{what}: {k}"
 
 
+@pytest.fixture(scope="module")
+def both(ring0):
+    """``_run_both`` of a scenario on ``_data(1)`` and ``ring0``, each
+    scenario run once for the module (its results are read, never written)."""
+    done = {}
+
+    def run(scenario):
+        if scenario not in done:
+            done[scenario] = _run_both(scenario, _data(1), ring0)
+        return done[scenario]
+    return run
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_container_matches_jax(ring0, name):
-    jout, jlog, tout, tlog = _run_both(SCENARIOS[name], _data(1), ring0)
+def test_container_matches_jax(both, name):
+    jout, jlog, tout, tlog = both(SCENARIOS[name])
     _assert_same(jout, tout, name)
     assert _costs(jlog) == _costs(tlog), f"{name}: cost log"
 
 
 
 
-def test_scenarios_exercise_the_edges(ring0):
+def test_scenarios_exercise_the_edges(both):
     """The scenarios are not vacuous: drops, carries, in-batch duplicates
     and false absences all occur."""
-    _, _, t, _ = _run_both(sc_queue_push_drop, _data(1), ring0)
+    _, _, t, _ = both(sc_queue_push_drop)
     assert int(t["dropped"]) > 0
-    _, _, t, _ = _run_both(sc_queue_push_carry, _data(1), ring0)
+    _, _, t, _ = both(sc_queue_push_carry)
     assert bool(t["carry"].any()) and int(t["dropped"]) == 0
-    _, _, t, _ = _run_both(sc_bloom_insert_find, _data(1), ring0)
+    _, _, t, _ = both(sc_bloom_insert_find)
     assert bool(t["already"].any()) and not bool(t["already"].all())
     assert int(t["already2"].sum()) > int(t["already"].sum())
-    _, _, t, _ = _run_both(sc_buffer_flush_drop, _data(1), ring0)
+    _, _, t, _ = both(sc_buffer_flush_drop)
     assert int(t["dropped"]) > 0
-    _, _, t, _ = _run_both(sc_buffer_flush_carry, _data(1), ring0)
+    _, _, t, _ = both(sc_buffer_flush_carry)
     assert int(t["state"].buf_n[0]) > 0 and int(t["dropped"]) == 0
-    _, _, t, _ = _run_both(sc_heap, _data(1), ring0)
+    _, _, t, _ = both(sc_heap)
     assert not bool(t["ok3"].any()) and bool(t["ok1"].all())
     assert not bool(t["found"][3:].any()) and bool(t["found"][:3].all())
 

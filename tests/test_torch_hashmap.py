@@ -132,8 +132,8 @@ def populated():
     bk = JSerial()
     spec, st = jhm.hashmap_create(bk, CAP, SDS((), jnp.uint32), SDS((), jnp.uint32),
                                   block_size=BLOCK, impl="jnp")
-    st, ok = jhm.insert(bk, spec, st, jnp.asarray(d["pre"]), jnp.asarray(d["pre"] + 1),
-                        capacity=N)
+    st, ok = jax.jit(lambda st, k, v: jhm.insert(bk, spec, st, k, v, capacity=N))(
+        st, jnp.asarray(d["pre"]), jnp.asarray(d["pre"] + 1))
     assert bool(ok.all())
     return {k: np.asarray(v) for k, v in jhm.export_state(spec, st).items()}
 

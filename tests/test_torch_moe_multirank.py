@@ -18,9 +18,13 @@ output: the fault ROADMAP Queue 3 records as closed by this split.)
 
 The multi-rank LM (reduced qwen3-4b, also with 2 kv heads over 4 ranks;
 arctic-480b at (1, 4) and (2, 2); deepseek-v3 with the context-parallel
-MLA decode; internvl2-76b with its patch embeddings before the prompt): every rank's logits within 1e-5 relative L2 of JAX's mesh
-run at the prefill and at each of 3 decode steps, and ``serve`` at the
-layout gives every rank the one-rank run's tokens.
+MLA decode; internvl2-76b with its patch embeddings before the prompt;
+zamba2-7b, its Mamba2 at 8 heads and the shared attention block;
+rwkv6-1.6b; seamless-m4t-medium with its source frames, JAX's cross K/V
+filled from its encoder before decoding): every rank's logits within 1e-5
+relative L2 of JAX's mesh run at the prefill and at each of 3 decode
+steps, and ``serve`` at the layout gives every rank the one-rank run's
+tokens.
 """
 
 import json

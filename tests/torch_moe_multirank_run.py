@@ -21,18 +21,23 @@ Each saves ``y``, ``aux``, ``expert_load``, the wire drops and the cost
 log as JSON per scenario.
 
 The LM scenarios (float32, ``moe_capacity_slack`` 8.0, 4 prompts of 8
-tokens, internvl2-76b's after 8 patch embeddings, 3 decode steps of fixed
-tokens) start from the port's seeded
+tokens, internvl2-76b's after 8 patch embeddings, seamless-m4t-medium's
+beside 12 source frames, 3 decode steps of fixed tokens; zamba2-7b's
+Mamba2 at 8 heads, 2 a rank) start from the port's seeded
 one-rank draw: the JAX side carries it across (``lm_params_to_numpy``),
 each gloo rank draws its own slice (``lm.init_params(..., layout)``), or
 at (2, 2) slices the carried tree (``interop.lm_params_for_rank``).
 Each saves the logits of the prefill and of every decode step (a rank
 its data rank's rows), the router margin, and ``serve``'s tokens at the
-layout and, on rank 0, at one rank.
+layout and, on rank 0, at one rank.  JAX's prefill of an encoder-decoder
+writes no ``xk``/``xv`` (ROADMAP Queue 3, records), so its side fills them
+from ``lm.encode`` under the same mesh before decoding, as
+``tests/test_torch_encdec.py`` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -61,36 +66,66 @@ LM_SCENARIOS = {
     "lm_arctic_2x2": ("arctic-480b", {}, (2, 2)),
     "lm_deepseek_cp": ("deepseek-v3-671b", dict(mla_absorb=True, mla_cp_decode=True), (1, 4)),
     "lm_internvl": ("internvl2-76b", {}, (1, 4)),     # the patch frontend's embeddings
+    "lm_zamba2": ("zamba2-7b", dict(ssm_n_heads=8), (1, 4)),  # m and the shared a block
+    "lm_rwkv6": ("rwkv6-1.6b", {}, (1, 4)),
+    "lm_seamless": ("seamless-m4t-medium", {}, (1, 4)),  # the encoder, frames, cross K/V
 }
-LM_BATCH, LM_PROMPT, LM_STEPS, LM_SEED = 4, 8, 3, 3
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_SEED, LM_SRC = 4, 8, 3, 3, 12
 SERVE_REQUESTS, SERVE_GEN = 6, 4
 
 
 def lm_cache(cfg) -> int:
     """The patches, the prompt and the decode steps, and one more: a multiple
     of 4 ranks (the MLA cache's sequence splits over them; serve's too)."""
-    return cfg.frontend_len + LM_PROMPT + LM_STEPS + 1
+    return (cfg.frontend_len if cfg.frontend == "patch" else 0) + LM_PROMPT + LM_STEPS + 1
 
 
 def lm_config(pkg, name: str):
+    """The scenario's reduced config; ``ssm_n_heads`` sets Mamba2's heads
+    in the package's own ``SSMConfig``."""
     arch, over, _ = LM_SCENARIOS[name]
-    return pkg.reduced(pkg.get_config(arch), moe_capacity_slack=8.0, **over)
+    cfg = pkg.reduced(pkg.get_config(arch), moe_capacity_slack=8.0)
+    over = dict(over)
+    if "ssm_n_heads" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, n_heads=over.pop("ssm_n_heads"))
+    return dataclasses.replace(cfg, **over)
 
 
 def lm_tokens(cfg) -> tuple[dict, np.ndarray, dict]:
     """The prefill batch (B, T) with a ``patch`` model's embeddings (B, P,
-    D), the decode steps' tokens (B, steps) and serve's prompts (R, T) and
-    embeddings."""
+    D) or a ``frame`` model's source (B, LM_SRC, D), the decode steps'
+    tokens (B, steps) and serve's prompts (R, T) and embeddings."""
     rng = np.random.default_rng(11)
     n = (LM_BATCH, SERVE_REQUESTS)
     batch, reqs = ({"tokens": rng.integers(0, cfg.vocab, (b, LM_PROMPT), dtype=np.int32)}
                    for b in n)
     steps = rng.integers(0, cfg.vocab, (LM_BATCH, LM_STEPS), dtype=np.int32)
-    if cfg.frontend == "patch":
+    if cfg.frontend:
+        key, n_pos = (("patch_embeds", cfg.frontend_len) if cfg.frontend == "patch"
+                      else ("src_embeds", LM_SRC))
         for b, d in zip(n, (batch, reqs)):
-            d["patch_embeds"] = rng.normal(size=(b, cfg.frontend_len, cfg.d_model)) \
-                .astype(np.float32)
+            d[key] = rng.normal(size=(b, n_pos, cfg.d_model)).astype(np.float32)
     return batch, steps, reqs
+
+
+def cross_filled(lm, params, cfg, cache, src, mesh, axes):
+    """JAX's prefill cache with each decoder layer's ``xk``/``xv`` (B, Hkv,
+    S, hd) filled as its decode branch reads them: ``lm.encode``'s output
+    under the mesh through the layer's ``xattn.wk``/``wv`` (every layer
+    of a reduced encoder-decoder is in the scanned ``stack``)."""
+    import jax
+    import jax.numpy as jnp
+    enc = jax.jit(lambda pp, ss: lm.encode(pp, cfg, ss, mesh, axes))(params, src)
+    b, s = enc.shape[:2]
+    xattn = params["stack"]["p0"]["xattn"]
+
+    def proj(w):     # w (units, D, Hkv*hd) -> (units, B, Hkv, S, hd)
+        y = jnp.einsum("bsd,ude->ubse", enc, w)
+        return y.reshape(w.shape[0], b, s, cfg.n_kv_heads, cfg.head_dim).transpose(
+            0, 1, 3, 2, 4)
+    stack = dict(cache["stack"])
+    stack["p0"] = dict(stack["p0"], xk=proj(xattn["wk"]), xv=proj(xattn["wv"]))
+    return dict(cache, stack=stack)
 
 
 def lm_generator():
@@ -172,6 +207,8 @@ def run_jax(out_path: str) -> None:
         cache, logits = jax.jit(lambda pp, bb, cfg=cfg: lm.prefill(
             pp, cfg, bb, lm_cache(cfg), mesh=lm_mesh, axes=lm_axes))(p, batch)
         res[f"{name}.logits0"] = np.asarray(logits)
+        if cfg.encoder_layers:
+            cache = cross_filled(lm, p, cfg, cache, batch["src_embeds"], lm_mesh, lm_axes)
         step = jax.jit(lambda pp, cc, tt, cfg=cfg: lm.decode_step(pp, cfg, cc, tt, mesh=lm_mesh,
                                                                   axes=lm_axes))
         for s in range(LM_STEPS):
