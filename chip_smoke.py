@@ -6,7 +6,7 @@
 
 Phases, each fatal on failure:
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build the kernels from the five sources in src/repro_torch/csrc, one
+  2. build the kernels from the six sources in src/repro_torch/csrc, one
      nvcc per source, all at once (ptxas registers and spills of every
      kernel; registers, local bytes and shared memory of each instance of
      both flash_attention routes, without and with probs_bf16, as the card
@@ -164,10 +164,11 @@ Phases, each fatal on failure:
      decode step by role (MLA projections, K/V expansion, flash, decode
      attention, router, the wire kernels, expert bmm, shared expert, dense
      MLP, the rest) with mla_absorb off and on, and the cell's seconds;
-  9c. the recurrent serving cells, each at full width and depth in bf16
-     with the qwen3-4b cell's traffic: zamba2-7b (81 layers, 68 Mamba2 and
-     13 shared-attention layers `mmmmma`, d_model 3584, d_state 64, 32
-     heads of 112; 5.62 B parameters) and rwkv6-1.6b (24 RWKV-6 layers,
+  9c. the recurrent serving cells, each at full width in bf16 with the
+     qwen3-4b cell's traffic: zamba2-7b (cut to 27 of its 81 layers: four
+     `mmmmma` units and the `mmm` remainder, 23 Mamba2 and 4
+     shared-attention layers, d_model 3584, d_state 64, 32 heads of 112)
+     and rwkv6-1.6b at full depth (24 RWKV-6 layers,
      d_model 2048, head 64; 1.58 B): serve with the kernels (each mixer's
      scan one launch a layer and call, counted by kernel: Mamba2's chunked
      mamba_scan at the 2048-token prefills and its sequential
@@ -239,6 +240,36 @@ Phases, each fatal on failure:
      fault planted at decode (the conv state zeroed; RWKV's prev dropped)
      must break it by FAULT_FACTOR; so do seamless's cross carry and
      internvl's decode after the patches, with the frontend cells' faults;
+  10b. training (also alone: --train): the attention backward
+     (flash_attention_bwd, bf16, and flash_attention_bwd_f32) against
+     autograd through the plain version at five training shapes
+     (stablelm-1.6b's (8, 32, 2048, 64) causal call, qwen3-4b's 32 query
+     heads over 8, gemma3-4b's windowed D=320, seamless's non-causal cross
+     call over 512 keys, a float32 call) by relative L2 and the largest
+     row gap (BWD_REL_L2, BWD_ROW_GAP), one launch each, repeatable bit for
+     bit, timed beside the plain version and scaled_dot_product_attention's
+     backward, the bound from the five products, the GQA fault planted on
+     the grouped cases; then the training cell: stablelm-1.6b at full
+     width and depth (24 layers, 1.64 B parameters in bf16, float32 AdamW
+     moments, remat="block") trains 4 steps of 8 x 2048 tokens from the
+     port's TokenStream through make_train_step with the kernels, then a
+     fresh model from the same seed on the same batches with the plain
+     versions: (a) the first layer's step-0 attention gradients on its
+     tapped q, k, v and dO, kernel vs plain, with three faults planted in
+     the kernel (the causal mask dropped from the dK/dV launch, delta left
+     zero, the scale dropped from dS) that must break it, (b) the step-0
+     gradient leaves, grad_norm and the loss series against the plain run
+     (TRAIN_GRAD_REL_L2, TRAIN_LOSS_REL), (c) the launches exactly (each
+     layer's flash forward twice a step with remat, its backward once);
+     step ms, tokens/s, peak memory, one step's device ms by role and the
+     model FLOPs' share of the bf16 peak; then the float32 train phase:
+     repro_torch.launch.train.main for stablelm-1.6b, qwen3-4b and
+     gemma3-4b --reduced, against the same CLI with the plain versions
+     (losses at F32_TRAIN_REL, the first step's backward calls at
+     F32_TRAIN_REL, a control with dO rounded to bf16 that must break
+     that), launches exactly, and --kill-at 7 / restart from step 5 with
+     the losses bit for bit; and the kernel routes without a backward
+     (the scans, the MoE wire, probs_bf16 flash) refusing a gradient;
   11. multi-rank cells: qwen3-4b at full width and depth (8 of its cell's
      2048-token prompts, 32 tokens) and deepseek-v3-671b at full width, 4
      of 61 layers, mla_absorb and mla_cp_decode, one MoE row per (token,
@@ -290,10 +321,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -327,12 +360,15 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ops import MODE_ADD  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from kernel_ab import host_us  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -384,9 +420,12 @@ DS_FULL = dict(arch="deepseek-v3-671b", reduced=False, layers=4, requests=16, ba
                prompt_len=1024, gen=16)
 DS_REHEARSAL = dict(arch="deepseek-v3-671b", reduced=True, layers=2, requests=4, batch=2,
                     prompt_len=24, gen=4)
-# the recurrent serving cells at full width and depth, the qwen3-4b cell's
-# traffic: zamba2-7b (68 Mamba2 layers, 13 shared-attention layers) and rwkv6-1.6b
-SSM_FULL = (dict(arch="zamba2-7b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32),
+# the recurrent serving cells at full width, the qwen3-4b cell's traffic:
+# zamba2-7b cut to 27 of its 81 layers (four whole "mmmmma" units and the "mmm"
+# remainder, as the full model ends: the shared block runs four times) and
+# rwkv6-1.6b at full depth
+SSM_FULL = (dict(arch="zamba2-7b", reduced=False, layers=27, requests=16, batch=8,
+                 prompt_len=2048, gen=32),
             dict(arch="rwkv6-1.6b", reduced=False, requests=16, batch=8, prompt_len=2048, gen=32))
 SSM_REHEARSAL = (dict(arch="zamba2-7b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4),
                  dict(arch="rwkv6-1.6b", reduced=True, requests=4, batch=2, prompt_len=40, gen=4))
@@ -541,6 +580,13 @@ KERNELS = {
                        "src/repro_torch/csrc/ssm_scan.cu", "src/repro/models/ssm.py:98"),
     "rwkv_scan": (ssm_scan, "rwkv_scan", "rwkv_scan_plain", "src/repro_torch/csrc/ssm_scan.cu",
                   "src/repro/models/ssm.py:183"),
+    # no TPU kernel: XLA's autodiff of blockwise_attention, two entry points by dtype
+    "flash_attention_bwd": (fa, "flash_attention_bwd", "flash_attention_bwd_plain",
+                            "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:32"),
+    "flash_attention_bwd_f32": (fa, "flash_attention_bwd", "flash_attention_bwd_plain",
+                                "src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/models/attention.py:32"),
 }
 #: the kernels each path runs
 HASHMAP_KERNELS = ("bin_offsets", "bin_csr", "pack_rows", "place_rows", "insert_arrivals",
@@ -556,7 +602,8 @@ OFF_PATH = ("ragged_slots", "histogram")
 SCAN_KERNELS = ("mamba_scan", "mamba_scan_seq", "rwkv_scan")
 #: the float kernels: held at a tolerance on the cases above, the float32 serve
 #: phase's own calls and the scans' calls, not on the container paths' captured calls
-FLOAT_KERNELS = ("flash_attention", "flash_attention_f32", *SCAN_KERNELS)
+FLOAT_KERNELS = ("flash_attention", "flash_attention_f32", *SCAN_KERNELS,
+                 "flash_attention_bwd", "flash_attention_bwd_f32")
 #: the flash_attention case each float kernel's JSON row reports
 FLASH_ROWS = {"flash_attention": "serving_prefill", "flash_attention_f32": "f32"}
 #: the flash_attention cases timed beside scaled_dot_product_attention
@@ -564,7 +611,7 @@ SDPA_CASES = (*FLASH_ROWS.values(), "arctic_prefill", "gemma_prefill", *FLASH_OP
               *FRONTEND_CASES)
 #: a kernels-line row's keys that stay in the phase's own printed lines
 ROW_DETAIL = ("shape", "tol", "sdpa_ratio", "regime", "cuda_core_ms", "device_ms", "rel_l2",
-              "state_equal", "host_us")
+              "state_equal", "host_us", "device_ms_by_launch")
 
 
 @contextlib.contextmanager
@@ -2103,6 +2150,8 @@ def serving_setup(vz: dict, dev, seed: int) -> dict:
     cfg = get_config(vz["arch"])
     if vz["reduced"]:
         cfg = reduced(cfg)
+    if vz.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=vz["layers"])
     sync(dev)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
@@ -3044,7 +3093,7 @@ def ds_split(dz: dict, dv: dict, absorb: bool) -> dict:
 
 
 # --------------------------------------------------------------------------
-# the recurrent serving cells: zamba2-7b and rwkv6-1.6b at full width and depth
+# the recurrent serving cells: zamba2-7b and rwkv6-1.6b at full width
 # --------------------------------------------------------------------------
 
 def flash_calls(cfg) -> int:
@@ -3840,6 +3889,505 @@ def same_f32_serve(a: dict, b: dict, dev) -> None:
 
 
 # --------------------------------------------------------------------------
+# training: the attention backward's kernel phase, the stablelm-1.6b training
+# cell and the float32 train phase
+# --------------------------------------------------------------------------
+
+# the attention backward's kernel-phase cases: (b, hq, hkv, tq, tk, d, causal,
+# window, dtype), the training shapes of the dense models (the first is the
+# training cell's call, the one its bf16 JSON row reports; "f32_train" the
+# float32 row's)
+BWD_FULL = {
+    "stablelm_train": (8, 32, 32, 2048, 2048, 64, True, 0, BF16),
+    "qwen3_train": (8, 32, 8, 2048, 2048, 128, True, 0, BF16),
+    "gemma_train": (8, 8, 4, 2048, 2048, 320, True, 1024, BF16),
+    "seamless_cross_train": (8, 16, 16, 2048, 512, 64, False, 0, BF16),
+    "f32_train": (2, 16, 4, 777, 777, 128, True, 0, F32),
+}
+BWD_REHEARSAL = {
+    "stablelm_train": (2, 4, 4, 70, 70, 16, True, 0, BF16),
+    "qwen3_train": (2, 4, 2, 70, 70, 128, True, 0, BF16),
+    "gemma_train": (1, 4, 2, 70, 70, 320, True, 24, BF16),
+    "seamless_cross_train": (2, 4, 4, 40, 10, 16, False, 0, BF16),
+    "f32_train": (1, 4, 2, 37, 37, 16, True, 0, F32),
+}
+#: the backward case each kernel's JSON row reports
+BWD_ROWS = {"flash_attention_bwd": "stablelm_train", "flash_attention_bwd_f32": "f32_train"}
+#: the backward kernel against autograd through the plain version, by relative
+#: L2 of each of dq, dk, dv and by the largest row gap (a row's L2 error over
+#: the mean row norm): float32 at the float32 route's 1e-5; bf16, where both
+#: sides round the same float32 gradients to bf16, from the card's runs
+#: (NVIDIA H100 80GB HBM3, 700 W): at most 1.03e-4 relative L2 (qwen3's dk)
+#: and a row gap of 0.047 (the training cell's first-layer dv) seen
+BWD_REL_L2 = {BF16: 1e-3, F32: 1e-5}
+BWD_ROW_GAP = {BF16: 0.1, F32: 1e-4}
+#: a planted fault must push the relative L2 past BWD_FAULT_MARGIN x the gate
+BWD_FAULT_MARGIN = 10
+#: faults planted into the backward kernel (flash_attention.bwd_fault); each
+#: must break the check it is planted under by BWD_FAULT_MARGIN
+BWD_FAULTS = {1: "the causal mask dropped from the dK/dV launch", 2: "delta left zero",
+              4: "a GQA group's dK and dV from its first query head only",
+              8: "the scale dropped from dS"}
+#: the training cell: stablelm-1.6b at full width and depth, bf16 parameters,
+#: float32 AdamW moments, remat="block", 4 steps of 8 x 2048 tokens
+TRAIN_FULL = dict(arch="stablelm-1.6b", reduced=False, steps=4, batch=8, seq=2048)
+TRAIN_REHEARSAL = dict(arch="stablelm-1.6b", reduced=True, steps=4, batch=2, seq=64)
+#: kernel run against the plain run (both bf16): each gradient leaf at step 0
+#: by relative L2, grad_norm and each step's loss relative (PERF.md section 2's
+#: bf16 drift gates)
+TRAIN_GRAD_REL_L2, TRAIN_LOSS_REL = 5e-2, 2e-2
+#: the float32 train phase: train.py's main as a user runs it, reduced
+F32_TRAIN_ARCHS = ("stablelm-1.6b", "qwen3-4b", "gemma3-4b")
+F32_TRAIN_ARGS = ("--reduced", "--steps", "12", "--batch", "8", "--seq", "128",
+                  "--log-every", "1")
+F32_TRAIN_REL = 1e-5
+KILL_AT, CKPT_EVERY = 7, 5
+
+
+def row_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest L2 error of a row (the last dim) over the mean row norm of want."""
+    g, w = got.float(), want.float()
+    return float(torch.linalg.vector_norm(g - w, dim=-1).max()
+                 / torch.linalg.vector_norm(w, dim=-1).mean())
+
+
+def grad_gaps(got, want) -> dict:
+    """Relative L2 and row gap of each of (dq, dk, dv)."""
+    return {n: dict(rel_l2=rel_l2(g, w), row_gap=row_gap(g, w))
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def grads_within(gaps: dict, dtype) -> bool:
+    return all(v["rel_l2"] <= BWD_REL_L2[dtype] and v["row_gap"] <= BWD_ROW_GAP[dtype]
+               for v in gaps.values())
+
+
+def worst(gaps: dict) -> float:
+    return max(v["rel_l2"] for v in gaps.values())
+
+
+def bwd_with_fault(fault: int, q, k, v, do, causal: bool, window: int):
+    fa.bwd_fault = fault
+    try:
+        return fa.flash_attention_bwd(q, k, v, do, causal, window)
+    finally:
+        fa.bwd_fault = 0
+
+
+def faults_break(what: str, call: tuple, want, faults, dtype) -> dict:
+    """Each planted fault in ``faults`` must push the kernel's gradients on
+    ``call`` (q, k, v, do, causal, window) past the gate by BWD_FAULT_MARGIN;
+    returns the relative L2 each reached."""
+    reached = {}
+    for fault in faults:
+        gaps = grad_gaps(bwd_with_fault(fault, *call), want)
+        reached[BWD_FAULTS[fault]] = worst(gaps)
+        check(worst(gaps) > BWD_FAULT_MARGIN * BWD_REL_L2[dtype],
+              f"{what}: planted fault '{BWD_FAULTS[fault]}' breaks the gradient check "
+              f"({worst(gaps)})")
+    print(f"{what}: planted faults reach relative L2 " + json.dumps(reached), flush=True)
+    return reached
+
+
+def bwd_phase(cases: dict, reps: int, dev, seed: int) -> dict:
+    """flash_attention_bwd against autograd through the plain version on each
+    case (q, k, v as head-split views, dO head-merged, as the model hands them
+    over), one launch of the dtype's entry point each; kernel, plain and
+    scaled_dot_product_attention backward times, the kernel's device ms by
+    launch (torch.profiler), the bound from the five products (2 D flops a
+    pair the mask keeps: S and dP recomputed, dV, dK, dQ) at the bf16
+    tensor rate (float32: three TF32 passes, the CUDA-core figure beside it)
+    and from the bytes (q, k, v, dO read once, dq, dk, dv written once).
+    The qwen3 case (GQA) carries the group fault."""
+    rows = {}
+    for i, (case, (b, hq, hkv, tq, tk, d, causal, window, dtype)) in enumerate(cases.items()):
+        g = torch.Generator(device=dev).manual_seed(seed + 300 + i)
+
+        def heads(h, t):
+            return torch.randn((b, t, h, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+        q, k, v, do = heads(hq, tq), heads(hkv, tk), heads(hkv, tk), heads(hq, tq)
+        call = (q, k, v, do, causal, window)
+
+        def kern():
+            return fa.flash_attention_bwd(*call)
+
+        def plain():
+            return fa.flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window)
+        before = build.launch_counts()
+        got = kern()
+        sync(dev)
+        if dev.type == "cuda":
+            route = "flash_attention_bwd" if dtype == BF16 else "flash_attention_bwd_f32"
+            ran = {n: c - before[n] for n, c in build.launch_counts().items() if c != before[n]}
+            check(ran == {route: 1}, f"flash_attention_bwd {case}: one launch of {route}, {ran}")
+        want = plain()
+        gaps = grad_gaps(got, want)
+        print(f"flash_attention_bwd {case}: kernel vs plain " + json.dumps(gaps), flush=True)
+        check(all(x.shape == t.shape and x.dtype == dtype and bool(torch.isfinite(x).all())
+                  for x, t in zip(got, (q, k, v))), f"flash_attention_bwd {case}: finite "
+                                                    "gradients of the operands' shapes")
+        check(grads_within(gaps, dtype), f"flash_attention_bwd {case}: within "
+                                         f"{BWD_REL_L2[dtype]} / {BWD_ROW_GAP[dtype]}: {gaps}")
+        if dev.type == "cuda":
+            check(all(torch.equal(x, y) for x, y in zip(got, kern())),
+                  f"flash_attention_bwd {case}: a second launch repeats bit for bit")
+            if hkv < hq:
+                faults_break(f"flash_attention_bwd {case}", call, want, (4,), dtype)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        mask = None
+        if window:
+            qpos = torch.arange(tq, device=dev)[:, None] + (tk - tq)
+            kpos = torch.arange(tk, device=dev)[None, :]
+            mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                 is_causal=causal and mask is None,
+                                                 enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+        lib_gap = worst(grad_gaps(library(), want))
+        check(lib_gap <= 5e-2, f"flash_attention_bwd {case}: the library call's gradients "
+                               f"agree ({lib_gap})")
+        pairs = b * hq * attention_pairs(tq, tk, causal, window)
+        flops = 5 * 2 * d * pairs
+        ops_ms = (flops / BF16_OPS_PER_S if dtype == BF16 else 3 * flops / TF32_OPS_PER_S) * 1e3
+        bytes_ms = (_nbytes(q, k, v, do) + _nbytes(*got)) / HBM_BYTES_PER_S * 1e3
+        rows[case] = row = dict(
+            max_abs_err=max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want)),
+            rel_l2=worst(gaps), tol=f"rel_l2<={BWD_REL_L2[dtype]}, row_gap<={BWD_ROW_GAP[dtype]}",
+            ms=time_ms(kern, reps, dev), plain_ms=time_ms(plain, max(1, reps // 5), dev),
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=time_ms(library, reps, dev), cuda_core_ms=flops / OPS_PER_S * 1e3,
+            shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], causal=causal, window=window,
+                       dtype=str(dtype)))
+        row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+        if dev.type == "cuda":
+            split = device_ms(kern, reps)
+            row["device_ms"] = sum(x["ms"] for x in split.values())
+            row["device_ms_by_launch"] = {n: x["ms"] for n, x in split.items()}
+        print(f"kernel flash_attention_bwd {case}: " + json.dumps(row), flush=True)
+        del q, k, v, do, got, want, qs, ks, vs, lib_out
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _tap_first_flash(seen: dict):
+    """Wrap ops.flash_attention: the first call's q, k, v (copies) and the
+    gradient that reaches its output (its dO)."""
+    def wrap(real):
+        def tapped(q, k, v, *args, **kwargs):
+            out = real(q, k, v, *args, **kwargs)
+            if "qkv" not in seen and out.requires_grad:
+                seen["qkv"] = tuple(t.detach().clone() for t in (q, k, v))
+                seen["flags"] = (kwargs.get("causal", True), kwargs.get("window", 0))
+                def grab(gr):
+                    seen.setdefault("do", gr.detach().clone())
+                out.register_hook(grab)
+            return out
+        return tapped
+    return wrap
+
+
+def _tap_first_grads(seen: dict):
+    """Wrap the train step's adamw_update: the first call's gradients and grad_norm."""
+    def wrap(real):
+        def tapped(ocfg, params, grads, state, *args, **kwargs):
+            out = real(ocfg, params, grads, state, *args, **kwargs)
+            if "grads" not in seen:
+                seen["grads"] = [gr.detach().clone() for gr in tree_leaves(grads)]
+                seen["grad_norm"] = float(out[2]["grad_norm"])
+            return out
+        return tapped
+    return wrap
+
+
+def train_roles() -> dict:
+    """Roles of a training step's device time (see :func:`role_split`): the
+    cross-entropy chunks (their forward and their recompute in the
+    backward) and AdamW; the flash kernels by name, every GEMM to "GEMMs"."""
+    return {"xent": (layers_mod, "_chunk_nll"), "AdamW": (train_steps, "adamw_update")}
+
+
+TRAIN_DEVICE_NAMES = (("flash_fwd", "flash forward"), ("bwd_prep", "flash bwd (a) lse, delta"),
+                      ("bwd_dkdv", "flash bwd (b) dK dV"), ("bwd_dq", "flash bwd (c) dQ"))
+TRAIN_GEMM_ROLES = {"xent": "GEMMs", "AdamW": "GEMMs", "the rest": "GEMMs"}
+
+
+def model_flops(cfg, params, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 a token for each weight a matmul
+    reads (the head included, the embedding lookup not), and the attention
+    products, 2 in the forward and 4 in the backward, over the pairs the
+    causal mask keeps; no recompute counted."""
+    leaves = tree_leaves(params)
+    mm = sum(p.numel() for p in leaves if p.dim() >= 2)
+    if not cfg.tie_embeddings:
+        mm -= params["embed"].numel()
+    n_attn = sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
+    window = cfg.sliding_window
+    pairs = sum(attention_pairs(seq, seq, True, window if lm.kind_at(cfg, i) == "l" else 0)
+                for i in range(cfg.n_layers) if lm.kind_at(cfg, i) in "gla") / max(n_attn, 1)
+    attn = 6 * 2 * batch * cfg.n_heads * pairs * cfg.head_dim * n_attn
+    return 6.0 * mm * batch * seq + attn
+
+
+def train_run(impl: str, tz: dict, cfg, batches: list, dev, seed: int, profile: bool) -> dict:
+    """The seeded model trained on ``batches`` through make_train_step(cfg,
+    impl): each step's loss, grad_norm and host ms (synchronised), the
+    step-0 gradients, the launches, the peak memory; the kernel run also
+    taps the first flash call and, after the counted steps, profiles one
+    more step by role."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params, opt = train_steps.init_state(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    step_fn = train_steps.make_train_step(cfg, impl)
+    seen, r = {}, dict(losses=[], grad_norms=[], step_ms=[], impl=impl)
+    plants = [(train_steps, "adamw_update", _tap_first_grads(seen))]
+    if impl == "auto":
+        plants.append((ops, "flash_attention", _tap_first_flash(seen)))
+    build.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for p in plants:
+            stack.enter_context(planted(p))
+        for batch in batches:
+            sync(dev)
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            r["losses"].append(float(m["loss"]))
+            sync(dev)
+            r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["grad_norms"].append(float(m["grad_norm"]))
+    r["launches"] = build.launch_counts()
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    r.update(seen)
+    r["flops"] = model_flops(cfg, params, tz["batch"], tz["seq"])
+    if profile and dev.type == "cuda":
+        trace = {}
+        r["split"] = role_split(lambda: step_fn(params, opt, batches[0]), train_roles(),
+                                names=TRAIN_DEVICE_NAMES, trace=trace,
+                                gemm_roles=TRAIN_GEMM_ROLES)
+        r["split_wall_ms"] = trace["wall_ms"]
+        r["split_by_name"] = short_names({k: dict(ms=x) for k, x in trace["by_name"].items()})
+    del params, opt
+    return r
+
+
+def train_cell(tz: dict, dev, seed: int, smi: str, rehearsal: bool) -> dict:
+    """stablelm-1.6b trained for ``steps`` steps on TokenStream(seed) batches
+    through the kernels, then a fresh model from the same seed on the same
+    batches with the plain versions; checks (a) the first flash call's
+    gradients kernel vs plain on its tapped inputs, with the planted faults,
+    (b) step-0 gradients, grad_norm and the loss series against the plain
+    run, (c) the launches counted exactly."""
+    t_cell = time.perf_counter()
+    cfg = get_config(tz["arch"])
+    if tz["reduced"]:
+        cfg = reduced(cfg)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=tz["seq"], global_batch=tz["batch"], seed=seed)
+    batches = [stream.next_batch(device=dev) for _ in range(tz["steps"])]
+    n_params = _tree_sum(lm.abstract_params(cfg))
+    print(f"training cell: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({cfg.dtype}, moments {cfg.optimizer_dtype}, remat "
+          f"{cfg.remat}), {tz['steps']} steps of {tz['batch']} x {tz['seq']} tokens", flush=True)
+    runs = {impl: train_run(impl, tz, cfg, batches, dev, seed, profile=impl == "auto")
+            for impl in ("auto", "torch")}
+    k, p = runs["auto"], runs["torch"]
+    for impl, r in runs.items():
+        check(all(np.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+              f"training cell ({impl}): finite losses and gradient norms")
+    # (c) launches
+    n_attn = sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
+    want = {"flash_attention": 2 * n_attn * tz["steps"],
+            "flash_attention_bwd": n_attn * tz["steps"]}
+    got = {n: c for n, c in k["launches"].items() if c}
+    if not rehearsal:
+        check(got == want, f"training cell: launches {got}, want {want} (each layer's flash "
+                           "forward twice a step with remat, its backward once)")
+    check(not any(p["launches"].values()), f"training cell: the plain run launched no kernel "
+                                           f"{p['launches']}")
+    # (a) the first layer's step-0 attention gradients on the tapped inputs
+    q, kk, v = k["qkv"]
+    causal, window = k["flags"]
+    call = (q, kk, v, k["do"], causal, window)
+    want_g = fa.flash_attention_bwd_plain(q, kk, v, k["do"], causal=causal, window=window)
+    gaps = grad_gaps(fa.flash_attention_bwd(*call), want_g)
+    print(f"training cell (a): the first layer's step-0 attention gradients, kernel vs plain "
+          f"on the tapped q, k, v, dO {tuple(q.shape)}: " + json.dumps(gaps), flush=True)
+    check(grads_within(gaps, q.dtype), f"training cell (a): within {BWD_REL_L2[q.dtype]} / "
+                                       f"{BWD_ROW_GAP[q.dtype]}")
+    if not rehearsal:
+        faults_break("training cell (a)", call, want_g, (1, 2, 8), q.dtype)
+    del call, want_g
+    # (b) step-0 gradients and grad_norm, and the loss series
+    leaf_gaps = [rel_l2(a, b) for a, b in zip(k["grads"], p["grads"])]
+    gn = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+    print(f"training cell (b): step-0 gradients kernel vs plain, {len(leaf_gaps)} leaves, "
+          f"largest relative L2 {max(leaf_gaps)} (gate {TRAIN_GRAD_REL_L2}); grad_norm "
+          f"{k['grad_norm']} vs {p['grad_norm']} ({gn}); losses {k['losses']} vs "
+          f"{p['losses']} (largest gap {max(loss_gaps)}, gate {TRAIN_LOSS_REL})", flush=True)
+    check(max(leaf_gaps) <= TRAIN_GRAD_REL_L2 and gn <= TRAIN_LOSS_REL
+          and max(loss_gaps) <= TRAIN_LOSS_REL, "training cell (b): gradients, grad_norm and "
+                                                "losses within the bf16 drift gates")
+    tokens = tz["batch"] * tz["seq"]
+    summary = dict(card=smi, steps=tz["steps"], tokens_per_step=tokens, n_params=n_params,
+                   cell_s=time.perf_counter() - t_cell)
+    for impl, r in runs.items():
+        med = float(np.median(r["step_ms"][1:])) if len(r["step_ms"]) > 1 else r["step_ms"][0]
+        summary[impl] = dict(step_ms=r["step_ms"], step_ms_median_1_3=med,
+                             tokens_per_s=tokens / med * 1e3, peak_gb=r["peak_gb"],
+                             losses=r["losses"], grad_norms=r["grad_norms"],
+                             mfu=r["flops"] / (med / 1e3) / BF16_OPS_PER_S)
+    summary["model_tflops_per_step"] = k["flops"] / 1e12
+    if "split" in k:
+        dev_ms = k["split"]["total"]
+        summary["split"] = {n: round(x, 3) for n, x in k["split"].items()}
+        summary["busy_share"] = dev_ms / k["split_wall_ms"]
+        summary["split_wall_ms"] = k["split_wall_ms"]
+        print("training cell split (one step, device ms by role): "
+              + json.dumps(summary["split"]) + f", busy share {summary['busy_share']:.3f}",
+              flush=True)
+        print("training cell split: device ms by kernel " + json.dumps(k["split_by_name"]),
+              flush=True)
+    print("training cell: " + json.dumps({n: summary[n] for n in summary if n != "split"}),
+          flush=True)
+    summary["launches"] = k["launches"]
+    return summary
+
+
+def _train_main(arch: str, dev, impl: str, extra=(), plant=None) -> dict:
+    """``train.main(["--arch", arch, *F32_TRAIN_ARGS, *extra])`` as a user runs
+    it (``--cpu`` off the card), its step function tapped for each step's
+    exact loss and built with ``impl``; the backward calls of its first step
+    recorded (inputs and the kernel's outputs); ``plant`` wraps
+    flash_attention_bwd."""
+    seen = {"losses": [], "bwd": []}
+    real_step = train_steps.make_train_step
+
+    def make(cfg):
+        step = real_step(cfg, impl)
+
+        def stepped(params, opt, batch):
+            out = step(params, opt, batch)
+            seen["losses"].append(float(out[2]["loss"]))
+            return out
+        return stepped
+
+    def tap(real):
+        wrapped = plant(real) if plant else real
+
+        def tapped(q, k, v, do, causal=True, window=0):
+            got = wrapped(q, k, v, do, causal, window)
+            if not seen["losses"]:
+                seen["bwd"].append(((q, k, v, do, causal, window),
+                                    tuple(x.detach().clone() for x in got)))
+            return got
+        return tapped
+    argv = ["--arch", arch, *F32_TRAIN_ARGS, *extra] + (["--cpu"] if dev.type != "cuda" else [])
+    text = io.StringIO()
+    build.reset_launches()
+    with planted((train_cli, "make_train_step", lambda _: make)), \
+            planted((fa, "flash_attention_bwd", tap)), contextlib.redirect_stdout(text):
+        seen["rc"] = train_cli.main(argv)
+    seen["launches"] = build.launch_counts()
+    seen["out"] = text.getvalue()
+    return seen
+
+
+def _round_do_bf16(real):
+    def control(q, k, v, do, causal=True, window=0):
+        return real(q, k, v, do.to(torch.bfloat16).float(), causal, window)
+    return control
+
+
+def f32_train_phase(arch: str, dev, rehearsal: bool, tmp: Path) -> dict:
+    """train.py's main for ``arch`` (reduced, float32): the kernel run and a
+    plain run (the same CLI with make_train_step's impl="torch"), each
+    step's loss within F32_TRAIN_REL; every backward call of the first step
+    held against the plain backward at F32_TRAIN_REL, and a control that
+    rounds dO to bf16 before the kernel must break that; the launches
+    counted exactly; then --kill-at / restart, whose losses after the
+    restore equal the uninterrupted kernel run's bit for bit."""
+    t0 = time.perf_counter()
+    cfg = reduced(get_config(arch))
+    k = _train_main(arch, dev, "auto")
+    p = _train_main(arch, dev, "torch")
+    check(k["rc"] == p["rc"] == 0 and "(improved)" in k["out"],
+          f"f32 train {arch}: both runs end and the loss improves")
+    steps = int(F32_TRAIN_ARGS[F32_TRAIN_ARGS.index("--steps") + 1])
+    n_attn = sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
+    want = {"flash_attention_f32": 2 * n_attn * steps, "flash_attention_bwd_f32": n_attn * steps}
+    got = {n: c for n, c in k["launches"].items() if c}
+    if not rehearsal:
+        check(got == want, f"f32 train {arch}: launches {got}, want {want}")
+    check(not any(p["launches"].values()), f"f32 train {arch}: the plain run launched nothing")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"]))
+    check(len(k["bwd"]) == (0 if rehearsal else n_attn) and loss_gap <= F32_TRAIN_REL,
+          f"f32 train {arch}: {len(k['bwd'])} backward calls in step 0 (want {n_attn}), losses "
+          f"within {F32_TRAIN_REL} of the plain run's ({loss_gap})")
+    call_gap, control_gap = 0.0, 0.0
+    for call, got_g in k["bwd"]:
+        q, kk, v, do, causal, window = call
+        want_g = fa.flash_attention_bwd_plain(q, kk, v, do, causal=causal, window=window)
+        call_gap = max(call_gap, worst(grad_gaps(got_g, want_g)))
+        control_gap = max(control_gap, worst(grad_gaps(
+            _round_do_bf16(fa.flash_attention_bwd)(*call), want_g)))
+    check(call_gap <= F32_TRAIN_REL, f"f32 train {arch}: the backward calls within "
+                                     f"{F32_TRAIN_REL} ({call_gap})")
+    if not rehearsal:
+        check(control_gap > F32_TRAIN_REL, f"f32 train {arch}: dO rounded to bf16 breaks the "
+                                           f"gradient check ({control_gap})")
+    ck = tmp / f"ck_{arch}"
+    extra = ("--ckpt-dir", str(ck), "--ckpt-every", str(CKPT_EVERY))
+    killed = _train_main(arch, dev, "auto", extra + ("--kill-at", str(KILL_AT)))
+    resumed = _train_main(arch, dev, "auto", extra)
+    check(killed["rc"] == 17 and f"injected failure at step {KILL_AT}" in killed["out"],
+          f"f32 train {arch}: --kill-at {KILL_AT} exits 17")
+    check(resumed["rc"] == 0 and f"restored checkpoint at step {CKPT_EVERY}" in resumed["out"]
+          and resumed["losses"] == k["losses"][CKPT_EVERY:],
+          f"f32 train {arch}: the restart restores step {CKPT_EVERY} and its losses equal the "
+          f"uninterrupted run's bit for bit ({resumed['losses']} vs {k['losses'][CKPT_EVERY:]})")
+    row = dict(losses=k["losses"], loss_rel_gap=loss_gap, bwd_call_rel_l2=call_gap,
+               control_rel_l2=control_gap, launches=got, restart_bit_identical=True,
+               seconds=time.perf_counter() - t0)
+    print(f"f32 train {arch}: " + json.dumps(row), flush=True)
+    row["launches_all"] = [k["launches"], killed["launches"], resumed["launches"]]
+    return row
+
+
+def refusals_line(dev) -> dict:
+    """The kernel routes without a backward refuse a gradient on CUDA tensors
+    (off the card the plain versions differentiate: nothing to refuse)."""
+    x = torch.zeros((1, 4, 2, 64), device=dev, requires_grad=True)
+    dt, bc = torch.zeros((1, 4, 2), device=dev), torch.zeros((1, 4, 16), device=dev)
+    q = torch.zeros((1, 2, 8, 16), device=dev, dtype=BF16, requires_grad=True)
+    mcfg = reduced(get_config("arctic-480b"))
+    mparams = moe_mod.moe_init(torch.Generator(device=dev).manual_seed(0), mcfg, F32, dev)
+    calls = {
+        "mamba_scan": lambda: ops.mamba_scan(x, dt, bc, bc, torch.zeros(2, device=dev),
+                                             torch.zeros((1, 2, 16, 64), device=dev)),
+        "rwkv_scan": lambda: ops.rwkv_scan(x, x, x, x, torch.zeros((2, 64), device=dev),
+                                           torch.zeros((1, 2, 64, 64), device=dev)),
+        "moe_apply (wire kernels)": lambda: moe_mod.moe_apply(
+            mparams, torch.zeros((1, 4, mcfg.d_model), device=dev, requires_grad=True), mcfg),
+        "flash_attention probs_bf16": lambda: ops.flash_attention(q, q, q, probs_bf16=True)}
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = "no refusal"
+        except NotImplementedError as e:
+            out[name] = str(e).split("(")[1].split(")")[0]
+    print("kernel routes without a backward, given CUDA tensors that need a gradient: "
+          + json.dumps(out), flush=True)
+    check(all(v.startswith("ROADMAP Queue 1 item 7") for v in out.values()),
+          "each kernel route without a backward refuses a gradient, naming its item")
+    return out
+
+
+# --------------------------------------------------------------------------
 
 # --------------------------------------------------------------------------
 # the multi-rank cells: four gloo ranks, (data 1, model 4), on the one card
@@ -4632,6 +5180,31 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
     print(f"{path} ({label}): " + json.dumps(line), flush=True)
 
 
+def train_phases(rehearsal: bool, sz: dict, dev, seed: int, smi: str, launched: dict,
+                 krows: dict) -> None:
+    """The training phases: (with ``--train`` alone) the backward kernel
+    phase, the stablelm-1.6b training cell, the float32 train phase, and on
+    the card the refusals line; each run's launches go into ``launched``."""
+    if not krows:
+        bwd_phase(BWD_REHEARSAL if rehearsal else BWD_FULL, sz["reps"], dev, seed)
+    t0 = time.perf_counter()
+    cell = train_cell(TRAIN_REHEARSAL if rehearsal else TRAIN_FULL, dev, seed, smi, rehearsal)
+    launched["training cell", "auto"] = cell["launches"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        for arch in F32_TRAIN_ARCHS:
+            row = f32_train_phase(arch, dev, rehearsal, tmp)
+            for i, counts in enumerate(row["launches_all"]):
+                launched[f"f32 train {arch} run {i}", "auto"] = counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if dev.type == "cuda":
+        refusals_line(dev)
+    print(f"training phases: {time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -4640,6 +5213,9 @@ def main(argv=None) -> int:
     ap.add_argument("--wire-split", action="store_true",
                     help="only build, capture the paths' calls and print the wire and "
                          "CSR splits")
+    ap.add_argument("--train", action="store_true",
+                    help="only build and run the training phases (the backward kernel "
+                         "phase, the training cell, the float32 train phase)")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -4680,6 +5256,10 @@ def main(argv=None) -> int:
               + json.dumps(sass) + f", total {sum(sass.values())}", flush=True)
         check(sum(sass.values()) > 0, "the float32 route runs tensor-core instructions")
 
+    if args.train:
+        train_phases(rehearsal, sz, dev, args.seed, smi, {}, {})
+        return 0
+
     # 3. kernel phase at the paths' shapes
     gz = G_REHEARSAL if rehearsal else G_FULL
     data = workload(sz, dev, args.seed)
@@ -4705,6 +5285,9 @@ def main(argv=None) -> int:
                         args.seed)
     for name, case in FLASH_ROWS.items():
         krows[name] = frows[case]
+    brows = bwd_phase(BWD_REHEARSAL if rehearsal else BWD_FULL, sz["reps"], dev, args.seed)
+    for name, case in BWD_ROWS.items():
+        krows[name] = brows[case]
 
     # 4.-10. each path: kernels, then plain versions
     vz = V_REHEARSAL if rehearsal else V_FULL
@@ -4923,6 +5506,9 @@ def main(argv=None) -> int:
                  lambda impl, runs, arch=arch: f32_serve_path(impl, arch, runs, dev),
                  check_f32_serve, lambda a, b: same_f32_serve(a, b, dev),
                  tuple(serving_launches(reduced(get_config(arch)), 1, 1, F32_SERVE_PROMPT_LEN)))
+
+    # 10b. training: the stablelm-1.6b cell, the float32 train phase, the refusals
+    train_phases(rehearsal, sz, dev, args.seed, smi, launched, krows)
 
     # 11. the multi-rank cells: the one-rank reference here, then four gloo
     # ranks on the one card; each rank's launches count with the paths'

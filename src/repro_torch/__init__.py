@@ -9,6 +9,11 @@ Beside ``repro`` (JAX + Pallas, the reference), with the same layout:
                DArray and heap.
   kernels/     hand-written CUDA kernels for Hopper (csrc/), each with a
                plain PyTorch version beside it, and the impl= dispatcher.
+  data/, configs/, models/  the data pipelines, the architectures and
+               the LM (serving on one or several ranks, training on one).
+  optim/, checkpoint/, runtime/  AdamW and gradient compression,
+               checkpoints, fault tolerance and the elastic plan.
+  launch/      the serve and train drivers and their step builders.
   interop      state carried across from the JAX package.
 
 Entry points place their state on the card unless the caller asks for

@@ -25,6 +25,10 @@ one value per unit in JAX; Zamba's ``shared_attn``; an encoder-decoder's
 ``enc_norm``, and each decoder layer's ``ln_x`` and ``xattn``);
 ``lm_params_to_numpy`` goes back (bf16 leaves come back as float32 arrays
 of the same values: numpy has no bfloat16 of its own).
+``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry the JAX package's
+AdamW state (``{"step", "per_param"}``, ``per_param`` shaped like the
+parameter pytree with a dict of moments at each leaf) the same way, so a
+train step starts from the same parameters and moments in both packages.
 ``lm_params_for_rank`` gives one rank of a ``(data, model)`` layout its
 slice of the LM's parameters (``models/sharding.shard_params``: an MoE
 layer's experts ``[r*E/P, (r+1)*E/P)``, as the JAX package's ``shard_map``
@@ -177,6 +181,22 @@ def lm_params_to_numpy(params: dict, cfg: ArchConfig) -> dict:
     if "encoder" in params:
         out["enc_stack"] = _stack([_tree(_array, bp) for bp in params["encoder"]])
     return out
+
+
+def opt_state_from_numpy(state_np: dict, cfg: ArchConfig, device="cuda") -> dict:
+    """The JAX AdamW state of the LM (``np.asarray`` on each leaf) -> the
+    port's (``optim.adamw_init``'s layout) on ``device``: the moments
+    unstacked like the parameters, bf16 moments kept in bf16."""
+    return {"step": torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32,
+                                 device=device),
+            "per_param": lm_params_from_numpy(state_np["per_param"], cfg, device)}
+
+
+def opt_state_to_numpy(state: dict, cfg: ArchConfig) -> dict:
+    """The port's AdamW state -> the JAX layout of numpy arrays (bf16
+    moments as float32 arrays of the same values)."""
+    return {"step": np.asarray(int(state["step"]), np.int32),
+            "per_param": lm_params_to_numpy(state["per_param"], cfg)}
 
 
 def lm_params_for_rank(params_np: dict, cfg: ArchConfig, layout, device="cuda") -> dict:

@@ -25,6 +25,19 @@ normaliser sums the float32 probabilities.  Each route has instances of
 its own for it (the bf16 route drops its P_lo pass, the float32 route
 takes P V in one exact TF32 pass); ``last_instance`` says which instance
 a call launched.
+
+The backward, ``flash_attention_bwd``, launches ``csrc/flash_attention_bwd.cu``
+(counted by ``flash_attention_bwd`` for bf16 and ``flash_attention_bwd_f32``
+for float32): the gradient of the same function, dq, dk and dv in the
+operand dtype with float32 sums, from the operands and the incoming
+gradient; each row's log-sum-exp and ``delta = rowsum(dO o O)`` are
+recomputed in float32 (the forward writes neither, and its stored output
+is rounded to the operand dtype).  Its plain version is autograd through
+``flash_attention_plain`` (``flash_attention_bwd_plain``).
+:class:`FlashAttentionFn` puts the two kernels behind
+``torch.autograd.Function``; ``ops.flash_attention`` routes a CUDA call
+that needs a gradient through it.  ``probs_bf16`` has no backward yet
+(ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -43,6 +56,12 @@ _FLASH = register("flash_attention", Kernel(
 _FLASH_F32 = register("flash_attention_f32", Kernel(
     "flash_attention", "flash_attention_f32_launch",
     [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 10 + [ctypes.POINTER(_INT)]))
+
+_BWD_ARGS = [_INT] + [_P] * 10 + [_INT] * 8 + [ctypes.c_float, _INT]
+_BWD = register("flash_attention_bwd", Kernel(
+    "flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGS))
+_BWD_F32 = register("flash_attention_bwd_f32", Kernel(
+    "flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGS))
 
 #: the instance each route launched last, as an index into ``bf16_instances()``
 #: or ``f32_instances()`` (the launcher reports it; -1 before any launch)
@@ -180,6 +199,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dt != d:
         out = _head_merged(b, tq, hq, d, q).copy_(out[..., :d])
     return out
+
+
+def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0):
+    """(dq, dk, dv): autograd through :func:`flash_attention_plain`."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*qkv, causal=causal, window=window)
+        return torch.autograd.grad(out, qkv, do)
+
+
+#: planted into the backward kernel by the checks that must catch it (0 in
+#: every real call): 1 the causal mask dropped from the dK/dV launch, 2 delta
+#: left zero, 4 a GQA group's dK and dV from its first query head only, 8 the
+#: scale dropped from dS
+bwd_fault = 0
+
+
+def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window)`` given the
+    gradient ``do`` of its output: the kernel on the card,
+    :func:`flash_attention_bwd_plain` for CPU tensors.
+
+    Any strides with a contiguous head dim (``do`` is made so if it is
+    not); the gradients have their operand's strides (``empty_like``).
+    """
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window)
+    _check(q, k, v, causal)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash_attention_bwd do: want {q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = torch.tensor([s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]],
+                           dtype=torch.int64)
+    f32 = q.dtype == torch.float32
+    (_BWD_F32 if f32 else _BWD)(int(f32), q, k, v, do, dq, dk, dv, lse, delta, strides,
+                                b, hq, hkv, tq, tk, d, int(causal), max(int(window), 0),
+                                1.0 / d ** 0.5, bwd_fault)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient (CUDA
+    tensors; ``probs_bf16`` is not taken).  Saves q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 #: what an instance query returns past a route's last instance

@@ -39,6 +39,20 @@ def resolve(impl: str, t: torch.Tensor) -> str:
     return impl
 
 
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd would record an op on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def refuse_grad(what: str, item: str, *ts: torch.Tensor) -> None:
+    """Raise where a kernel route without a backward would cut the gradient
+    of ``ts`` (its output would carry no ``grad_fn``)."""
+    if needs_grad(*ts):
+        raise NotImplementedError(
+            f"{what} has no backward on the card yet (ROADMAP Queue 1 item {item}); "
+            "call it under torch.no_grad() or with impl='torch'")
+
+
 def _w(t: torch.Tensor) -> torch.Tensor:
     """Contiguous int32 words (u32 values keep their bits)."""
     if t.dtype == torch.uint32:
@@ -303,10 +317,19 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, impl: str = "
                     probs_bf16: bool = False):
     """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) -> (B,Hq,Tq,D): suffix-aligned
     causal / sliding-window GQA attention, ``probs_bf16`` rounding P and V
-    to bf16 for P V (see ``kernels/flash_attention``)."""
+    to bf16 for P V (see ``kernels/flash_attention``).
+
+    On the card a call that needs a gradient goes through
+    ``FlashAttentionFn`` (the forward kernel, and the backward kernel as its
+    gradient); one that needs none launches the forward alone.  The plain
+    version is differentiated by autograd."""
     if resolve(impl, q) == "torch":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          probs_bf16=probs_bf16)
+    if needs_grad(q, k, v):
+        if probs_bf16:
+            refuse_grad("flash_attention with probs_bf16", "7b", q, k, v)
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window, probs_bf16=probs_bf16)
 
 
@@ -319,6 +342,7 @@ def mamba_scan(x, dt, b, c, a, h0, impl: str = "auto"):
     a (H,), h0 (B,H,S,P), float32 -> (y (B,T,H,P), final state)."""
     if resolve(impl, x) == "torch":
         return ssm_scan.mamba_scan_plain(x, dt, b, c, a, h0)
+    refuse_grad("mamba_scan", "7c", x, dt, b, c, a, h0)
     return ssm_scan.mamba_scan(x, dt, b, c, a, h0)
 
 
@@ -327,4 +351,5 @@ def rwkv_scan(r, k, v, w, u, s0, impl: str = "auto"):
     (B,H,K,K), float32 -> (out (B,T,H,K), final state)."""
     if resolve(impl, r) == "torch":
         return ssm_scan.rwkv_scan_plain(r, k, v, w, u, s0)
+    refuse_grad("rwkv_scan", "7c", r, k, v, w, u, s0)
     return ssm_scan.rwkv_scan(r, k, v, w, u, s0)

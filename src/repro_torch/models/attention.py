@@ -6,7 +6,10 @@ its plain version on the CPU (the JAX package runs the same function as
 the XLA ``blockwise_attention`` there; its ``q_block``/``k_block`` are XLA
 tiling and mean nothing here), with ``cfg.attn_probs_bf16`` passed down.
 Decode attends one query against the cache with a plain matmul, as in
-JAX (that step is bound by reading the cache, not by compute).
+JAX (that step is bound by reading the cache, not by compute).  In
+training the same prefill call, given operands that need a gradient on
+the card, runs the forward kernel with the hand-written backward kernel as
+its gradient (``ops.flash_attention`` -> ``FlashAttentionFn``).
 
 Caches are updated in place: the prefill writes the cache ``cache_init``
 allocated, and each decode step writes its one slot of the same buffers

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -87,8 +88,10 @@ def mlp_init(gen: torch.Generator, d: int, f: int, activation: str, dtype,
 
 
 def embed_lookup_dense(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Single-device lookup."""
-    return table[tokens]
+    """Single-device lookup (``F.embedding``: its gradient sums each row's
+    tokens in a fixed order on the card, so a training step repeats bit
+    for bit)."""
+    return F.embedding(tokens, table)
 
 
 def row_parallel(x: torch.Tensor, w_loc: torch.Tensor, bk) -> torch.Tensor:
@@ -145,3 +148,41 @@ def output_logits(x: torch.Tensor, table_loc: torch.Tensor, bk) -> torch.Tensor:
         return logits
     parts = bk.all_gather(logits)                      # (P, ..., V/P)
     return torch.cat(list(parts), dim=-1)
+
+
+def _chunk_nll(xc: torch.Tensor, table: torch.Tensor, yc: torch.Tensor, mc: torch.Tensor,
+               vocab_real: int) -> torch.Tensor:
+    """One chunk's masked NLL sum: float32 logits (the product in the
+    table's dtype, then upcast, as JAX's einsum + astype), the padded vocab
+    at -1e30, logsumexp minus the picked logit."""
+    logits = (xc @ table.T).float()
+    if vocab_real < table.shape[0]:
+        logits[..., vocab_real:] = -1e30
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, yc[..., None].long())[..., 0]
+    return ((lse - picked) * mc).sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
+                         mask: torch.Tensor, chunk: int = 512,
+                         vocab_real: int | None = None) -> torch.Tensor:
+    """Cross-entropy of ``x (B, T, D)`` against the head ``table (V, D)`` over
+    chunks of T, divided by ``max(mask.sum(), 1)`` (the port of
+    ``repro/models/layers.py:113-141``; T splits into chunks of ``chunk``
+    when it divides, else one chunk).  Under autograd each chunk runs in
+    ``torch.utils.checkpoint``, so only one chunk's (B, chunk, V) float32
+    logits live at a time, in the forward and in the backward.
+    ``vocab_real`` masks padding rows of the table out of the normalizer."""
+    b, t, _ = x.shape
+    n = t // chunk if t % chunk == 0 else 1
+    c = t // n
+    vreal = vocab_real or table.shape[0]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        args = (x[:, sl], table, targets[:, sl], mask[:, sl].float(), vreal)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            total = total + _chunk_nll(*args)
+    return total / mask.sum().clamp(min=1)

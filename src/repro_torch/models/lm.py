@@ -22,13 +22,12 @@ kind in the pattern, ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``)
 is the one parameter set every ``a`` layer runs.  The JAX package stacks
 its repeating units on a leading axis for ``scan``;
 ``repro_torch.interop.lm_params_from_numpy`` unstacks them.  The layer
-loop is a Python loop (no scan, no remat).  An MLA layer's cache is
+loop is a Python loop (no scan; remat in training, below).  An MLA layer's cache is
 ``{c_kv, k_rope}``; an ``m`` layer's ``{conv, ssd}`` (both float32), an
 ``r`` layer's ``{s, prev, cm_prev}``, an ``a`` layer's own K/V.  With
 ``cfg.mtp`` the parameters carry the MTP head
 (``mtp_block``, ``mtp_norm``, ``mtp_proj``); as in the JAX package only
-``loss_fn`` applies it, so serving carries it unused, and applying it
-waits for item 7 with ``loss_fn``.
+``loss_fn`` applies it, so serving carries it unused.
 
 An encoder-decoder model (``cfg.encoder_layers``) has ``encoder``, a list
 of ``g`` blocks, and ``enc_norm``; each decoder attention layer adds
@@ -40,9 +39,22 @@ decode attends them.  The JAX package's prefill never writes them, so
 its decode stops cross-attending after the first token (ROADMAP Queue 3);
 the port computes what its decode branch defines.  ``patch_embeds`` (the
 ``patch`` frontend's output) go before the scaled token embeddings, cast
-to the model's dtype, and positions run over patches and text.  JAX's
-``n_skip`` (the patch count ``loss_fn`` drops) comes with ``loss_fn``
-and training, ROADMAP Queue 1 item 7.
+to the model's dtype, and positions run over patches and text;
+``loss_fn`` drops the patch positions (JAX's ``n_skip``) before the loss.
+
+Training (``loss_fn``, the port of ``repro/models/lm.py:464-503``) runs on
+one rank for the kinds ``g``, ``l`` and ``a``, GQA, dense MLPs,
+decoder-only with ``patch_embeds`` and the encoder-decoder with
+``src_embeds``, with the MTP head where ``cfg.mtp`` asks for it.  Under
+autograd with ``cfg.remat == "block"`` the forward recomputes each layer
+(and each encoder block) in the backward
+(``torch.utils.checkpoint``, non-reentrant), as JAX's ``jax.checkpoint``
+of its scanned unit does; ``remat_policy="dots"`` keeps the outputs of the
+unbatched matmuls (``torch.mm``: the projections and MLPs), as JAX's
+``dots_with_no_batch_dims_saveable``.  The results are the same either
+way.  MoE layers, MLA and ``attn_probs_bf16`` (item 7b), the kinds ``m``
+and ``r`` (item 7c) and a layout of several ranks (item 7d) are refused
+with ``NotImplementedError``.
 
 Over several ranks (``layout``, a :class:`~repro_torch.models.sharding.Layout`;
 None is one rank): each data rank serves its own batch rows; over the
@@ -60,9 +72,13 @@ sequence).  ``patch_embeds`` and ``src_embeds`` are replicated inputs.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -274,8 +290,9 @@ def cache_init(cfg: ArchConfig, batch: int, cache_len: int, device,
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_out=None,
-                 cache=None, cache_len=None, impl="auto", layout=None):
-    """Pre-norm block. Returns (x, new_cache)."""
+                 cache=None, cache_len=None, impl="auto", layout=None, aux=None):
+    """Pre-norm block. Returns (x, new_cache); a MoE layer appends its
+    load-balance loss to ``aux`` if a list is given."""
     bk = None if layout is None else layout.model_bk
     if kind == "m":
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -323,7 +340,9 @@ def _apply_block(bp, x, cfg, kind: str, *, positions, shared_params=None, enc_ou
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         # expert_load and the wire drops ride the dispatch; serving reads neither
-        y, _aux, _stats = moe_mod.moe_apply(bp["moe"], h, cfg, layout, impl=impl)
+        y, aux_l, _stats = moe_mod.moe_apply(bp["moe"], h, cfg, layout, impl=impl)
+        if aux is not None:
+            aux.append(aux_l)
     else:
         y = L.mlp(bp["mlp"], h, cfg.activation, bk)
     return x + y, new_cache
@@ -338,9 +357,32 @@ def encode(params, cfg: ArchConfig, src_embeds, *, impl: str = "auto", layout=No
     x = src_embeds.to(dtype_of(cfg))
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    remat = _remat(cfg, params["enc_norm"])
     for bp in params["encoder"]:
-        x = _encoder_block(bp, x, cfg, positions=positions, impl=impl, bk=bk)
+        block = functools.partial(_encoder_block, bp, cfg=cfg, positions=positions, impl=impl,
+                                  bk=bk)
+        x = block(x) if remat is None else remat(block, x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _save_unbatched_matmuls(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep ``torch.mm`` outputs, recompute the rest."""
+    keep = op is torch.ops.aten.mm.default
+    return (ckpt.CheckpointPolicy.MUST_SAVE if keep
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, param: torch.Tensor):
+    """The per-layer recompute of ``cfg.remat == "block"`` when autograd
+    records the parameters (``param`` one of them), as a callable
+    ``(fn, *args)``; None when nothing is recomputed (serving)."""
+    if cfg.remat != "block" or not ops.needs_grad(param):
+        return None
+    if cfg.remat_policy == "dots":
+        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                   _save_unbatched_matmuls)
+        return functools.partial(ckpt.checkpoint, use_reentrant=False, context_fn=ctx_fn)
+    return functools.partial(ckpt.checkpoint, use_reentrant=False)
 
 
 def _encoder_block(bp, x, cfg, *, positions, impl="auto", bk=None):
@@ -354,11 +396,14 @@ def _encoder_block(bp, x, cfg, *, positions, impl="auto", bk=None):
 
 
 def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=None,
-            cache=None, decode: bool = False, impl: str = "auto", layout=None):
+            cache=None, decode: bool = False, impl: str = "auto", layout=None, aux=None):
     """Returns (hidden (B,T,D), new_cache | None).  ``patch_embeds`` (B,P,D)
     go before the tokens (T counts them); ``src_embeds`` (B,S,D) are encoded
     once and cross-attended by an encoder-decoder's decoder.  ``layout``:
-    the ranks (None: one); ``params`` and ``cache`` are this rank's."""
+    the ranks (None: one); ``params`` and ``cache`` are this rank's.
+    ``aux``, a list, gets each MoE layer's load-balance loss.  Without a
+    cache and under autograd, ``cfg.remat == "block"`` recomputes each
+    layer in the backward."""
     check_supported(cfg)
     sharding.check_layout(cfg, layout)
     b, t = tokens.shape
@@ -385,18 +430,101 @@ def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None, src_embeds=No
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
     cache_len = cache["pos"] if cache is not None else None
 
+    remat = _remat(cfg, params["final_norm"]) if cache is None else None
     new_layers = []
     for i, bp in enumerate(params["layers"]):
         bc = cache["layers"][i] if cache is not None else None
-        x, nc = _apply_block(bp, x, cfg, kind_at(cfg, i), positions=positions,
-                             shared_params=params.get("shared_attn"), enc_out=enc_out,
-                             cache=bc, cache_len=cache_len, impl=impl, layout=layout)
+        block = functools.partial(_apply_block, bp, cfg=cfg, kind=kind_at(cfg, i),
+                                  positions=positions, shared_params=params.get("shared_attn"),
+                                  enc_out=enc_out, cache=bc, cache_len=cache_len, impl=impl,
+                                  layout=layout)
+        if remat is None:
+            x, nc = block(x, aux=aux)
+        else:
+            x, layer_aux = remat(_with_aux, block, x)
+            if aux is not None:
+                aux.append(layer_aux)
+            nc = None
         new_layers.append(nc)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cache is None:
         return x, None
     return x, {"pos": cache["pos"] + (1 if decode else t), "layers": new_layers}
+
+
+def _with_aux(block, x):
+    """``block(x)``'s hidden state and its MoE losses summed (0 for a dense
+    layer), as the two outputs of one recomputed function."""
+    aux = []
+    x, _ = block(x, aux=aux)
+    return x, sum(aux, torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def check_trainable(cfg: ArchConfig, layout=None) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item that brings
+    what ``cfg`` needs and the port cannot train yet."""
+    missing = []
+    if cfg.moe is not None:
+        missing.append("MoE layers: gradients through the exchange (item 7b)")
+    if cfg.mla is not None:
+        missing.append("MLA (item 7b)")
+    if cfg.attn_probs_bf16:
+        missing.append("attn_probs_bf16: a probs_bf16 flash backward (item 7b)")
+    kinds = sorted(set(cfg.layer_pattern) & set("mr"))
+    if kinds:
+        missing.append(f"the layer kinds {kinds}: backward kernels for mamba_scan and "
+                       "rwkv_scan (item 7c)")
+    if layout is not None and (layout.data > 1 or layout.model > 1):
+        missing.append("a layout of several ranks: multi-rank training (item 7d)")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: training does not take "
+                                  + "; ".join(missing) + " (ROADMAP Queue 1)")
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, *, impl: str = "auto"):
+    """Next-token loss (the port of ``repro/models/lm.py:464-503``):
+    ``batch`` holds ``tokens`` (B, T+1) and optionally ``patch_embeds``,
+    ``src_embeds`` and a float32 ``loss_mask`` (B, T).  Returns
+    (loss, {"nll", "aux"}): the masked mean NLL of ``tokens[:, 1:]`` given
+    ``tokens[:, :-1]`` (the patch positions dropped first), plus the MoE
+    loss sum, plus 0.3 of the MTP head's NLL of the token after next
+    where ``cfg.mtp``."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    patches = batch.get("patch_embeds")
+    aux_l = []
+    h, _ = forward(params, cfg, inputs, patch_embeds=patches,
+                   src_embeds=batch.get("src_embeds"), impl=impl, aux=aux_l)
+    if patches is not None:
+        h = h[:, patches.shape[1]:]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    table = head_table(params, cfg)
+    nll = L.chunked_softmax_xent(h, table, targets, mask, chunk=cfg.xent_chunk,
+                                 vocab_real=cfg.vocab)
+    aux = sum(aux_l, torch.zeros((), dtype=torch.float32, device=h.device))
+    loss = nll + aux
+
+    if cfg.mtp and h.shape[1] > 2:
+        # multi-token prediction: predict t+2 from [h_t ; emb(x_{t+1})]
+        emb_next = L.embed_lookup_dense(params["embed"], targets)
+        h2 = torch.cat([h, emb_next.to(h.dtype)], dim=-1) @ params["mtp_proj"]
+        positions = torch.arange(h2.shape[1], dtype=torch.int32,
+                                 device=h2.device)[None].expand(h2.shape[:2])
+        h2, _ = _apply_block(params["mtp_block"], h2, cfg, "g", positions=positions,
+                             impl=impl)
+        h2 = L.rms_norm(h2, params["mtp_norm"], cfg.norm_eps)
+        t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
+        m2 = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, -1:])], dim=1)
+        loss = loss + 0.3 * L.chunked_softmax_xent(h2, table, t2, m2, vocab_real=cfg.vocab)
+    return loss, {"nll": nll.detach(), "aux": aux.detach()}
 
 
 # ---------------------------------------------------------------------------

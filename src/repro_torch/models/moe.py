@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.exchange import ExchangePlan
 from repro_torch.core.transport import make_transport
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharding
 
@@ -365,6 +366,10 @@ def moe_apply(params, x, cfg, layout=None, *, impl: str = "auto"):
         raise ValueError(f"moe_apply: rank {bk.rank()} of {nm} holds "
                          f"{experts['w_gate'].shape[0]} experts, want {e_loc} "
                          f"(sharding.shard_params slices them)")
+    if ops.resolve(impl, x) == "cuda":
+        ops.refuse_grad("the MoE dispatch's wire kernels", "7b", x,
+                        *(p for p in params.values() if isinstance(p, torch.Tensor)),
+                        *experts.values())
     top_w, top_idx, gate_logits, _ = router_topk(params, x, cfg)
 
     # load-balance aux loss (GShard), over every data rank's tokens

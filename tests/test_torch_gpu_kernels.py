@@ -22,7 +22,11 @@ states are bit-identical, and their outputs sum in another order, within
 in 3xTF32 on the tensor cores) rounds otherwise, so its output and its
 final state are both held at ``SCAN_REL_L2``.  Each mamba call must launch
 the kernel of the route its shape picks (``mamba_scan``, the chunked one,
-or ``mamba_scan_seq``) once, and no other.
+or ``mamba_scan_seq``) once, and no other.  The attention backward
+(``flash_attention_bwd``) is held against autograd through the plain
+version by relative L2 (``BWD_REL``), one launch a call, repeatable bit for
+bit, and its planted faults must break it; the kernel routes without a
+backward must refuse a gradient.
 """
 
 import numpy as np
@@ -756,3 +760,79 @@ def test_scan_kernels_refuse(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ops.rwkv_scan(r, r.transpose(1, 2).contiguous().transpose(1, 2), r, r, u, s0,
                       impl="cuda")
+
+
+# --------------------------------------------------------------------------
+# the attention backward (csrc/flash_attention_bwd.cu)
+# --------------------------------------------------------------------------
+
+#: relative L2 gates of the backward kernel against autograd through the plain
+#: version: float32 holds the float32 route's 1e-5; in bf16 both sides round
+#: the same float32 gradients to bf16
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", [
+    (2, 4, 4, 130, 130, 64, True, 0), (1, 8, 2, 200, 200, 128, True, 0),
+    (1, 4, 2, 150, 150, 320, True, 40), (1, 2, 1, 37, 130, 16, True, 0),
+    (2, 4, 4, 90, 33, 64, False, 0), (1, 4, 4, 20, 75, 100, False, 0)])
+def test_flash_attention_bwd_kernel(dev, dtype, b, hq, hkv, tq, tk, d, causal, window):
+    g = torch.Generator(device=dev).manual_seed(tq * 7 + d)
+    q = torch.randn((b, tq, hq, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, hkv, tk, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn((b, hq, tq, d), generator=g, device=dev).to(dtype)
+    counter = fa._BWD_F32 if dtype == torch.float32 else fa._BWD
+    before = counter.launches
+    q_, k_, v_ = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(q_, k_, v_, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q_, k_, v_), do)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for x, y, t in zip(got, want, (q, k, v)):
+        assert x.dtype == dtype and x.shape == t.shape
+        assert _rel(x, y) <= BWD_REL[dtype]
+    again = fa.flash_attention_bwd(q, k, v, do, causal, window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))     # no atomics: repeatable
+
+
+def test_flash_attention_bwd_faults_break_it(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((1, 8, 130, 64), generator=g, device=dev)
+    k, v = (torch.randn((1, 2, 130, 64), generator=g, device=dev) for _ in range(2))
+    do = torch.randn_like(q)
+    want = fa.flash_attention_bwd_plain(q, k, v, do)
+    try:
+        for fault in (1, 2, 4, 8):
+            fa.bwd_fault = fault
+            got = fa.flash_attention_bwd(q, k, v, do)
+            assert max(_rel(x, y) for x, y in zip(got, want)) > 100 * BWD_REL[torch.float32]
+    finally:
+        fa.bwd_fault = 0
+
+
+def test_kernel_routes_without_a_backward_refuse_a_gradient(dev):
+    """mamba_scan, rwkv_scan, the MoE wire route and a probs_bf16 flash call
+    raise on CUDA tensors that need a gradient, naming the ROADMAP item."""
+    x = torch.zeros((1, 4, 2, 64), device=dev, requires_grad=True)
+    dt = torch.zeros((1, 4, 2), device=dev)
+    bc = torch.zeros((1, 4, 16), device=dev)
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        ops.mamba_scan(x, dt, bc, bc, torch.zeros(2, device=dev),
+                       torch.zeros((1, 2, 16, 64), device=dev))
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        ops.rwkv_scan(x, x, x, x, torch.zeros((2, 64), device=dev),
+                      torch.zeros((1, 2, 64, 64), device=dev))
+    q = torch.zeros((1, 2, 8, 16), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        ops.flash_attention(q, q, q, probs_bf16=True)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe
+    cfg = reduced(get_config("arctic-480b"))
+    params = moe.moe_init(torch.Generator(device=dev).manual_seed(0), cfg, torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        moe.moe_apply(params, torch.zeros((1, 4, cfg.d_model), device=dev, requires_grad=True),
+                      cfg)
+    with torch.no_grad():                      # no gradient wanted: the kernels run
+        ops.flash_attention(q, q, q, probs_bf16=True)
