@@ -28,11 +28,12 @@ a call launched.
 
 The backward, ``flash_attention_bwd``, launches ``csrc/flash_attention_bwd.cu``
 (counted by ``flash_attention_bwd`` for bf16 and ``flash_attention_bwd_f32``
-for float32): the gradient of the same function, dq, dk and dv in the
-operand dtype with float32 sums, from the operands and the incoming
-gradient; each row's log-sum-exp and ``delta = rowsum(dO o O)`` are
-recomputed in float32 (the forward writes neither, and its stored output
-is rounded to the operand dtype).  Its plain version is autograd through
+for float32; its products on the tensor cores, bf16 P and dS as three bf16
+pieces, float32 as 3xTF32): the gradient of the same function, dq, dk and
+dv in the operand dtype with float32 sums, from the operands and the
+incoming gradient; each row's softmax max and normaliser and ``delta =
+rowsum(dO o O)`` are recomputed in float32 (the forward writes none of
+them, and its stored output is rounded to the operand dtype).  Its plain version is autograd through
 ``flash_attention_plain`` (``flash_attention_bwd_plain``).
 :class:`FlashAttentionFn` puts the two kernels behind
 ``torch.autograd.Function``; ``ops.flash_attention`` routes a CUDA call
@@ -57,7 +58,7 @@ _FLASH_F32 = register("flash_attention_f32", Kernel(
     "flash_attention", "flash_attention_f32_launch",
     [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 10 + [ctypes.POINTER(_INT)]))
 
-_BWD_ARGS = [_INT] + [_P] * 10 + [_INT] * 8 + [ctypes.c_float, _INT]
+_BWD_ARGS = [_INT] + [_P] * 9 + [_INT] * 9 + [ctypes.c_float, _INT]
 _BWD = register("flash_attention_bwd", Kernel(
     "flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGS))
 _BWD_F32 = register("flash_attention_bwd_f32", Kernel(
@@ -212,7 +213,8 @@ def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0)
 #: planted into the backward kernel by the checks that must catch it (0 in
 #: every real call): 1 the causal mask dropped from the dK/dV launch, 2 delta
 #: left zero, 4 a GQA group's dK and dV from its first query head only, 8 the
-#: scale dropped from dS
+#: scale dropped from dS, 16 (bf16 at head dim 64, the wgmma instance) P and dS
+#: as two bf16 pieces
 bwd_fault = 0
 
 
@@ -223,6 +225,12 @@ def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
 
     Any strides with a contiguous head dim (``do`` is made so if it is
     not); the gradients have their operand's strides (``empty_like``).
+    The kernel copies rows of q, k, v and ``do`` into shared memory in
+    16-byte pieces, so, as in the forward, an operand without a 16-byte
+    aligned base and strides, or with a head dim that is not a multiple of
+    8 (bf16) or 4 (float32), is first copied once with the head dim
+    zero-padded to that multiple.  Each row's softmax max and normaliser
+    and delta go to float32 scratch of (3, B, Hq, Tq rounded up to 128).
     """
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window)
@@ -235,14 +243,15 @@ def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    f32 = q.dtype == torch.float32
+    dt = -(-d // (4 if f32 else 8)) * (4 if f32 else 8)
+    q, k, v, do = (_aligned_operand(t, dt) for t in (q, k, v, do))
+    stats = torch.empty((3, b, hq, -(-tq // 128) * 128), dtype=torch.float32, device=q.device)
     strides = torch.tensor([s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]],
                            dtype=torch.int64)
-    f32 = q.dtype == torch.float32
-    (_BWD_F32 if f32 else _BWD)(int(f32), q, k, v, do, dq, dk, dv, lse, delta, strides,
-                                b, hq, hkv, tq, tk, d, int(causal), max(int(window), 0),
-                                1.0 / d ** 0.5, bwd_fault)
+    (_BWD_F32 if f32 else _BWD)(int(f32), q, k, v, do, dq, dk, dv, stats, strides,
+                                b, hq, hkv, tq, tk, d, dt, int(causal),
+                                max(int(window), 0), 1.0 / d ** 0.5, bwd_fault)
     return dq, dk, dv
 
 
