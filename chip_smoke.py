@@ -242,10 +242,11 @@ Phases, each fatal on failure:
      internvl's decode after the patches, with the frontend cells' faults;
   10b. training (also alone: --train): the attention backward
      (flash_attention_bwd, bf16, and flash_attention_bwd_f32) against
-     autograd through the plain version at five training shapes
+     autograd through the plain version at six training shapes
      (stablelm-1.6b's (8, 32, 2048, 64) causal call, qwen3-4b's 32 query
      heads over 8, gemma3-4b's windowed D=320, seamless's non-causal cross
-     call over 512 keys, a float32 call) by relative L2 and the largest
+     call over 512 keys, deepseek-v3's MLA call (2, 128, 2048, 192), a
+     float32 call) by relative L2 and the largest
      row gap (BWD_REL_L2, BWD_ROW_GAP), one launch each, repeatable bit for
      bit, timed beside the plain version and scaled_dot_product_attention's
      backward, the bound from the five products, the GQA fault planted on
@@ -266,16 +267,41 @@ Phases, each fatal on failure:
      (TRAIN_GRAD_REL_L2, TRAIN_LOSS_REL), (c) the launches exactly (each
      layer's flash forward twice a step with remat, its backward once);
      step ms, tokens/s, peak memory, one step's device ms by role and the
-     model FLOPs' share of the bf16 peak; then the float32 train phase:
+     model FLOPs' share of the bf16 peak; then the probs_bf16 backward
+     phase: the kernel with probs_bf16 at stablelm-1.6b's call and at the
+     MLA call against autograd through the plain version with the flag
+     (PB_REL_L2), one launch each, the flag ignored (fault 32) breaking it,
+     timed with and without the flag, beside the plain version and SDPA's
+     backward of the unrounded function; then the MoE training cell:
+     deepseek-v3-671b at full width cut to 4 of 61 layers (3 dense, 1 MoE)
+     and 64 of 256 experts (MLA, sigmoid routing with moe_bias, the shared
+     expert, the MTP head; bf16 parameters, bf16 first moments and a
+     factored second moment) trains 4 steps of 2 x 2048 tokens with the
+     kernels, then with the plain versions: (a) the MoE layer's step-0
+     input, parameters and output gradient through moe_apply forward and
+     backward with the kernels and the plain versions, y, expert_load and
+     every gradient bit for bit, at the config's capacity and at one whose
+     bins drop copies, with three planted faults that must break it (each
+     cotangent sent to its neighbour's row, the bin-capacity mask left out
+     of the backward, the float lanes carried as int words), and the first
+     MLA attention call as the training cell's (a); (b) the step-0
+     gradients, grad_norm and losses against the plain run, the MoE
+     layer's routing flips printed with their margins; (c) the launches
+     exactly (flash forward twice per layer with remat and once for the
+     MTP block, its backward once each; per MoE layer the wire's forward
+     twice and its transposes once); then the float32 train phase:
      repro_torch.launch.train.main for stablelm-1.6b, qwen3-4b and
      gemma3-4b --reduced, against the same CLI with the plain versions
      (losses at F32_TRAIN_REL, the first step's backward calls at
      F32_TRAIN_REL, a control with dO rounded to bf16 that must break
      that), launches exactly, and --kill-at 7 / restart from step 5 with
-     the losses bit for bit; and the kernel routes without a backward
-     (the scans, the MoE wire, probs_bf16 flash) refusing a gradient;
-  11. multi-rank cells: qwen3-4b at full width and depth (8 of its cell's
-     2048-token prompts, 32 tokens) and deepseek-v3-671b at full width, 4
+     the losses bit for bit; the MoE restart phase: the same CLI for
+     deepseek-v3-671b --reduced with its own bf16 moments and factored
+     second moment, the loss improving, launches exactly, and the restart
+     bit for bit; and the kernel routes without a backward
+     (the scans) refusing a gradient;
+  11. multi-rank cells: qwen3-4b at full width, 12 of 36 layers (8 of its
+     cell's 2048-token prompts, 32 tokens) and deepseek-v3-671b at full width, 4
      of 61 layers, mla_absorb and mla_cp_decode, one MoE row per (token,
      owner rank) (8 of its cell's 1024-token prompts, 16 tokens), each served first on one rank in this process (the
      reference: tokens, every step's logits, the first layer's output at
@@ -348,7 +374,7 @@ from repro_torch.containers import hashmap as hm  # noqa: E402
 from repro_torch.containers import hashmap_buffer as hb  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
 from repro_torch.core.backend import SerialBackend  # noqa: E402
-from repro_torch.core.exchange import CommittedPlan, ExchangePlan  # noqa: E402
+from repro_torch.core.exchange import CommittedPlan, ExchangePlan, FlowTranspose  # noqa: E402
 from repro_torch.core.faults import FaultInjectingTransport, FaultSpec  # noqa: E402
 from repro_torch.core.transport import DENSE  # noqa: E402
 from repro_torch.core.hashing import fmix32  # noqa: E402
@@ -372,6 +398,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from kernel_ab import host_us  # noqa: E402
 
@@ -3906,6 +3933,7 @@ BWD_FULL = {
     "qwen3_train": (8, 32, 8, 2048, 2048, 128, True, 0, BF16),
     "gemma_train": (8, 8, 4, 2048, 2048, 320, True, 1024, BF16),
     "seamless_cross_train": (8, 16, 16, 2048, 512, 64, False, 0, BF16),
+    "mla_train": (2, 128, 128, 2048, 2048, 192, True, 0, BF16),
     "f32_train": (2, 16, 4, 777, 777, 128, True, 0, F32),
 }
 BWD_REHEARSAL = {
@@ -3913,6 +3941,7 @@ BWD_REHEARSAL = {
     "qwen3_train": (2, 4, 2, 70, 70, 128, True, 0, BF16),
     "gemma_train": (1, 4, 2, 70, 70, 320, True, 24, BF16),
     "seamless_cross_train": (2, 4, 4, 40, 10, 16, False, 0, BF16),
+    "mla_train": (1, 4, 4, 70, 70, 24, True, 0, BF16),
     "f32_train": (1, 4, 2, 37, 37, 16, True, 0, F32),
 }
 #: the backward case each kernel's JSON row reports
@@ -3933,7 +3962,8 @@ BWD_FAULT_MARGIN = 10
 BWD_FAULTS = {1: "the causal mask dropped from the dK/dV launch", 2: "delta left zero",
               4: "a GQA group's dK and dV from its first query head only",
               8: "the scale dropped from dS",
-              16: "P and dS as two bf16 pieces (the third left zero)"}
+              16: "P and dS as two bf16 pieces (the third left zero)",
+              32: "the probs_bf16 flag ignored"}
 #: the training cell: stablelm-1.6b at full width and depth, bf16 parameters,
 #: float32 AdamW moments, remat="block", 4 steps of 8 x 2048 tokens
 TRAIN_FULL = dict(arch="stablelm-1.6b", reduced=False, steps=4, batch=8, seq=2048)
@@ -4042,10 +4072,10 @@ def bwd_exact(q, k, v, do, causal: bool, window: int):
     return tuple(torch.cat(x) for x in out)
 
 
-def bwd_with_fault(fault: int, q, k, v, do, causal: bool, window: int):
+def bwd_with_fault(fault: int, q, k, v, do, causal: bool, window: int, probs_bf16=False):
     fa.bwd_fault = fault
     try:
-        return fa.flash_attention_bwd(q, k, v, do, causal, window)
+        return fa.flash_attention_bwd(q, k, v, do, causal, window, probs_bf16)
     finally:
         fa.bwd_fault = 0
 
@@ -4166,13 +4196,15 @@ def _tap_first_flash(seen: dict):
     return wrap
 
 
-def _tap_first_grads(seen: dict):
-    """Wrap the train step's adamw_update: the first call's gradients and grad_norm."""
+def _tap_first_grads(seen: dict, host: bool = False):
+    """Wrap the train step's adamw_update: the first call's gradients (copies,
+    on the host if ``host``) and grad_norm."""
     def wrap(real):
         def tapped(ocfg, params, grads, state, *args, **kwargs):
             out = real(ocfg, params, grads, state, *args, **kwargs)
             if "grads" not in seen:
-                seen["grads"] = [gr.detach().clone() for gr in tree_leaves(grads)]
+                seen["grads"] = [gr.detach().to("cpu") if host else gr.detach().clone()
+                                 for gr in tree_leaves(grads)]
                 seen["grad_norm"] = float(out[2]["grad_norm"])
             return out
         return tapped
@@ -4193,34 +4225,49 @@ TRAIN_GEMM_ROLES = {"xent": "GEMMs", "AdamW": "GEMMs", "the rest": "GEMMs"}
 
 def model_flops(cfg, params, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 a token for each weight a matmul
-    reads (the head included, the embedding lookup not), and the attention
-    products, 2 in the forward and 4 in the backward, over the pairs the
-    causal mask keeps; no recompute counted."""
+    reads (the head included, twice with the MTP head; the embedding lookup
+    not; of a MoE layer's experts the top-k a token runs), and the attention
+    products (QK^T at the qk head dim, PV at V's), 2 in the forward and 4 in
+    the backward, over the pairs the causal mask keeps, the MTP block's
+    included; no recompute counted."""
     leaves = tree_leaves(params)
     mm = sum(p.numel() for p in leaves if p.dim() >= 2)
     if not cfg.tie_embeddings:
         mm -= params["embed"].numel()
+    if cfg.moe:
+        ex = sum(p.numel() for bp in params["layers"] if "moe" in bp
+                 for p in bp["moe"]["experts"].values())
+        mm -= ex * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    if cfg.mtp:
+        mm += lm.head_table(params, cfg).numel()
     n_attn = sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
     window = cfg.sliding_window
     pairs = sum(attention_pairs(seq, seq, True, window if lm.kind_at(cfg, i) == "l" else 0)
                 for i in range(cfg.n_layers) if lm.kind_at(cfg, i) in "gla") / max(n_attn, 1)
-    attn = 6 * 2 * batch * cfg.n_heads * pairs * cfg.head_dim * n_attn
+    d_qk, d_v = cfg.head_dim, cfg.head_dim
+    if cfg.mla:
+        d_qk, d_v = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
+    attn = 6 * batch * cfg.n_heads * pairs * (d_qk + d_v) * (n_attn + bool(cfg.mtp))
     return 6.0 * mm * batch * seq + attn
 
 
-def train_run(impl: str, tz: dict, cfg, batches: list, dev, seed: int, profile: bool) -> dict:
+def train_run(impl: str, tz: dict, cfg, batches: list, dev, seed: int, profile: bool,
+              taps=(), host_grads: bool = False, split=None) -> dict:
     """The seeded model trained on ``batches`` through make_train_step(cfg,
     impl): each step's loss, grad_norm and host ms (synchronised), the
-    step-0 gradients, the launches, the peak memory; the kernel run also
-    taps the first flash call and, after the counted steps, profiles one
-    more step by role."""
+    step-0 gradients (on the host if ``host_grads``), the launches, the peak
+    memory; the kernel run also taps the first flash call and, after the
+    counted steps, profiles one more step by role (``split``: roles, device
+    names and GEMM roles for role_split; the dense cell's by default).
+    ``taps``: (owner, name, wrapper of ``seen``) planted as well."""
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     params, opt = train_steps.init_state(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     step_fn = train_steps.make_train_step(cfg, impl)
     seen, r = {}, dict(losses=[], grad_norms=[], step_ms=[], impl=impl)
-    plants = [(train_steps, "adamw_update", _tap_first_grads(seen))]
+    plants = [(train_steps, "adamw_update", _tap_first_grads(seen, host_grads))]
+    plants += [(owner, name, wrap(seen)) for owner, name, wrap in taps]
     if impl == "auto":
         plants.append((ops, "flash_attention", _tap_first_flash(seen)))
     build.reset_launches()
@@ -4241,13 +4288,55 @@ def train_run(impl: str, tz: dict, cfg, batches: list, dev, seed: int, profile: 
     r["flops"] = model_flops(cfg, params, tz["batch"], tz["seq"])
     if profile and dev.type == "cuda":
         trace = {}
-        r["split"] = role_split(lambda: step_fn(params, opt, batches[0]), train_roles(),
-                                names=TRAIN_DEVICE_NAMES, trace=trace,
-                                gemm_roles=TRAIN_GEMM_ROLES)
+        roles, names, gemm_roles = split or (train_roles(), TRAIN_DEVICE_NAMES,
+                                             TRAIN_GEMM_ROLES)
+        r["split"] = role_split(lambda: step_fn(params, opt, batches[0]), roles, names=names,
+                                trace=trace, gemm_roles=gemm_roles)
         r["split_wall_ms"] = trace["wall_ms"]
         r["split_by_name"] = short_names({k: dict(ms=x) for k, x in trace["by_name"].items()})
     del params, opt
     return r
+
+
+def attention_check_a(what: str, k: dict, rehearsal: bool, controls=()) -> None:
+    """Check (a) of a training cell: the first layer's step-0 attention
+    gradients on the tapped q, k, v, dO, kernel vs plain by relative L2, and
+    kernel vs the float64 gradients past bf16's rounding (TRAIN_EXACT_GAP),
+    the raw row gaps printed; on the card faults 1, 2 and 8 must break the
+    first, and each control (the backward faults in ``controls``, and one
+    element of dq a step off) the second."""
+    q, kk, v = k["qkv"]
+    causal, window = k["flags"]
+    call = (q, kk, v, k["do"], causal, window)
+    got_g = fa.flash_attention_bwd(*call)
+    plain_g = fa.flash_attention_bwd_plain(q, kk, v, k["do"], causal=causal, window=window)
+    exact = bwd_exact(*call)
+    rounded = tuple(w.to(q.dtype) for w in exact)
+    gaps = grad_gaps(got_g, plain_g)
+    past = past_gaps(got_g, exact)
+    print(f"{what}: the first layer's step-0 attention gradients on the tapped "
+          f"q, k, v, dO {tuple(q.shape)}: kernel vs plain " + json.dumps(gaps)
+          + "; past rounding (kernel vs float64) " + json.dumps(past) + ", the plain "
+          "version's " + json.dumps(past_gaps(plain_g, exact)) + "; raw row gaps to the "
+          "float64 gradients rounded: kernel " + json.dumps(
+              {n: x["row_gap"] for n, x in grad_gaps(got_g, rounded).items()}) + ", plain "
+          + json.dumps({n: x["row_gap"] for n, x in grad_gaps(plain_g, rounded).items()}),
+          flush=True)
+    del rounded
+    check(all(x["rel_l2"] <= BWD_REL_L2[q.dtype] for x in gaps.values())
+          and max(past.values()) <= TRAIN_EXACT_GAP,
+          f"{what}: kernel vs plain within {BWD_REL_L2[q.dtype]} relative L2, and "
+          f"past rounding within {TRAIN_EXACT_GAP} of the float64 gradients")
+    if not rehearsal:
+        faults_break(what, call, plain_g, (1, 2, 8), q.dtype)
+        reached = {BWD_FAULTS[f]: past_gaps(bwd_with_fault(f, *call), exact) for f in controls}
+        reached["one element of dq one step off"] = past_gaps(
+            (one_step_off(got_g[0], exact[0]),) + tuple(got_g[1:]), exact)
+        print(f"{what}: controls, past rounding " + json.dumps(reached), flush=True)
+        for ctl, r in reached.items():
+            check(max(r.values()) > TRAIN_EXACT_GAP,
+                  f"{what}: the control '{ctl}' breaks the past-rounding check ({r})")
+    del call, got_g, plain_g, exact
 
 
 def train_cell(tz: dict, dev, seed: int, smi: str, rehearsal: bool) -> dict:
@@ -4284,42 +4373,7 @@ def train_cell(tz: dict, dev, seed: int, smi: str, rehearsal: bool) -> dict:
                            "forward twice a step with remat, its backward once)")
     check(not any(p["launches"].values()), f"training cell: the plain run launched no kernel "
                                            f"{p['launches']}")
-    # (a) the first layer's step-0 attention gradients on the tapped inputs:
-    # kernel vs plain by relative L2, and kernel vs the float64 gradients
-    # past bf16's rounding (TRAIN_EXACT_GAP); the raw row gaps are printed
-    q, kk, v = k["qkv"]
-    causal, window = k["flags"]
-    call = (q, kk, v, k["do"], causal, window)
-    got_g = fa.flash_attention_bwd(*call)
-    plain_g = fa.flash_attention_bwd_plain(q, kk, v, k["do"], causal=causal, window=window)
-    exact = bwd_exact(*call)
-    rounded = tuple(w.to(q.dtype) for w in exact)
-    gaps = grad_gaps(got_g, plain_g)
-    past = past_gaps(got_g, exact)
-    print(f"training cell (a): the first layer's step-0 attention gradients on the tapped "
-          f"q, k, v, dO {tuple(q.shape)}: kernel vs plain " + json.dumps(gaps)
-          + "; past rounding (kernel vs float64) " + json.dumps(past) + ", the plain "
-          "version's " + json.dumps(past_gaps(plain_g, exact)) + "; raw row gaps to the "
-          "float64 gradients rounded: kernel " + json.dumps(
-              {n: x["row_gap"] for n, x in grad_gaps(got_g, rounded).items()}) + ", plain "
-          + json.dumps({n: x["row_gap"] for n, x in grad_gaps(plain_g, rounded).items()}),
-          flush=True)
-    del rounded
-    check(all(x["rel_l2"] <= BWD_REL_L2[q.dtype] for x in gaps.values())
-          and max(past.values()) <= TRAIN_EXACT_GAP,
-          f"training cell (a): kernel vs plain within {BWD_REL_L2[q.dtype]} relative L2, and "
-          f"past rounding within {TRAIN_EXACT_GAP} of the float64 gradients")
-    if not rehearsal:
-        faults_break("training cell (a)", call, plain_g, (1, 2, 8), q.dtype)
-        controls = {BWD_FAULTS[16]: past_gaps(bwd_with_fault(16, *call), exact),
-                    "one element of dq one step off": past_gaps(
-                        (one_step_off(got_g[0], exact[0]),) + tuple(got_g[1:]), exact)}
-        print("training cell (a): controls, past rounding " + json.dumps(controls), flush=True)
-        for what, reached in controls.items():
-            check(max(reached.values()) > TRAIN_EXACT_GAP,
-                  f"training cell (a): the control '{what}' breaks the past-rounding check "
-                  f"({reached})")
-    del call, got_g, plain_g, exact
+    attention_check_a("training cell (a)", k, rehearsal, controls=(16,))
     # (b) step-0 gradients and grad_norm, and the loss series
     leaf_gaps = [rel_l2(a, b) for a, b in zip(k["grads"], p["grads"])]
     gn = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
@@ -4378,10 +4432,10 @@ def _train_main(arch: str, dev, impl: str, extra=(), plant=None) -> dict:
     def tap(real):
         wrapped = plant(real) if plant else real
 
-        def tapped(q, k, v, do, causal=True, window=0):
-            got = wrapped(q, k, v, do, causal, window)
+        def tapped(q, k, v, do, causal=True, window=0, probs_bf16=False):
+            got = wrapped(q, k, v, do, causal, window, probs_bf16)
             if not seen["losses"]:
-                seen["bwd"].append(((q, k, v, do, causal, window),
+                seen["bwd"].append(((q, k, v, do, causal, window, probs_bf16),
                                     tuple(x.detach().clone() for x in got)))
             return got
         return tapped
@@ -4397,8 +4451,8 @@ def _train_main(arch: str, dev, impl: str, extra=(), plant=None) -> dict:
 
 
 def _round_do_bf16(real):
-    def control(q, k, v, do, causal=True, window=0):
-        return real(q, k, v, do.to(torch.bfloat16).float(), causal, window)
+    def control(q, k, v, do, causal=True, window=0, probs_bf16=False):
+        return real(q, k, v, do.to(torch.bfloat16).float(), causal, window, probs_bf16)
     return control
 
 
@@ -4429,8 +4483,9 @@ def f32_train_phase(arch: str, dev, rehearsal: bool, tmp: Path) -> dict:
           f"within {F32_TRAIN_REL} of the plain run's ({loss_gap})")
     call_gap, control_gap = 0.0, 0.0
     for call, got_g in k["bwd"]:
-        q, kk, v, do, causal, window = call
-        want_g = fa.flash_attention_bwd_plain(q, kk, v, do, causal=causal, window=window)
+        q, kk, v, do, causal, window, pb = call
+        want_g = fa.flash_attention_bwd_plain(q, kk, v, do, causal=causal, window=window,
+                                              probs_bf16=pb)
         call_gap = max(call_gap, worst(grad_gaps(got_g, want_g)))
         control_gap = max(control_gap, worst(grad_gaps(
             _round_do_bf16(fa.flash_attention_bwd)(*call), want_g)))
@@ -4457,22 +4512,71 @@ def f32_train_phase(arch: str, dev, rehearsal: bool, tmp: Path) -> dict:
     return row
 
 
+#: the MoE restart phase's model: train.main's --reduced config of this arch
+#: with the full config's own optimizer state (bf16 moments, a factored
+#: second moment), which ``reduced`` would set to float32 moments
+MOE_RESTART_ARCH = "deepseek-v3-671b"
+
+
+def _own_moments(real):
+    """train.py's ``reduced``, keeping the full config's optimizer dtype."""
+    def keep(cfg, **overrides):
+        return dataclasses.replace(real(cfg, **overrides), optimizer_dtype=cfg.optimizer_dtype)
+    return keep
+
+
+def moe_restart_phase(dev, rehearsal: bool, tmp: Path) -> dict:
+    """train.main for reduced MOE_RESTART_ARCH (MLA, the MoE layer, the MTP
+    head; float32 parameters, bf16 moments and a factored second moment)
+    through the kernels as F32_TRAIN_ARGS run it: the loss improves, the
+    launches counted exactly (moe_train_launches, float32 flash), and
+    --kill-at / restart gives the uninterrupted run's losses bit for bit."""
+    t0 = time.perf_counter()
+    arch = MOE_RESTART_ARCH
+    extra = ("--ckpt-dir", str(tmp / "ck_moe"), "--ckpt-every", str(CKPT_EVERY))
+    with planted((train_cli, "reduced", _own_moments)):
+        cfg = train_cli.reduced(get_config(arch))
+        whole = _train_main(arch, dev, "auto")
+        killed = _train_main(arch, dev, "auto", extra + ("--kill-at", str(KILL_AT)))
+        resumed = _train_main(arch, dev, "auto", extra)
+    check(cfg.optimizer_dtype == "bfloat16" and cfg.factored_second_moment,
+          f"MoE restart {arch}: bf16 moments and a factored second moment")
+    check(whole["rc"] == 0 and "(improved)" in whole["out"],
+          f"MoE restart {arch}: the run ends and the loss improves")
+    steps = int(F32_TRAIN_ARGS[F32_TRAIN_ARGS.index("--steps") + 1])
+    want = moe_train_launches(cfg, steps)
+    want = {("flash_attention_f32" if n == "flash_attention" else
+             "flash_attention_bwd_f32" if n == "flash_attention_bwd" else n): c
+            for n, c in want.items()}
+    got = {n: c for n, c in whole["launches"].items() if c}
+    if not rehearsal:
+        check(got == want, f"MoE restart {arch}: launches {got}, want {want}")
+    check(killed["rc"] == 17 and f"injected failure at step {KILL_AT}" in killed["out"],
+          f"MoE restart {arch}: --kill-at {KILL_AT} exits 17")
+    check(resumed["rc"] == 0 and f"restored checkpoint at step {CKPT_EVERY}" in resumed["out"]
+          and resumed["losses"] == whole["losses"][CKPT_EVERY:],
+          f"MoE restart {arch}: the restart restores step {CKPT_EVERY} and its losses equal the "
+          f"uninterrupted run's bit for bit ({resumed['losses']} vs "
+          f"{whole['losses'][CKPT_EVERY:]})")
+    row = dict(losses=whole["losses"], optimizer_dtype=cfg.optimizer_dtype,
+               factored_second_moment=cfg.factored_second_moment, launches=got,
+               restart_bit_identical=True, seconds=time.perf_counter() - t0)
+    print(f"MoE restart {arch} (reduced): " + json.dumps(row), flush=True)
+    row["launches_all"] = [whole["launches"], killed["launches"], resumed["launches"]]
+    return row
+
+
 def refusals_line(dev) -> dict:
-    """The kernel routes without a backward refuse a gradient on CUDA tensors
-    (off the card the plain versions differentiate: nothing to refuse)."""
+    """The kernel routes without a backward (the scans) refuse a gradient on
+    CUDA tensors (off the card the plain versions differentiate: nothing to
+    refuse)."""
     x = torch.zeros((1, 4, 2, 64), device=dev, requires_grad=True)
     dt, bc = torch.zeros((1, 4, 2), device=dev), torch.zeros((1, 4, 16), device=dev)
-    q = torch.zeros((1, 2, 8, 16), device=dev, dtype=BF16, requires_grad=True)
-    mcfg = reduced(get_config("arctic-480b"))
-    mparams = moe_mod.moe_init(torch.Generator(device=dev).manual_seed(0), mcfg, F32, dev)
     calls = {
         "mamba_scan": lambda: ops.mamba_scan(x, dt, bc, bc, torch.zeros(2, device=dev),
                                              torch.zeros((1, 2, 16, 64), device=dev)),
         "rwkv_scan": lambda: ops.rwkv_scan(x, x, x, x, torch.zeros((2, 64), device=dev),
-                                           torch.zeros((1, 2, 64, 64), device=dev)),
-        "moe_apply (wire kernels)": lambda: moe_mod.moe_apply(
-            mparams, torch.zeros((1, 4, mcfg.d_model), device=dev, requires_grad=True), mcfg),
-        "flash_attention probs_bf16": lambda: ops.flash_attention(q, q, q, probs_bf16=True)}
+                                           torch.zeros((1, 2, 64, 64), device=dev))}
     out = {}
     for name, fn in calls.items():
         try:
@@ -4485,6 +4589,388 @@ def refusals_line(dev) -> dict:
     check(all(v.startswith("ROADMAP Queue 1 item 7") for v in out.values()),
           "each kernel route without a backward refuses a gradient, naming its item")
     return out
+
+
+# --------------------------------------------------------------------------
+# the probs_bf16 attention backward and the MoE training cell
+# --------------------------------------------------------------------------
+
+#: the probs_bf16 backward phase's calls, (b, hq, hkv, tq, tk, d, causal,
+#: window), bf16: stablelm-1.6b's training call and the MoE training cell's
+#: MLA call (V zero-padded to the qk head dim, as mla_attention pads it)
+PB_FULL = {"stablelm_train": (8, 32, 32, 2048, 2048, 64, True, 0),
+           "mla_train": (2, 128, 128, 2048, 2048, 192, True, 0)}
+PB_REHEARSAL = {"stablelm_train": (2, 4, 4, 70, 70, 16, True, 0),
+                "mla_train": (1, 4, 4, 70, 70, 24, True, 0)}
+#: the probs_bf16 backward kernel against autograd through the plain version
+#: with the flag, relative L2 of each of dq, dk, dv (the tile emulation reads
+#: up to 4.9e-5, tests/test_torch_flash_bwd_tiles.py); the flag ignored (fault
+#: 32) moves the gradients by P's and V's bf16 rounding (1.0e-3 to 2.1e-3 in
+#: the emulation) and must pass twice the gate
+PB_REL_L2 = 5e-4
+
+
+def pb_bwd_phase(cases: dict, reps: int, dev, seed: int) -> dict:
+    """flash_attention_bwd with probs_bf16 against autograd through the plain
+    version with the flag on each case, one launch a call; the flag ignored
+    (fault 32) must break it; the kernel timed with and without the flag,
+    the plain version, and scaled_dot_product_attention's backward of the
+    function without the rounding; the bound as bwd_phase reckons it (the
+    function's five products: the design's second pass of (a) is not the
+    function's work)."""
+    rows = {}
+    for i, (case, (b, hq, hkv, tq, tk, d, causal, window)) in enumerate(cases.items()):
+        g = torch.Generator(device=dev).manual_seed(seed + 400 + i)
+
+        def heads(h, t):
+            return torch.randn((b, t, h, d), generator=g, device=dev).to(BF16).transpose(1, 2)
+        q, k, v, do = heads(hq, tq), heads(hkv, tk), heads(hkv, tk), heads(hq, tq)
+        call = (q, k, v, do, causal, window)
+
+        def kern(pb=True):
+            return fa.flash_attention_bwd(*call, pb)
+
+        def plain():
+            return fa.flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window,
+                                                probs_bf16=True)
+        before = build.launch_counts()
+        got = kern()
+        sync(dev)
+        if dev.type == "cuda":
+            ran = {n: c - before[n] for n, c in build.launch_counts().items() if c != before[n]}
+            check(ran == {"flash_attention_bwd": 1},
+                  f"flash_attention_bwd probs_bf16 {case}: one launch, {ran}")
+        want = plain()
+        gaps = grad_gaps(got, want)
+        row = dict(rel_l2=worst(gaps), max_abs_err=max(float((x.float() - y.float()).abs().max())
+                                                       for x, y in zip(got, want)))
+        check(all(x.shape == t.shape and x.dtype == BF16 and bool(torch.isfinite(x).all())
+                  for x, t in zip(got, (q, k, v)))
+              and all(x["rel_l2"] <= PB_REL_L2 and x["row_gap"] <= BWD_ROW_GAP[BF16]
+                      for x in gaps.values()),
+              f"flash_attention_bwd probs_bf16 {case}: within {PB_REL_L2} relative L2 and "
+              f"{BWD_ROW_GAP[BF16]} row gap of the plain version: {gaps}")
+        if dev.type == "cuda":
+            row["flag_ignored_rel_l2"] = worst(grad_gaps(bwd_with_fault(32, *call, True), want))
+            check(row["flag_ignored_rel_l2"] > 2 * PB_REL_L2,
+                  f"flash_attention_bwd probs_bf16 {case}: planted fault '{BWD_FAULTS[32]}' "
+                  f"breaks the check ({row['flag_ignored_rel_l2']})")
+        print(f"flash_attention_bwd probs_bf16 {case}: kernel vs plain " + json.dumps(gaps),
+              flush=True)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+        pairs = b * hq * attention_pairs(tq, tk, causal, window)
+        ops_ms = 5 * 2 * d * pairs / BF16_OPS_PER_S * 1e3
+        bytes_ms = (_nbytes(q, k, v, do) + _nbytes(*got)) / HBM_BYTES_PER_S * 1e3
+        row.update(ms=time_ms(kern, reps, dev), unflagged_ms=time_ms(lambda: kern(False), reps, dev),
+                   plain_ms=time_ms(plain, max(1, reps // 5), dev),
+                   bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   library_ms=time_ms(library, reps, dev),
+                   shape=dict(q=[b, hq, tq, d], kv=[b, hkv, tk, d], causal=causal,
+                              window=window, dtype="bf16", probs_bf16=True))
+        print(f"kernel flash_attention_bwd probs_bf16 {case}: " + json.dumps(row), flush=True)
+        rows[case] = row
+        del q, k, v, do, got, want, qs, ks, vs, lib_out
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+#: the MoE training cell: deepseek-v3-671b at full width (d_model 7168, 128
+#: heads, MLA ranks 1536 / 512, expert d_ff 2048, top-8, the shared expert,
+#: dense d_ff 18432, vocab 129280, the MTP head), cut to 4 of its 61 layers
+#: (3 dense, 1 MoE, as the serving cell) and 64 of its 256 experts (a count,
+#: as depth is: no tensor's shape changes); bf16 parameters, the config's own
+#: bf16 first moments and factored second moment, remat "block"; 4 steps of
+#: 2 x 2048 tokens, which the plain run's attention (float32 logits and
+#: probabilities of (B, 128, 2048, 2048), the MTP block's kept whole for its
+#: backward) holds within the card's memory where 4 x 2048 would not
+MOE_TRAIN_FULL = dict(arch="deepseek-v3-671b", reduced=False, layers=4, experts=64, steps=4,
+                      batch=2, seq=2048)
+MOE_TRAIN_REHEARSAL = dict(arch="deepseek-v3-671b", reduced=True, layers=2, experts=8,
+                           steps=4, batch=2, seq=64)
+#: check (a)'s capacity whose expert bins drop copies (the wire admits all
+#: over two rounds): the bin-mask fault shows only where a bin drops
+MOE_DROP = dict(moe_capacity_slack=0.5, moe_dispatch_rounds=2)
+#: a planted fault must move some gradient of check (a) by this relative L2
+MOE_FAULT_GAP = 1e-3
+
+
+def moe_train_config(tz: dict):
+    cfg = get_config(tz["arch"])
+    if tz["reduced"]:
+        cfg = reduced(cfg)
+    return dataclasses.replace(cfg, n_layers=tz["layers"],
+                               moe=dataclasses.replace(cfg.moe, n_experts=tz["experts"]))
+
+
+def _tap_moe(keep: bool):
+    """A taps entry for train_run: the first moe_apply call that records a
+    gradient (the step-0 forward, before remat recomputes it): its routing
+    (router_topk's picks and scores), and with ``keep`` its input, its
+    parameters and the gradient reaching its output, on the host."""
+    def tap(seen: dict):
+        def wrap(real):
+            def tapped(params, x, cfg, layout=None, **kwargs):
+                first = "moe_route" not in seen and x.requires_grad
+                out = real(params, x, cfg, layout, **kwargs)
+                if first:
+                    with torch.no_grad():
+                        route = moe_mod.router_topk(params, x, cfg)
+                    seen["moe_route"] = (route[1], route[3])
+                    seen["moe_load"] = out[2]["expert_load"].detach().clone()
+                    if keep:
+                        seen["moe_x"] = x.detach().to("cpu")
+                        seen["moe_params"] = tree.map_tree(lambda p: p.detach().to("cpu"),
+                                                           params)
+
+                        def grab(gr):
+                            seen.setdefault("moe_dy", gr.detach().to("cpu"))
+                        out[0].register_hook(grab)
+                return out
+            return tapped
+        return wrap
+    return (moe_mod, "moe_apply", tap)
+
+
+def moe_grads(params: dict, x, dy, cfg, impl: str, plants=()) -> dict:
+    """moe_apply forward and backward (dy into y, 1 into the aux loss) on
+    fresh leaves of ``params`` and ``x``: y, expert_load, and the gradient
+    of x and of every parameter leaf (zeros where none reaches it)."""
+    leaves = [x] + tree_leaves(params)
+    ts = [t.detach().clone().requires_grad_() for t in leaves]
+    p = tree.unflatten(params, ts[1:])
+    with contextlib.ExitStack() as stack:
+        for pl in plants:
+            stack.enter_context(planted(pl))
+        y, aux, stats = moe_mod.moe_apply(p, ts[0], cfg, impl=impl)
+        grads = torch.autograd.grad((y, aux), ts, (dy, torch.ones_like(aux)), allow_unused=True)
+    return dict(y=y.detach(), load=stats["expert_load"],
+                grads=[torch.zeros_like(t) if gr is None else gr for t, gr in zip(ts, grads)])
+
+
+def moe_gap(a: dict, b: dict) -> float:
+    """The largest relative L2 of a's gradients (x first, then the leaves)
+    against b's."""
+    return max(rel_l2(x, y) if bool(y.abs().gt(0).any()) else float(x.abs().max())
+               for x, y in zip(a["grads"], b["grads"]))
+
+
+def moe_same(a: dict, b: dict) -> bool:
+    return (torch.equal(a["y"], b["y"]) and torch.equal(a["load"], b["load"])
+            and all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])))
+
+
+def _rolled(real):
+    """Fault: each cotangent sent to its neighbour's row."""
+    def rolled(self, backend, rows):
+        return real(self, backend, rows.roll(1, 0))
+    return rolled
+
+
+def _clamped_bins(real):
+    """Fault, with _unmasked: a copy its expert's bin could not hold keeps
+    that bin's last slot (clamped where the mask drops it)."""
+    def bins(expert, valid, n_groups, cap, m):
+        bin_idx, slot, ok = real(expert, valid, n_groups, cap, m)
+        last = expert.to(torch.int64).clamp(0, n_groups - 1) * cap + cap - 1
+        return bin_idx, torch.where(valid & ~ok, last, slot), ok
+    return bins
+
+
+def _unmasked(real):
+    """Fault, with _clamped_bins: the bins' gathers read zeros where a copy
+    was not held, but pass the gradient of every gathered row: a dropped
+    copy's cotangent reaches its expert's last slot (the capacity mask left
+    out of the backward)."""
+    def rows_at(src, idx, ok):
+        got = src[idx.clamp(0, src.shape[0] - 1).long()]
+        return torch.where(ok[:, None], got, 0) + (got - got.detach()) * (~ok)[:, None]
+    return rows_at
+
+
+def _jax_cut(real):
+    """Fault: the JAX package's cut, the float lanes carried as int words
+    with no gradient."""
+    class Cut(real):
+        @staticmethod
+        def backward(ctx, *gs):
+            return (None,) * len(ctx.needs_input_grad)
+    return Cut
+
+
+MOE_FAULTS = {
+    "each cotangent sent to its neighbour's row": (
+        (FlowTranspose, "route", _rolled), (FlowTranspose, "reply", _rolled)),
+    "the bin-capacity mask left out of the backward": ((moe_mod, "_bin_indices", _clamped_bins),
+                                                       (moe_mod, "_rows_at", _unmasked)),
+    "JAX's cut: the float lanes as int words (no gradient through the wire)": (
+        (moe_mod, "_Delivered", _jax_cut), (moe_mod, "_Replied", _jax_cut)),
+}
+
+
+def moe_check_a(k: dict, cfg, dev, rehearsal: bool) -> dict:
+    """Check (a) of the MoE training cell: the MoE layer's step-0 input,
+    parameters and output gradient from the kernel run, through moe_apply
+    forward and backward with impl="auto" and "torch": y, expert_load and
+    every gradient bit for bit (the wire moves words, so the float32 wire
+    is a permutation and the rest are the same PyTorch ops); then at
+    MOE_DROP, where bins drop copies, the same, and each planted fault
+    (MOE_FAULTS) must move some gradient past MOE_FAULT_GAP."""
+    params = tree.map_tree(lambda p: p.to(dev), k.pop("moe_params"))
+    x, dy = k.pop("moe_x").to(dev), k.pop("moe_dy").to(dev)
+    n = x.shape[0] * x.shape[1] * cfg.moe.top_k
+    out = {}
+    for label, c in (("config", cfg), ("drop", dataclasses.replace(cfg, **MOE_DROP))):
+        plain = moe_grads(params, x, dy, c, "torch")
+        kern = moe_grads(params, x, dy, c, "auto")
+        served = int(plain["load"].sum())
+        out[label] = dict(bit_for_bit=moe_same(kern, plain), gap=moe_gap(kern, plain),
+                          served=served, copies=n)
+        print(f"MoE training cell (a), {label} (slack {c.moe_capacity_slack}, rounds "
+              f"{c.moe_dispatch_rounds}): {served} of {n} copies served; kernel vs plain "
+              + json.dumps(out[label]), flush=True)
+        check(out[label]["bit_for_bit"], f"MoE training cell (a), {label}: y, expert_load "
+                                         f"and every gradient bit for bit ({out[label]})")
+        check(all(bool(gr.abs().gt(0).any())
+                  for gr in tree_leaves(tree.unflatten(params, kern["grads"][1:])["experts"])),
+              f"MoE training cell (a), {label}: every expert stack gets a gradient")
+        del kern
+        if label == "drop":
+            check(served < n, "MoE training cell (a): the drop capacity drops copies at "
+                              "the bins")
+            for what, plants in MOE_FAULTS.items():
+                got = moe_gap(moe_grads(params, x, dy, c, "auto", plants), plain)
+                out[what] = got
+                check(got > MOE_FAULT_GAP, f"MoE training cell (a): planted fault '{what}' "
+                                           f"breaks the check ({got})")
+            print("MoE training cell (a): planted faults reach relative L2 "
+                  + json.dumps({w: out[w] for w in MOE_FAULTS}), flush=True)
+        del plain
+    del params, x, dy
+    return out
+
+
+def moe_train_launches(cfg, steps: int) -> dict:
+    """The kernels one step launches, exactly: the flash forward twice per
+    attention layer (remat recomputes it) and once for the MTP block, its
+    backward once for each; per MoE layer the wire's forward twice (a
+    binning pass, a pack per round, place_rows for the two flows' send maps
+    and their replies) and its transposes once (a pack per round for the
+    reply's, place_rows for the request's)."""
+    n_attn = sum(lm.kind_at(cfg, i) in "gla" for i in range(cfg.n_layers))
+    want = {"flash_attention": (2 * n_attn + bool(cfg.mtp)) * steps,
+            "flash_attention_bwd": (n_attn + bool(cfg.mtp)) * steps}
+    wire = moe_wire_launches(cfg, 2 * steps)
+    calls = moe_layers(cfg) * steps
+    want.update(bin_offsets=wire["bin_offsets"],
+                pack_rows=wire["pack_rows"] + calls * cfg.moe_dispatch_rounds,
+                place_rows=wire["place_rows"] + calls)
+    return want
+
+
+def moe_train_roles() -> dict:
+    """Roles of a MoE training step's device time: the cross-entropy chunks,
+    AdamW, and the MoE layer's forward (its first pass and remat's
+    recompute; the wire kernels by name); the backward's GEMMs go to
+    "GEMMs"."""
+    return {"xent": (layers_mod, "_chunk_nll"), "AdamW": (train_steps, "adamw_update"),
+            "MoE layer forward": (moe_mod, "moe_apply")}
+
+
+MOE_TRAIN_DEVICE_NAMES = TRAIN_DEVICE_NAMES + WIRE_DEVICE_NAMES
+
+
+def moe_train_cell(tz: dict, dev, seed: int, smi: str, rehearsal: bool) -> dict:
+    """deepseek-v3-671b (cut as MOE_TRAIN_FULL says) trained for ``steps``
+    steps on TokenStream(seed) batches through the kernels, then a fresh
+    model from the same seed through the plain versions; checks (a) the MoE
+    layer (moe_check_a) and the first MLA attention call
+    (attention_check_a) on what the kernel run tapped at step 0, (b) the
+    step-0 gradients, grad_norm and the loss series against the plain run,
+    the routing flips of the MoE layer's step-0 call printed with their
+    margins, (c) the launches counted exactly."""
+    t_cell = time.perf_counter()
+    cfg = moe_train_config(tz)
+    full = get_config(tz["arch"])
+    stream = TokenStream(vocab=cfg.vocab, seq_len=tz["seq"], global_batch=tz["batch"], seed=seed)
+    batches = [stream.next_batch(device=dev) for _ in range(tz["steps"])]
+    n_params = _tree_sum(lm.abstract_params(cfg))
+    print(f"MoE training cell: {cfg.name}, {cfg.n_layers} of {full.n_layers} layers "
+          f"({cfg.moe.first_k_dense} dense, {moe_layers(cfg)} MoE), {cfg.moe.n_experts} of "
+          f"{full.moe.n_experts} experts top-{cfg.moe.top_k}, d_model {cfg.d_model}, MTP "
+          f"{cfg.mtp}, {n_params} parameters ({cfg.dtype}, moments {cfg.optimizer_dtype}, "
+          f"factored {cfg.factored_second_moment}, remat {cfg.remat}), {tz['steps']} steps of "
+          f"{tz['batch']} x {tz['seq']} tokens", flush=True)
+    split = (moe_train_roles(), MOE_TRAIN_DEVICE_NAMES,
+             {"xent": "GEMMs", "AdamW": "GEMMs", "the rest": "GEMMs"})
+    runs = {impl: train_run(impl, tz, cfg, batches, dev, seed, profile=impl == "auto",
+                            taps=(_tap_moe(impl == "auto"),), host_grads=dev.type == "cuda",
+                            split=split)
+            for impl in ("auto", "torch")}
+    k, p = runs["auto"], runs["torch"]
+    for impl, r in runs.items():
+        check(all(np.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+              f"MoE training cell ({impl}): finite losses and gradient norms")
+    # (c) launches
+    want = moe_train_launches(cfg, tz["steps"])
+    got = {n: c for n, c in k["launches"].items() if c}
+    if not rehearsal:
+        check(got == want, f"MoE training cell: launches {got}, want {want}")
+    check(not any(p["launches"].values()), f"MoE training cell: the plain run launched no "
+                                           f"kernel {p['launches']}")
+    # (a) the MoE layer, then the first MLA attention call
+    moe_a = moe_check_a(k, cfg, dev, rehearsal)
+    attention_check_a("MoE training cell (a), MLA", k, rehearsal)
+    # (b) step-0 gradients and grad_norm, the loss series, the routing flips
+    leaf_gaps = [rel_l2(a.to(dev), b.to(dev)) for a, b in zip(k["grads"], p["grads"])]
+    gn = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+    (idx_k, scores), (idx_p, _) = k["moe_route"], p["moe_route"]
+    flipped = (idx_k.sort(dim=-1).values != idx_p.sort(dim=-1).values).any(dim=-1)
+    top = scores.sort(dim=-1, descending=True).values
+    margins = top[..., cfg.moe.top_k - 1] - top[..., cfg.moe.top_k]
+    flips = dict(tokens=int(flipped.sum()), of=int(flipped.numel()),
+                 margins=sorted(float(m) for m in margins[flipped])[:16],
+                 smallest_margin=float(margins.min()))
+    print(f"MoE training cell (b): step-0 gradients kernel vs plain, {len(leaf_gaps)} leaves, "
+          f"largest relative L2 {max(leaf_gaps)} (gate {TRAIN_GRAD_REL_L2}); grad_norm "
+          f"{k['grad_norm']} vs {p['grad_norm']} ({gn}); losses {k['losses']} vs "
+          f"{p['losses']} (largest gap {max(loss_gaps)}, gate {TRAIN_LOSS_REL}); the MoE "
+          f"layer's step-0 routing flips " + json.dumps(flips), flush=True)
+    check(max(leaf_gaps) <= TRAIN_GRAD_REL_L2 and gn <= TRAIN_LOSS_REL
+          and max(loss_gaps) <= TRAIN_LOSS_REL, "MoE training cell (b): gradients, grad_norm "
+                                                "and losses within the bf16 drift gates")
+    check(torch.equal(k["moe_load"], p["moe_load"]) or flips["tokens"] > 0,
+          "MoE training cell (b): the step-0 expert loads agree where no pick flipped")
+    tokens = tz["batch"] * tz["seq"]
+    summary = dict(card=smi, steps=tz["steps"], tokens_per_step=tokens, n_params=n_params,
+                   layers=cfg.n_layers, experts=cfg.moe.n_experts, check_a=moe_a, flips=flips,
+                   cell_s=time.perf_counter() - t_cell)
+    for impl, r in runs.items():
+        med = float(np.median(r["step_ms"][1:])) if len(r["step_ms"]) > 1 else r["step_ms"][0]
+        summary[impl] = dict(step_ms=r["step_ms"], step_ms_median_1_3=med,
+                             tokens_per_s=tokens / med * 1e3, peak_gb=r["peak_gb"],
+                             losses=r["losses"], grad_norms=r["grad_norms"],
+                             mfu=r["flops"] / (med / 1e3) / BF16_OPS_PER_S)
+    summary["model_tflops_per_step"] = k["flops"] / 1e12
+    if "split" in k:
+        summary["split"] = {n: round(x, 3) for n, x in k["split"].items()}
+        summary["busy_share"] = k["split"]["total"] / k["split_wall_ms"]
+        summary["split_wall_ms"] = k["split_wall_ms"]
+        print("MoE training cell split (one step, device ms by role): "
+              + json.dumps(summary["split"]) + f", busy share {summary['busy_share']:.3f}",
+              flush=True)
+        print("MoE training cell split: device ms by kernel " + json.dumps(k["split_by_name"]),
+              flush=True)
+    print("MoE training cell: " + json.dumps({n: summary[n] for n in summary if n != "split"}),
+          flush=True)
+    summary["launches"] = k["launches"]
+    return summary
 
 
 # --------------------------------------------------------------------------
@@ -4533,8 +5019,11 @@ MR_DEEPSEEK = dict(mla_absorb=True, mla_cp_decode=True, moe_dedup_dispatch=True)
 #: whole, 8 of 32 heads a rank; seamless-m4t-medium whole (12 + 12 layers), 4
 #: of 16 heads a rank, each request's 512 source frames as its P=1 cell draws
 #: them (``seq``: ``frontend_batch``).  16 tokens for the recurrent cells,
-#: whose prefills make the most all-reduces of 235 MB and 134 MB.
-MR_FULL = (dict(arch="qwen3-4b", reduced=False, layers=None, requests=16, batch=8,
+#: whose prefills make the most all-reduces of 235 MB and 134 MB.  qwen3-4b
+#: at full width cut to 12 of its 36 layers: each layer's prefill adds two
+#: all-reduces through host memory, and the whole depth took 86 s of the
+#: script's time limit (NVIDIA H100 80GB HBM3, 700.00 W).
+MR_FULL = (dict(arch="qwen3-4b", reduced=False, layers=12, requests=16, batch=8,
                 prompt_len=2048, gen=32, over={}),
            dict(arch="deepseek-v3-671b", reduced=False, layers=4, requests=16, batch=8,
                 prompt_len=1024, gen=16, over=MR_DEEPSEEK),
@@ -5283,13 +5772,24 @@ def report(path: str, impl: str, r: dict, sz: dict, gz: dict, g: dict, xz: dict,
 def train_phases(rehearsal: bool, sz: dict, dev, seed: int, smi: str, launched: dict,
                  krows: dict) -> None:
     """The training phases: (with ``--train`` alone) the backward kernel
-    phase, the stablelm-1.6b training cell, the float32 train phase, and on
-    the card the refusals line; each run's launches go into ``launched``."""
+    phase, the stablelm-1.6b training cell, the probs_bf16 backward phase,
+    the deepseek-v3-671b MoE training cell, the float32 train phase, the
+    MoE restart phase, and on the card the refusals line; each run's
+    launches go into ``launched``."""
     if not krows:
         bwd_phase(BWD_REHEARSAL if rehearsal else BWD_FULL, sz["reps"], dev, seed)
     t0 = time.perf_counter()
     cell = train_cell(TRAIN_REHEARSAL if rehearsal else TRAIN_FULL, dev, seed, smi, rehearsal)
     launched["training cell", "auto"] = cell["launches"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    pb_bwd_phase(PB_REHEARSAL if rehearsal else PB_FULL, sz["reps"], dev, seed)
+    cell = moe_train_cell(MOE_TRAIN_REHEARSAL if rehearsal else MOE_TRAIN_FULL, dev, seed, smi,
+                          rehearsal)
+    launched["MoE training cell", "auto"] = cell["launches"]
+    print(f"probs_bf16 backward phase and MoE training cell: {time.perf_counter() - t1:.1f}s "
+          f"({smi})", flush=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
@@ -5298,6 +5798,9 @@ def train_phases(rehearsal: bool, sz: dict, dev, seed: int, smi: str, launched: 
             row = f32_train_phase(arch, dev, rehearsal, tmp)
             for i, counts in enumerate(row["launches_all"]):
                 launched[f"f32 train {arch} run {i}", "auto"] = counts
+        row = moe_restart_phase(dev, rehearsal, tmp)
+        for i, counts in enumerate(row["launches_all"]):
+            launched[f"MoE restart run {i}", "auto"] = counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if dev.type == "cuda":
@@ -5315,7 +5818,8 @@ def main(argv=None) -> int:
                          "CSR splits")
     ap.add_argument("--train", action="store_true",
                     help="only build and run the training phases (the backward kernel "
-                         "phase, the training cell, the float32 train phase)")
+                         "phase, the training cells, the probs_bf16 backward phase, the "
+                         "float32 train and MoE restart phases)")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():

@@ -17,6 +17,9 @@ bytes and collective counts next to wall time.
 Costs depend only on shapes and promises, never on data.  The JAX
 package records them once per trace; the port runs eagerly and records
 them on every call, so one eager call logs what one trace logs there.
+What a trace never records, the port runs under :func:`muted`: the
+exchange's transposes in the backward, and the forward that remat
+recomputes there.
 """
 
 from __future__ import annotations
@@ -110,12 +113,13 @@ class CostLog:
         return tot
 
 
-_ACTIVE: list[CostLog] = []
+_ACTIVE: list[CostLog | None] = []
 
 
 def record(op: str, cost: Cost) -> None:
-    """Record a cost against the innermost active log (no-op otherwise)."""
-    if _ACTIVE:
+    """Record a cost against the innermost active log (no-op otherwise,
+    and inside :func:`muted`)."""
+    if _ACTIVE and _ACTIVE[-1] is not None:
         _ACTIVE[-1].record(op, cost)
 
 
@@ -126,5 +130,16 @@ def recording() -> Iterator[CostLog]:
     _ACTIVE.append(log)
     try:
         yield log
+    finally:
+        _ACTIVE.pop()
+
+
+@contextmanager
+def muted() -> Iterator[None]:
+    """Context manager: record nothing inside (a ``recording`` opened
+    inside it records again)."""
+    _ACTIVE.append(None)
+    try:
+        yield
     finally:
         _ACTIVE.pop()

@@ -28,6 +28,12 @@ fails (``lost``); ``commit_async`` starts the wire and
 ``PendingPlan.finish`` completes it, bit-identical to ``commit``; a plan
 under ``Promise.FINE`` lowers to one sub-plan per flow, the sequential
 oracle.
+
+For gradients, ``CommittedPlan.transposer(handle)`` keeps what a flow's
+transposes need (:class:`FlowTranspose`): an owner row's cotangent goes
+back along the reply direction, a reply's along the request direction, on
+the forward commit's maps (no second binning pass), through the same
+transport and kernels, and nothing is recorded in the cost log.
 """
 
 from __future__ import annotations
@@ -440,7 +446,7 @@ class ExchangePlan:
         if st.overflow == "raise-in-test":
             _raise_on_drops(flows, dropped)
         return CommittedPlan(self, views, transport=transport, tctx=tctx,
-                             dead_ranks=st.dead_ranks)
+                             dead_ranks=st.dead_ranks, staged=st)
 
 
 @dataclasses.dataclass
@@ -468,7 +474,7 @@ class CommittedPlan:
     def __init__(self, plan: ExchangePlan, views: list[RouteResult],
                  sequential: bool = False, transport: Transport | None = None,
                  tctx=None, subplans: list["CommittedPlan"] | None = None,
-                 dead_ranks: tuple[int, ...] = ()):
+                 dead_ranks: tuple[int, ...] = (), staged: _StagedCommit | None = None):
         self._plan = plan
         self._views = views
         self._sequential = sequential
@@ -476,6 +482,7 @@ class CommittedPlan:
         self._tctx = tctx                  # transport's reply context
         self._subplans = subplans or []    # FINE: one sub-plan per flow
         self._dead_ranks = tuple(dead_ranks)
+        self._staged = staged              # the request's maps (fused path)
         self._replies: dict[int, torch.Tensor] = {}
         self._finished = False
 
@@ -502,6 +509,20 @@ class CommittedPlan:
         for d in self._dead_ranks:
             mask = mask | (f.dest == d)
         return f.payload, f.valid & mask
+
+    def transposer(self, handle: int) -> "FlowTranspose":
+        """The maps the transposes of flow ``handle`` need (none of its
+        payload), for a gradient carried back over the wire."""
+        if self._sequential:
+            return self._subplans[handle].transposer(0)
+        f, st, view = self._plan._flows[handle], self._staged, self._views[handle]
+        row0 = sum(g.n for g in self._plan._flows[:handle])
+        sl = slice(row0, row0 + f.n)
+        return FlowTranspose(self._transport, self._tctx, handle,
+                             FlowWire(f.capacity, st.rounds_f[handle], 0, 0, f.n, f.op_name),
+                             st.args.dest[sl], st.args.offsets[sl], st.args.valid[sl],
+                             view.valid, view.send_item, view.send_occ, st.args.plan_op,
+                             st.args.impl)
 
     def set_reply(self, handle: int, rows: torch.Tensor) -> None:
         """Stage per-request replies ``(P*C_f, reply_lanes)`` for one flow."""
@@ -596,9 +617,60 @@ class PendingResult:
         return out()
 
 
+@dataclasses.dataclass
+class FlowTranspose:
+    """The transposes of one committed flow's two directions, for the
+    gradient of what it moved (``CommittedPlan.transposer``).  They reuse
+    the forward commit's maps (its one binning pass's destinations and
+    ranks, its admission, the send slots and arrivals), move int32 words
+    through the same transport, backend and kernels as the forward, and
+    record nothing in the cost log: the JAX package records its log once,
+    at trace time, and its transposes record none."""
+
+    transport: Transport
+    tctx: object
+    handle: int              # the flow's index in the plan ``tctx`` belongs to
+    spec: FlowWire           # capacity, rounds, batch size, op name
+    dest: torch.Tensor       # (N_f,) the request's destinations
+    offsets: torch.Tensor    # (N_f,) within-bucket ranks (the one binning pass)
+    valid: torch.Tensor      # (N_f,) what the commit offered the wire
+    arrived: torch.Tensor    # (P*C_f,) owner rows that hold an arrival
+    send_item: torch.Tensor  # (P*C_f,) requester-local slot -> batch index
+    send_occ: torch.Tensor   # (P*C_f,)
+    plan_op: str
+    impl: str
+
+    def route(self, backend: Backend, rows: torch.Tensor) -> torch.Tensor:
+        """Transpose of the request direction: owner-side rows ``(P*C_f, W)``
+        (aligned with the view's payload) go back along the reply direction
+        and land in the flow's batch order, ``(N_f, W)`` words; an item the
+        wire did not admit gets zeros."""
+        staged = torch.where(self.arrived[:, None], _words(rows), 0)
+        with costs.muted():
+            back = self.transport.reply(backend, self.tctx, {self.handle: staged})[self.handle]
+        return _land_slots(self.send_item, self.send_occ, back, self.spec.n)[0]
+
+    def reply(self, backend: Backend, rows: torch.Tensor) -> torch.Tensor:
+        """Transpose of the reply direction: requester-side rows ``(N_f, W)``
+        in the flow's batch order go to the owners along the request
+        direction and come back aligned with the view's payload,
+        ``(P*C_f, W)`` words; an owner row that held no arrival gets zeros."""
+        rows = _words(rows)
+        spec = dataclasses.replace(self.spec, roww=rows.shape[1])
+        args = RequestArgs([spec], [rows], self.dest, torch.zeros_like(self.dest),
+                           self.offsets, self.valid, self.plan_op, self.impl)
+        with costs.muted():
+            seg = self.transport.request(backend, args)[0][0]
+        return torch.where(self.arrived[:, None], seg, 0)
+
+
 def _land(view: RouteResult, back: torch.Tensor, n: int):
     """Replies in send-slot layout -> (replies (n, R), answered (n,))."""
-    item = torch.where(view.send_occ, view.send_item, n).to(_I64)
+    return _land_slots(view.send_item, view.send_occ, back, n)
+
+
+def _land_slots(send_item: torch.Tensor, send_occ: torch.Tensor, back: torch.Tensor, n: int):
+    item = torch.where(send_occ, send_item, n).to(_I64)
     keep = item < n
     out = torch.zeros((n, back.shape[1]), dtype=_I32, device=back.device)
     out[item[keep]] = back[keep]

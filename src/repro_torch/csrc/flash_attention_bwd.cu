@@ -110,11 +110,23 @@
 // 92 bytes of spill stores; a column split that does not spill took
 // 7.2 ms against 5.7 at qwen3-4b's call, PERF.md).
 //
+// probs_bf16: the gradient of the forward's probs_bf16 function (JAX's
+// blockwise_attention(probs_bf16=True)): O = sum_j round(p_j) round(V_j) / l
+// with p_j = 2^(s c - m) against the row's max, the roundings to bf16
+// passing the gradient through unchanged.  So dV = round(p)^T dO / l, dP =
+// dO round(V)^T (the float32 route's wrapper hands over V rounded; bf16 V is
+// exact), dS = P o (dP - delta) with the float32 P, and delta = dO . O =
+// sum_j round(p_j) dP_j / l, which (a) takes in a second pass over its key
+// tiles once the row's max is known.  Each of (a) and (b) has an instance of
+// its own for it (a template flag); (c) is the same.  The rounding is
+// against the row's max over every key (as the plain version's), where the
+// forward kernel rounds against its running max.
+//
 // fault (0 in every real call) plants the faults the chip check must
 // catch: 1 the causal mask dropped in (b), 2 delta left zero, 4 a GQA
 // group's dK and dV from its first query head only, 8 the scale dropped
 // from dS, 16 (bf16 on wgmma, DP = 64) P and dS as two bf16 pieces, the
-// third left zero.
+// third left zero, 32 the probs_bf16 flag ignored.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,7 +136,7 @@
 namespace {
 
 constexpr int kFaultCausal = 1, kFaultDelta = 2, kFaultGroup = 4, kFaultScale = 8,
-              kFaultPieces = 16;
+              kFaultPieces = 16, kFaultFlag = 32;
 constexpr int kPadRows = 128;  // the row statistics are padded to a multiple of this
 constexpr int kStages = 2;     // the ring of streamed tiles (3 and 4 measured no faster)
 
@@ -137,7 +149,7 @@ struct Args {
   void *dq, *dk, *dv;
   float *m2, *linv, *delta;    // per row (B, Hq, tqp): max of s c (log2 units), 1 / l, delta
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
-  int batch, hq, hkv, tq, tk, tqp, d, dt, causal, window, fault;
+  int batch, hq, hkv, tq, tk, tqp, d, dt, causal, window, probs_bf16, fault;
   float scale, scale_log2;     // 1/sqrt(D), log2(e)/sqrt(D)
 };
 
@@ -164,6 +176,9 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// x rounded to bf16 (to nearest even), as a float: probs_bf16's P
+__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -745,8 +760,11 @@ __device__ __forceinline__ T* smem_base() {
   return reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + (((raw + 1023u) & ~1023u) - raw));
 }
 
-// (a) lse2 and delta of one query tile
-template <class C>
+// (a) lse2 and delta of one query tile.  PB (probs_bf16): delta = sum_j
+// round(p_j) dP_j / l with p_j = 2^(s c - m) against the row's final max m,
+// which the online pass knows only at its end, so a second pass over the
+// same key tiles takes it
+template <class C, bool PB>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) bwd_prep(const Args a) {
   using T = typename C::T;
   using R = typename C::Route;
@@ -838,6 +856,33 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) bwd_prep(const Arg
     __syncthreads();                         // stage s is free for the copy after next
   }
 
+  if constexpr (PB) {                        // the second pass: delta of the rounded P
+    const float mf[2] = {m[0] == -INFINITY ? 0.f : m[0], m[1] == -INFINITY ? 0.f : m[1]};
+    pd[0] = pd[1] = 0.f;
+    for (int i = 0; i < S - 1; ++i) stage(kt0 + i);
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int s = (kt - kt0) % S, k0 = kt * BN;
+      stage(kt + S - 1);
+      cp_wait<S - 1>();
+      R::landed();
+      __syncthreads();
+      const T* Ks = KV + 2 * s * BN * L;
+      float sc[NB][4] = {}, dp[NB][4] = {};
+      R::template two_rows_x_rows<NB, DP, BM, BN>(sc, Qs, dp, Gs, r0, L, Ks, Ks + BN * L, L, lane);
+      const bool edge = edge_tile(a, a.causal, q0, BM, k0, BN);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool in = !edge || seen(q0 + r0 + g + 8 * (i >> 1), k0 + 8 * n + 2 * t + (i & 1), a,
+                                        a.causal);
+          const float e = in ? bf16r(ex2(fmaf(sc[n][i], a.scale_log2, -mf[i >> 1]))) : 0.f;
+          pd[i >> 1] = fmaf(e, dp[n][i], pd[i >> 1]);
+        }
+      __syncthreads();
+    }
+  }
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float ls = quad_sum(l[r]), ps = quad_sum(pd[r]);
@@ -851,8 +896,10 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) bwd_prep(const Arg
   }
 }
 
-// (b) dK and dV of one key tile, summed over the GQA group's query heads
-template <class C>
+// (b) dK and dV of one key tile, summed over the GQA group's query heads.
+// PB (probs_bf16): dV takes P rounded to bf16 (round(p) / l), dS the
+// float32 P, so dS is formed before dV's product is issued
+template <class C, bool PB>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) bwd_dkdv(const Args a) {
   using T = typename C::T;
   using R = typename C::Route;
@@ -924,9 +971,10 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) bwd_dkdv(const Arg
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        st[n][i] = ex2(fmaf(st[n][i], a.scale_log2, -m2[8 * n + 2 * t + (i & 1)])) *
-                   li[8 * n + 2 * t + (i & 1)];
+      for (int i = 0; i < 4; ++i) {
+        const float e = ex2(fmaf(st[n][i], a.scale_log2, -m2[8 * n + 2 * t + (i & 1)]));
+        st[n][i] = PB ? e : e * li[8 * n + 2 * t + (i & 1)];
+      }
     if (edge_tile(a, causal, q0, BN, k0, BM)) {   // the per-element mask on cut tiles only
 #pragma unroll
       for (int n = 0; n < NB; ++n)
@@ -935,12 +983,24 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) bwd_dkdv(const Arg
           if (!seen(q0 + 8 * n + 2 * t + (i & 1), k0 + r0 + g + 8 * (i >> 1), a, causal))
             st[n][i] = 0.f;
     }
-    // dV's product runs while the CUDA cores form dS^T
-    R::template frag_issue<NB, NJ, C::PART, BN>(dv, part, fr, st, Gs, c0, LS, lane, two);
+    if constexpr (PB) {
 #pragma unroll
-    for (int n = 0; n < NB; ++n)
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dpt[n][i] = st[n][i] * (dpt[n][i] - dl[8 * n + 2 * t + (i & 1)]);
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * n + 2 * t + (i & 1);
+          dpt[n][i] = st[n][i] * li[c] * (dpt[n][i] - dl[c]);
+          st[n][i] = bf16r(st[n][i]) * li[c];
+        }
+      R::template frag_issue<NB, NJ, C::PART, BN>(dv, part, fr, st, Gs, c0, LS, lane, two);
+    } else {
+      // dV's product runs while the CUDA cores form dS^T
+      R::template frag_issue<NB, NJ, C::PART, BN>(dv, part, fr, st, Gs, c0, LS, lane, two);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dpt[n][i] = st[n][i] * (dpt[n][i] - dl[8 * n + 2 * t + (i & 1)]);
+    }
     R::template frag_finish<NJ>(dv, part, fr);
     R::template frag_issue<NB, NJ, C::PART, BN>(dk, part, fr, dpt, Qs, c0, LS, lane, two);
     R::template frag_finish<NJ>(dk, part, fr);
@@ -1076,18 +1136,19 @@ constexpr int smem_dq() {
 }
 
 // one instance: the three launches' configurations for a padded head dim
-template <class P, class B, class Q>
+template <class P, class B, class Q, bool PB>
 int launch(const Args& a, cudaStream_t stream) {
   const int sp = smem_prep<P>(), sk = smem_dkdv<B>(), sq = smem_dq<Q>();
-  cudaError_t e = cudaFuncSetAttribute(bwd_prep<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, sp);
+  cudaError_t e =
+      cudaFuncSetAttribute(bwd_prep<P, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, sp);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(bwd_dkdv<B>, cudaFuncAttributeMaxDynamicSharedMemorySize, sk);
+    e = cudaFuncSetAttribute(bwd_dkdv<B, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, sk);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(bwd_dq<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, sq);
   if (e != cudaSuccess) return (int)e;
   const unsigned per_q = (unsigned)(a.hq * a.batch), per_k = (unsigned)(a.hkv * a.batch);
-  bwd_prep<P><<<per_q * (a.tqp / P::BM), P::kThreads, sp, stream>>>(a);
-  bwd_dkdv<B><<<per_k * ((a.tk + B::BM - 1) / B::BM), B::kThreads, sk, stream>>>(a);
+  bwd_prep<P, PB><<<per_q * (a.tqp / P::BM), P::kThreads, sp, stream>>>(a);
+  bwd_dkdv<B, PB><<<per_k * ((a.tk + B::BM - 1) / B::BM), B::kThreads, sk, stream>>>(a);
   bwd_dq<Q><<<per_q * ((a.tq + Q::BM - 1) / Q::BM), Q::kThreads, sq, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1150,7 +1211,8 @@ template <> struct Inst<Tf32, 320> : InstWideF<320> {};
 template <class R, int DP>
 int launch_dp(const Args& a, cudaStream_t stream) {
   using I = Inst<R, DP>;
-  return launch<typename I::Prep, typename I::DkDv, typename I::Dq>(a, stream);
+  return a.probs_bf16 ? launch<typename I::Prep, typename I::DkDv, typename I::Dq, true>(a, stream)
+                      : launch<typename I::Prep, typename I::DkDv, typename I::Dq, false>(a, stream);
 }
 
 template <int N> struct Dp { static constexpr int value = N; };
@@ -1184,13 +1246,15 @@ const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError
 // (d rounded up to 8 for bf16, 4 for float32, zero past d) in 16-byte
 // aligned rows; dq, dk, dv d columns.  lse and delta: (B, Hq, tqp) float32
 // scratch, tqp = Tq rounded up to 128.  1 <= d <= 320, Hq % Hkv == 0,
-// Tk >= 1, and Tq <= Tk when causal (the wrapper checks).  bf16
+// Tk >= 1, and Tq <= Tk when causal (the wrapper checks).  probs_bf16:
+// the gradient of the forward with P and V rounded to bf16 for P V.  bf16
 // (is_f32 = 0) or float32.
 int flash_attention_bwd_launch(int is_f32, const void* q, const void* k, const void* v,
                                const void* dout, void* dq, void* dk, void* dv, float* stats,
                                const long long* strides,
                                int batch, int hq, int hkv, int tq, int tk, int d, int dt,
-                               int causal, int window, float scale, int fault, void* stream) {
+                               int causal, int window, int probs_bf16, float scale, int fault,
+                               void* stream) {
   if (batch == 0 || hq == 0 || tq == 0) return (int)cudaGetLastError();
   Args a;
   a.q = q;
@@ -1217,6 +1281,7 @@ int flash_attention_bwd_launch(int is_f32, const void* q, const void* k, const v
   a.dt = dt;
   a.causal = causal;
   a.window = window;
+  a.probs_bf16 = probs_bf16 && !(fault & kFaultFlag);
   a.fault = fault;
   a.scale = scale;
   a.scale_log2 = scale * 1.4426950408889634f;

@@ -33,12 +33,15 @@ pieces, float32 as 3xTF32): the gradient of the same function, dq, dk and
 dv in the operand dtype with float32 sums, from the operands and the
 incoming gradient; each row's softmax max and normaliser and ``delta =
 rowsum(dO o O)`` are recomputed in float32 (the forward writes none of
-them, and its stored output is rounded to the operand dtype).  Its plain version is autograd through
-``flash_attention_plain`` (``flash_attention_bwd_plain``).
-:class:`FlashAttentionFn` puts the two kernels behind
-``torch.autograd.Function``; ``ops.flash_attention`` routes a CUDA call
-that needs a gradient through it.  ``probs_bf16`` has no backward yet
-(ROADMAP Queue 1 item 7b).
+them, and its stored output is rounded to the operand dtype).  With
+``probs_bf16`` it is the gradient of that function, the roundings passing
+the gradient through unchanged: dV takes P rounded, dP takes V rounded,
+dS the float32 P, and delta the rounded forward's output.  Its plain
+version is autograd through ``flash_attention_plain``
+(``flash_attention_bwd_plain``), whose roundings pass the gradient
+through the same way.  :class:`FlashAttentionFn` puts the two kernels
+behind ``torch.autograd.Function``; ``ops.flash_attention`` routes a CUDA
+call that needs a gradient through it.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ _FLASH_F32 = register("flash_attention_f32", Kernel(
     "flash_attention", "flash_attention_f32_launch",
     [_P, _P, _P, _P] + [_LL] * 12 + [_INT] * 10 + [ctypes.POINTER(_INT)]))
 
-_BWD_ARGS = [_INT] + [_P] * 9 + [_INT] * 9 + [ctypes.c_float, _INT]
+_BWD_ARGS = [_INT] + [_P] * 9 + [_INT] * 10 + [ctypes.c_float, _INT]
 _BWD = register("flash_attention_bwd", Kernel(
     "flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGS))
 _BWD_F32 = register("flash_attention_bwd_f32", Kernel(
@@ -85,6 +88,19 @@ def _mask(tq: int, tk: int, causal: bool, window: int, device) -> torch.Tensor:
     return seen
 
 
+class _Bf16Through(torch.autograd.Function):
+    """``x`` rounded to bf16, as float32; the gradient passes unchanged (a
+    cast would round it to bf16 too)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0,
                           probs_bf16: bool = False) -> torch.Tensor:
@@ -94,7 +110,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     heads (K/V are not repeated).  A row with no key to see is NaN, as in
     the oracle.  ``probs_bf16``: the unnormalised probabilities (against
     the row's max) and V rounded to bf16 for P V, divided by the float32
-    sum of the probabilities.
+    sum of the probabilities; under autograd the roundings pass the
+    gradient through unchanged, and the row's max is a constant (it cancels
+    where nothing is rounded).
     """
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -102,10 +120,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * (1.0 / d ** 0.5)
     logits.masked_fill_(~_mask(tq, tk, causal, window, q.device), float("-inf"))
     if probs_bf16:
-        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
         del logits
-        out = torch.einsum("bgrqk,bgkd->bgrqd", p.to(torch.bfloat16).float(),
-                           v.to(torch.bfloat16).float()) / p.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bgrqk,bgkd->bgrqd", _Bf16Through.apply(p),
+                           _Bf16Through.apply(v.float())) / p.sum(dim=-1, keepdim=True)
         return out.reshape(b, hq, tq, d).to(q.dtype)
     probs = torch.softmax(logits, dim=-1)
     del logits
@@ -202,11 +220,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0):
+def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0,
+                              probs_bf16: bool = False):
     """(dq, dk, dv): autograd through :func:`flash_attention_plain`."""
     with torch.enable_grad():
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = flash_attention_plain(*qkv, causal=causal, window=window)
+        out = flash_attention_plain(*qkv, causal=causal, window=window, probs_bf16=probs_bf16)
         return torch.autograd.grad(out, qkv, do)
 
 
@@ -214,14 +233,15 @@ def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0)
 #: every real call): 1 the causal mask dropped from the dK/dV launch, 2 delta
 #: left zero, 4 a GQA group's dK and dV from its first query head only, 8 the
 #: scale dropped from dS, 16 (bf16 at head dim 64, the wgmma instance) P and dS
-#: as two bf16 pieces
+#: as two bf16 pieces, 32 the probs_bf16 flag ignored
 bwd_fault = 0
 
 
-def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
-    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window)`` given the
-    gradient ``do`` of its output: the kernel on the card,
-    :func:`flash_attention_bwd_plain` for CPU tensors.
+def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0,
+                        probs_bf16: bool = False):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window,
+    probs_bf16)`` given the gradient ``do`` of its output: the kernel on the
+    card, :func:`flash_attention_bwd_plain` for CPU tensors.
 
     Any strides with a contiguous head dim (``do`` is made so if it is
     not); the gradients have their operand's strides (``empty_like``).
@@ -231,9 +251,12 @@ def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
     8 (bf16) or 4 (float32), is first copied once with the head dim
     zero-padded to that multiple.  Each row's softmax max and normaliser
     and delta go to float32 scratch of (3, B, Hq, Tq rounded up to 128).
+    With ``probs_bf16`` the float32 route reads a copy of V rounded to
+    bf16 (bf16 V is exact).
     """
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window)
+        return flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window,
+                                         probs_bf16=probs_bf16)
     _check(q, k, v, causal)
     if do.stride(-1) != 1:
         do = do.contiguous()
@@ -244,6 +267,8 @@ def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
     hkv, tk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     f32 = q.dtype == torch.float32
+    if f32 and probs_bf16:
+        v = v.to(torch.bfloat16).float()
     dt = -(-d // (4 if f32 else 8)) * (4 if f32 else 8)
     q, k, v, do = (_aligned_operand(t, dt) for t in (q, k, v, do))
     stats = torch.empty((3, b, hq, -(-tq // 128) * 128), dtype=torch.float32, device=q.device)
@@ -251,25 +276,25 @@ def flash_attention_bwd(q, k, v, do, causal: bool = True, window: int = 0):
                            dtype=torch.int64)
     (_BWD_F32 if f32 else _BWD)(int(f32), q, k, v, do, dq, dk, dv, stats, strides,
                                 b, hq, hkv, tq, tk, d, dt, int(causal),
-                                max(int(window), 0), 1.0 / d ** 0.5, bwd_fault)
+                                max(int(window), 0), int(probs_bf16), 1.0 / d ** 0.5, bwd_fault)
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient (CUDA
-    tensors; ``probs_bf16`` is not taken).  Saves q, k and v only."""
+    tensors).  Saves q, k and v only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, probs_bf16: bool = False):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return flash_attention(q, k, v, causal=causal, window=window)
+        ctx.causal, ctx.window, ctx.probs_bf16 = causal, window, probs_bf16
+        return flash_attention(q, k, v, causal=causal, window=window, probs_bf16=probs_bf16)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, ctx.causal, ctx.window, ctx.probs_bf16)
+        return dq, dk, dv, None, None, None
 
 
 #: what an instance query returns past a route's last instance

@@ -327,9 +327,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, impl: str = "
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          probs_bf16=probs_bf16)
     if needs_grad(q, k, v):
-        if probs_bf16:
-            refuse_grad("flash_attention with probs_bf16", "7b", q, k, v)
-        return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window, probs_bf16)
     return _fa.flash_attention(q, k, v, causal=causal, window=window, probs_bf16=probs_bf16)
 
 

@@ -6,8 +6,9 @@ retained) -> the fault-tolerance hooks (heartbeats and the straggler
 EWMA; on one process the heartbeat source is simulated, the decision
 logic is the production state machine).  It runs on the card unless
 ``--cpu`` is given, and without a card it exits non-zero.  The JAX
-package's flags and printed lines, plus ``--cpu``; an architecture the
-port cannot train yet (MoE, MLA, the recurrent kinds) exits 2 naming the
+package's flags and printed lines, plus ``--cpu``.  It trains the dense,
+MoE and MLA architectures (deepseek-v3-671b with its MTP head, arctic-480b);
+one the port cannot train yet (the recurrent kinds) exits 2 naming the
 ROADMAP item that brings it.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
@@ -51,8 +52,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--async-dispatch", action="store_true",
-                    help="split-phase MoE dispatch (MoE training waits for ROADMAP "
-                         "Queue 1 item 7b)")
+                    help="split-phase MoE dispatch")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     args = ap.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():

@@ -43,18 +43,20 @@ to the model's dtype, and positions run over patches and text;
 ``loss_fn`` drops the patch positions (JAX's ``n_skip``) before the loss.
 
 Training (``loss_fn``, the port of ``repro/models/lm.py:464-503``) runs on
-one rank for the kinds ``g``, ``l`` and ``a``, GQA, dense MLPs,
-decoder-only with ``patch_embeds`` and the encoder-decoder with
-``src_embeds``, with the MTP head where ``cfg.mtp`` asks for it.  Under
-autograd with ``cfg.remat == "block"`` the forward recomputes each layer
-(and each encoder block) in the backward
-(``torch.utils.checkpoint``, non-reentrant), as JAX's ``jax.checkpoint``
-of its scanned unit does; ``remat_policy="dots"`` keeps the outputs of the
-unbatched matmuls (``torch.mm``: the projections and MLPs), as JAX's
+one rank for the kinds ``g``, ``l`` and ``a``, GQA or MLA, dense MLPs or
+MoE layers (their gradients carried back over the exchange's wire:
+``models/moe.py``), ``attn_probs_bf16``, decoder-only with
+``patch_embeds`` and the encoder-decoder with ``src_embeds``, with the
+MTP head where ``cfg.mtp`` asks for it.  Under autograd with
+``cfg.remat == "block"`` the forward recomputes each layer (and each
+encoder block) in the backward (``torch.utils.checkpoint``,
+non-reentrant), as JAX's ``jax.checkpoint`` of its scanned unit does,
+with the cost log muted while it recomputes (JAX records once, at trace
+time); ``remat_policy="dots"`` keeps the outputs of the unbatched matmuls
+(``torch.mm``: the projections and MLPs), as JAX's
 ``dots_with_no_batch_dims_saveable``.  The results are the same either
-way.  MoE layers, MLA and ``attn_probs_bf16`` (item 7b), the kinds ``m``
-and ``r`` (item 7c) and a layout of several ranks (item 7d) are refused
-with ``NotImplementedError``.
+way.  The kinds ``m`` and ``r`` (item 7c) and a layout of several ranks
+(item 7d) are refused with ``NotImplementedError``.
 
 Over several ranks (``layout``, a :class:`~repro_torch.models.sharding.Layout`;
 None is one rank): each data rank serves its own batch rows; over the
@@ -72,12 +74,14 @@ sequence).  ``patch_embeds`` and ``src_embeds`` are replicated inputs.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import costs
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
@@ -378,11 +382,20 @@ def _remat(cfg, param: torch.Tensor):
     ``(fn, *args)``; None when nothing is recomputed (serving)."""
     if cfg.remat != "block" or not ops.needs_grad(param):
         return None
-    if cfg.remat_policy == "dots":
-        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                   _save_unbatched_matmuls)
-        return functools.partial(ckpt.checkpoint, use_reentrant=False, context_fn=ctx_fn)
-    return functools.partial(ckpt.checkpoint, use_reentrant=False)
+    dots = cfg.remat_policy == "dots"
+
+    def ctx_fn():
+        fwd, rec = (ckpt.create_selective_checkpoint_contexts(_save_unbatched_matmuls) if dots
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _muted(rec)
+    return functools.partial(ckpt.checkpoint, use_reentrant=False, context_fn=ctx_fn)
+
+
+@contextlib.contextmanager
+def _muted(ctx):
+    """``ctx``, with the cost log muted: the recompute records nothing."""
+    with ctx, costs.muted():
+        yield
 
 
 def _encoder_block(bp, x, cfg, *, positions, impl="auto", bk=None):
@@ -469,12 +482,6 @@ def check_trainable(cfg: ArchConfig, layout=None) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item that brings
     what ``cfg`` needs and the port cannot train yet."""
     missing = []
-    if cfg.moe is not None:
-        missing.append("MoE layers: gradients through the exchange (item 7b)")
-    if cfg.mla is not None:
-        missing.append("MLA (item 7b)")
-    if cfg.attn_probs_bf16:
-        missing.append("attn_probs_bf16: a probs_bf16 flash backward (item 7b)")
     kinds = sorted(set(cfg.layer_pattern) & set("mr"))
     if kinds:
         missing.append(f"the layer kinds {kinds}: backward kernels for mamba_scan and "

@@ -34,8 +34,23 @@ by the caller; ``expert_load`` and ``dispatch_dropped`` are summed over it,
 as JAX's ``load.sum(axis=0)`` does, and so is the aux loss's routing.
 The capacities are the JAX package's formulas.  On the card the wire runs
 the exchange's kernels (``multi_bin_offsets``, ``pack_rows``,
-``place_rows``); ``impl="torch"`` takes their plain versions.  Inference
-only: the wire kernels have no autograd.
+``place_rows``); ``impl="torch"`` takes their plain versions.
+
+Gradients (one rank; ``lm.check_trainable`` refuses several): the float
+lanes of the token flow (the activations and, under dedup, the router
+weights) carry their cotangents back over the wire by the exchange's
+transposes (``CommittedPlan.transposer``): an owner row's cotangent goes
+back along the reply direction, a reply's along the request direction,
+on the forward commit's maps, through the same kernels (or plain
+versions), in the flow's wire dtype (a bf16 rounding passes the gradient
+through unchanged, as JAX's ``astype`` does), recording nothing in the
+cost log.  A copy the wire dropped, or that its expert's bin could not
+hold, gets a zero cotangent, as its output is zero.  The int lanes carry
+none.  This is the gradient the JAX package's docstring defines
+(``repro/models/moe.py:25-27``); its code bitcasts the float lanes to
+u32 words (``_pack_act``, ``_unpack_act``, the dedup weights), and
+``jax.grad`` through ``bitcast_convert_type`` is zero, so there no expert
+weight gets a gradient (ROADMAP Queue 3, records).
 """
 
 from __future__ import annotations
@@ -45,7 +60,6 @@ import torch.nn.functional as F
 
 from repro_torch.core.exchange import ExchangePlan
 from repro_torch.core.transport import make_transport
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharding
 
@@ -98,8 +112,9 @@ def moe_init(gen: torch.Generator, cfg, dtype, device, experts: slice | None = N
 def _pack_act(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     """(N, D) activations -> int32 wire lanes: float32 bit-views, or two
     bf16 values per lane (the even element in the low half, as the JAX
-    package's ``bitcast_convert_type`` lays them out)."""
-    t = x.to(torch.bfloat16 if bf16 else _F32).contiguous()
+    package's ``bitcast_convert_type`` lays them out).  The words carry no
+    gradient: :class:`_Delivered` and :class:`_Replied` carry it."""
+    t = x.detach().to(torch.bfloat16 if bf16 else _F32).contiguous()
     return t.view(_I32)
 
 
@@ -107,6 +122,52 @@ def _unpack_act(lanes: torch.Tensor, bf16: bool) -> torch.Tensor:
     if not bf16:
         return lanes.view(_F32)
     return lanes.contiguous().view(torch.bfloat16).float()
+
+
+class _Delivered(torch.autograd.Function):
+    """The float lanes a committed flow delivered, as owner-side rows: one
+    output per section ``(lo, hi, bf16)`` of the view's payload words.  The
+    forward unpacks what the commit moved; the backward packs the outputs'
+    cotangents in the same wire dtypes and carries them back along the
+    reply direction in one trip (``FlowTranspose.route``) to the gradients
+    of ``srcs``, the requester-side rows the sections were packed from."""
+
+    @staticmethod
+    def forward(ctx, tr, bk, view, sections, *srcs):
+        ctx.tr, ctx.bk, ctx.sections = tr, bk, sections
+        ctx.dtypes = tuple(t.dtype for t in srcs)
+        return tuple(_unpack_act(view.payload[:, lo:hi], bf16) for lo, hi, bf16 in sections)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        m = ctx.tr.arrived.shape[0]
+        words = torch.cat([_pack_act(torch.zeros((m, (hi - lo) * (2 if bf16 else 1)),
+                                                 device=ctx.tr.arrived.device)
+                                     if g is None else g, bf16)
+                           for g, (lo, hi, bf16) in zip(gs, ctx.sections)], dim=1)
+        back = ctx.tr.route(ctx.bk, words)
+        out, w0 = [], 0
+        for (lo, hi, bf16), dt in zip(ctx.sections, ctx.dtypes):
+            out.append(_unpack_act(back[:, w0:w0 + hi - lo], bf16).to(dt))
+            w0 += hi - lo
+        return (None, None, None, None, *out)
+
+
+class _Replied(torch.autograd.Function):
+    """The float replies a committed flow landed (``finish``'s words,
+    unpacked); the backward carries their cotangent, in the wire dtype, to
+    the owners along the request direction (``FlowTranspose.reply``): the
+    gradient of ``src``, the owner-side rows the replies were packed from."""
+
+    @staticmethod
+    def forward(ctx, tr, bk, landed, bf16, src):
+        ctx.tr, ctx.bk, ctx.bf16, ctx.dtype = tr, bk, bf16, src.dtype
+        return _unpack_act(landed[0], bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg = ctx.tr.reply(ctx.bk, _pack_act(g, ctx.bf16))
+        return None, None, None, None, _unpack_act(seg, ctx.bf16).to(ctx.dtype)
 
 
 def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -134,11 +195,17 @@ def _bin_indices(expert, valid, n_groups: int, cap: int, m: int):
     return binned_idx[:-1], slot, ok
 
 
+def _rows_at(src: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """(len(idx), W): ``src[idx]`` where ``ok``, zeros (and a zero gradient)
+    elsewhere, whatever ``idx`` holds there.  The bins' gathers: a slot
+    with no copy, and a copy its expert's bin could not hold, read zeros."""
+    return torch.where(ok[:, None], src[idx.clamp(0, src.shape[0] - 1).long()], 0)
+
+
 def _gather_binned(rows, src, n_groups: int, cap: int) -> torch.Tensor:
     """(n_groups, cap, D): bin slot i holds ``rows[src[i]]``, or zeros
     where ``src[i]`` is -1."""
-    return torch.where((src >= 0)[:, None], rows[src.clamp(min=0).long()], 0) \
-        .reshape(n_groups, cap, -1)
+    return _rows_at(rows, src, src >= 0).reshape(n_groups, cap, -1)
 
 
 def _stats_flow(plan: ExchangePlan, e: int, e_loc: int, device) -> int:
@@ -235,21 +302,21 @@ def _dispatch(xl, idxl, wl, experts, extras, x, cfg, bk, nm, e_loc, transport, i
     h_st = _stats_flow(plan, e, e_loc, xl.device)
     c, win = _commit(plan, bk, cfg, transport, impl, x, extras)
     res = c.view(h_tok)
+    tr = c.transposer(h_tok)
 
-    rows = _unpack_act(res.payload[:, :act_lanes], bf16)
+    rows, = _Delivered.apply(tr, bk, res, ((0, act_lanes, bf16),), xx)
     le = torch.where(res.valid, res.payload[:, act_lanes], e_loc)
     bin_idx, slot, okb = _bin_indices(le, res.valid, e_loc, e_cap, rows.shape[0])
     binned = _gather_binned(rows, bin_idx, e_loc, e_cap).to(wg.dtype)
     y = _expert_ffn(binned, wg, wi, wo, cfg.activation)          # (e_loc, e_cap, D)
 
     flat = y.reshape(e_loc * e_cap, d)
-    take = slot.clamp(max=e_loc * e_cap - 1)
-    back = torch.where((slot < e_loc * e_cap)[:, None], flat[take], 0).float()
+    back = _rows_at(flat, slot, okb).float()
     _stats_reply(c, h_st, _served(le, okb, e_loc))
     c.set_reply(h_tok, _pack_act(back, bf16))
     outs = c.finish(bk)
     load = outs[h_st][0][:, 0].float()
-    yk = _unpack_act(outs[h_tok][0], bf16).reshape(bl, tl, k, d)
+    yk = _Replied.apply(tr, bk, outs[h_tok], bf16, back).reshape(bl, tl, k, d)
     ybt = torch.einsum("btkd,btk->btd", yk, wl.float())
     return ybt, load, res.dropped, win
 
@@ -282,21 +349,24 @@ def _dispatch_dedup(xl, idxl, wl, experts, extras, x, cfg, bk, nm, e_loc, transp
     # per (token, j) row: the local expert ids and weights of MY owner
     ids = torch.where(same, (ee % e_loc)[:, None, :], e_loc)
     wts = torch.where(same, ww[:, None, :], 0.0)
-    payload = torch.cat([_pack_act(xx.repeat_interleave(k, dim=0), bf16),
-                         ids.reshape(n, k).to(_I32),
-                         wts.reshape(n, k).contiguous().view(_I32)], dim=1)
+    xx_rep, wts_n = xx.repeat_interleave(k, dim=0), wts.reshape(n, k)
+    payload = torch.cat([_pack_act(xx_rep, bf16), ids.reshape(n, k).to(_I32),
+                         _pack_act(wts_n, False)], dim=1)
     plan = ExchangePlan(name="moe.dispatch")
     h_tok = plan.add(payload, owners.reshape(-1), cap, reply_lanes=act_lanes,
                      valid=first.reshape(-1), op_name="moe.dispatch")
     h_st = _stats_flow(plan, e, e_loc, xl.device)
     c, win = _commit(plan, bk, cfg, transport, impl, x, extras)
     res = c.view(h_tok)
+    tr = c.transposer(h_tok)
 
     m = res.payload.shape[0]
-    rows = _unpack_act(res.payload[:, :act_lanes], bf16)          # (M, D)
+    # the activations and the router weights: their gradients go back over the wire
+    rows, w_m = _Delivered.apply(tr, bk, res, ((0, act_lanes, bf16),
+                                               (act_lanes + k, act_lanes + 2 * k, False)),
+                                 xx_rep, wts_n)                  # (M, D), (M, k)
     flat_ids = res.payload[:, act_lanes:act_lanes + k].reshape(-1)
-    flat_w = res.payload[:, act_lanes + k:act_lanes + 2 * k].contiguous() \
-        .view(_F32).reshape(-1)
+    flat_w = w_m.reshape(-1)
     flat_valid = res.valid.repeat_interleave(k) & (flat_ids < e_loc)
     flat_row = torch.arange(m, device=xl.device).repeat_interleave(k)
 
@@ -314,14 +384,14 @@ def _dispatch_dedup(xl, idxl, wl, experts, extras, x, cfg, bk, nm, e_loc, transp
     step = max(1, _REPLY_BLOCK // (k * d))
     for r0 in range(0, m, step):
         e = slice(r0 * k, min(m, r0 + step) * k)
-        part = flat_y[take[e]] * flat_w[e, None] * okb[e, None]
-        out_rows[r0:r0 + step] = torch.where(okb[e, None], part, 0).reshape(-1, k, d).sum(dim=1)
+        part = _rows_at(flat_y, take[e], okb[e]) * torch.where(okb[e], flat_w[e], 0)[:, None]
+        out_rows[r0:r0 + step] = part.reshape(-1, k, d).sum(dim=1)
 
     _stats_reply(c, h_st, _served(flat_ids, okb, e_loc))
     c.set_reply(h_tok, _pack_act(out_rows, bf16))
     outs = c.finish(bk)
     load = outs[h_st][0][:, 0].float()
-    yk = _unpack_act(outs[h_tok][0], bf16).reshape(n_tok, k, d)
+    yk = _Replied.apply(tr, bk, outs[h_tok], bf16, out_rows).reshape(n_tok, k, d)
     ybt = yk.sum(dim=1).reshape(bl, tl, d)                       # weights applied at owner
     return ybt, load, res.dropped, win
 
@@ -366,10 +436,6 @@ def moe_apply(params, x, cfg, layout=None, *, impl: str = "auto"):
         raise ValueError(f"moe_apply: rank {bk.rank()} of {nm} holds "
                          f"{experts['w_gate'].shape[0]} experts, want {e_loc} "
                          f"(sharding.shard_params slices them)")
-    if ops.resolve(impl, x) == "cuda":
-        ops.refuse_grad("the MoE dispatch's wire kernels", "7b", x,
-                        *(p for p in params.values() if isinstance(p, torch.Tensor)),
-                        *experts.values())
     top_w, top_idx, gate_logits, _ = router_topk(params, x, cfg)
 
     # load-balance aux loss (GShard), over every data rank's tokens

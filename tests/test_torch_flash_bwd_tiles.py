@@ -29,8 +29,12 @@ hi*lo + hi*hi`` in float32.
 Inputs come from numpy with a seed; the gradients are held against autograd
 through ``flash_attention_plain`` at a relative L2 error of 1e-5 on float32
 causal, windowed, GQA, suffix-aligned ``Tq < Tk`` and non-causal ``Tq !=
-Tk`` calls at D = 16, 64, 128 and 320, and on bf16 operands at the chip
-check's bf16 gates (relative L2 1e-3, row gap 0.1).  Each fault the chip
+Tk`` calls at D = 16, 64, 128, 192 (MLA's) and 320, and on bf16 operands at
+the chip check's bf16 gates (relative L2 1e-3, row gap 0.1); with
+``probs_bf16`` (the flag's instances: delta from a second pass of (a) over P
+rounded against the row's max, dV from the rounded P, V rounded on the
+float32 route) against autograd through the plain version with the flag,
+whose roundings pass the gradient through unchanged.  Each fault the chip
 check plants into the kernel (``flash_attention.bwd_fault``) must break the
 float32 gate here too.  ``test_emulated_backward_vs_jax`` holds the float32
 emulation against ``jax.vjp`` of the JAX package's ``blockwise_attention``.
@@ -60,7 +64,7 @@ BF16_REL_L2, BF16_ROW_GAP = 1e-3, 0.1
 JAX_REL_L2 = 1e-5
 #: the padded head dims of the kernel's instances
 DPS = (16, 64, 128, 256, 320)
-FAULT_CAUSAL, FAULT_DELTA, FAULT_GROUP, FAULT_SCALE, FAULT_PIECES = 1, 2, 4, 8, 16
+FAULT_CAUSAL, FAULT_DELTA, FAULT_GROUP, FAULT_SCALE, FAULT_PIECES, FAULT_FLAG = 1, 2, 4, 8, 16, 32
 #: the source's Inst table: per dtype and padded head dim, (a) (rows owned,
 #: rows streamed), (b) (keys owned, queries streamed), (c) (queries owned,
 #: keys streamed); column splits and warp counts do not change the sums
@@ -177,12 +181,18 @@ def _check_skips(tq: int, tk: int, causal: bool, window: int, bq_a: int, bk_a: i
 
 
 def emulate(q, k, v, do, causal: bool = True, window: int = 0, fault: int = 0, o=None,
-            passes: int = 3):
+            passes: int = 3, probs_bf16: bool = False):
     """(dq, dk, dv) as the three launches compute them; q/do (B,Hq,Tq,D),
     k/v (B,Hkv,Tk,D), bf16 or float32 (the route).  ``o`` (B,Hq,Tq,D), if
     given, is the output delta is taken from instead (``rowsum(dO o O)``),
     for comparison; ``passes`` (3 in the kernel) is how many bf16 pieces of
-    P and dS go through the products."""
+    P and dS go through the products.  ``probs_bf16``: the float32 route
+    reads V rounded to bf16 (its wrapper's copy), (a) takes delta in a
+    second pass over its key tiles from ``bf16(2^(s c - m))`` against the
+    row's final max, and (b)'s dV takes ``bf16(2^(s c - m)) / l``."""
+    probs_bf16 = probs_bf16 and not fault & FAULT_FLAG
+    if probs_bf16:
+        v = _bf16(v).to(v.dtype)
     bf16 = q.dtype == torch.bfloat16
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -222,6 +232,17 @@ def emulate(q, k, v, do, causal: bool = True, window: int = 0, fault: int = 0, o
             ls = ls * alpha + p.sum(-1)
             pd = pd * alpha + (p * dpr).sum(-1)
             m = mn
+        if probs_bf16:                         # the second pass, against the final max
+            mref = torch.where(m == -torch.inf, 0.0, m)
+            pd = torch.zeros_like(pd)
+            for k0 in range((lo // bk_a) * bk_a, hi, bk_a):
+                s, dpr = s_and_dp(qt, gt, *(_tile(x, k0, bk_a, dp)[:, :, None]
+                                            .expand(-1, -1, rep, -1, -1) for x in (k, v)),
+                                  "bgrid,bgrjd->bgrij")
+                seen = _seen(torch.arange(q0, q0 + bq_a), torch.arange(k0, k0 + bk_a),
+                             tq, tk, causal, window)
+                p = torch.where(seen, _bf16(torch.exp2(s * c - mref[..., None])), 0.0)
+                pd = pd + (p * dpr).sum(-1)
         n = min(bq_a, tq - q0)
         rmax[..., q0:q0 + n] = m[..., :n]
         linv[..., q0:q0 + n] = (1.0 / ls)[..., :n]
@@ -248,10 +269,13 @@ def emulate(q, k, v, do, causal: bool = True, window: int = 0, fault: int = 0, o
             st, dpt = s_and_dp(kt, vt, qt, gt, "bgjd,bgid->bgji")
             seen = _seen(torch.arange(q0, q0 + bq_b), torch.arange(k0, k0 + bk_b), tq, tk,
                          causal_b, window).T
-            pt = torch.where(seen, torch.exp2(st * c - _rows(rmax[:, :, g], q0, bq_b)[:, :, None, :])
-                             * _rows(linv[:, :, g], q0, bq_b)[:, :, None, :], 0.0)
+            e = torch.where(seen, torch.exp2(st * c - _rows(rmax[:, :, g], q0, bq_b)[:, :, None, :]),
+                            0.0)
+            li = _rows(linv[:, :, g], q0, bq_b)[:, :, None, :]
+            pt = e * li
             dst = pt * (dpt - _rows(delta[:, :, g], q0, bq_b)[:, :, None, :])
-            acc_v += product("bgji,bgid->bgjd", pt, gt, bf16, True, passes)
+            acc_v += product("bgji,bgid->bgjd", _bf16(e) * li if probs_bf16 else pt, gt, bf16,
+                             True, passes)
             acc_k += product("bgji,bgid->bgjd", dst, qt, bf16, True, passes)
         n = min(bk_b, tk - k0)
         sc = 1.0 if fault & FAULT_SCALE else scale
@@ -300,13 +324,15 @@ def row_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((g - w).norm(dim=-1).max() / w.norm(dim=-1).mean())
 
 
-def gaps(case: tuple, seed: int = 0, fault: int = 0, dtype=torch.float32) -> dict:
+def gaps(case: tuple, seed: int = 0, fault: int = 0, dtype=torch.float32,
+         probs_bf16: bool = False) -> dict:
     """Relative L2 (and, on bf16, row gap) of the emulated dq, dk, dv
     against autograd of the plain version on the same operands."""
     b, hq, hkv, tq, tk, d, causal, window = case
     q, k, v, do = (x.to(dtype) for x in _inputs(seed, b, hq, hkv, tq, tk, d))
-    got = emulate(q, k, v, do, causal=causal, window=window, fault=fault)
-    want = tfa.flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window)
+    got = emulate(q, k, v, do, causal=causal, window=window, fault=fault, probs_bf16=probs_bf16)
+    want = tfa.flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window,
+                                         probs_bf16=probs_bf16)
     if dtype == torch.float32:
         return {n: rel_l2(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
     return {n: (rel_l2(g, w), row_gap(g, w)) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -321,6 +347,7 @@ CASES = {
     "noncausal_tq_gt_tk": (1, 2, 2, 90, 33, 64, False, 0),
     "noncausal_tq_lt_tk": (1, 2, 2, 20, 75, 16, False, 0),
     "d320_window_gqa": (1, 4, 2, 70, 70, 320, True, 24),
+    "mla_d192": (1, 4, 4, 80, 80, 192, True, 0),
 }
 #: each planted fault and a case where it must show (GQA's on a grouped case)
 FAULTS = {FAULT_CAUSAL: "causal_d64", FAULT_DELTA: "causal_d64", FAULT_GROUP: "gqa_d128",
@@ -331,7 +358,25 @@ BF16_CASES = {
     "bf16_gqa_d64": (1, 4, 2, 130, 130, 64, True, 0),
     "bf16_window_d128": (1, 2, 2, 100, 100, 128, True, 30),
     "bf16_noncausal_d64": (1, 2, 1, 70, 40, 64, False, 0),
+    "bf16_mla_d192": (1, 4, 4, 100, 100, 192, True, 0),
 }
+#: probs_bf16 (the flag's instances of (a) and (b)): the wgmma instance, the
+#: D = 192 (MLA) one, and on float32 operands a windowed GQA call and D = 192
+PB_CASES = {
+    "pb_bf16_gqa_d64": ((1, 4, 2, 130, 130, 64, True, 0), torch.bfloat16),
+    "pb_bf16_mla_d192": ((1, 4, 4, 100, 100, 192, True, 0), torch.bfloat16),
+    "pb_f32_window_gqa_d64": ((1, 4, 2, 90, 90, 64, True, 30), torch.float32),
+    "pb_f32_mla_d192": ((1, 2, 2, 70, 70, 192, True, 0), torch.float32),
+}
+#: probs_bf16 on float32 operands: the emulation takes P from exp2 against
+#: the row's max, the plain version from exp, and where the two float32
+#: values lie on either side of a bf16 rounding midpoint the rounded P
+#: differs by one bf16 step (2**-8 of it) in that element (1.1e-4 seen, dv
+#: at D = 192).  On bf16 operands the chip check's probs_bf16 gate
+#: (chip_smoke.PB_REL_L2): 4.9e-5 seen.  Ignoring the flag moves the
+#: gradients by P's and V's bf16 rounding, 1.0e-3 to 2.1e-3 seen, which each
+#: gate must see by twice its limit
+PB_F32_REL_L2, PB_BF16_REL_L2 = 2e-4, 5e-4
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -344,6 +389,28 @@ def test_emulated_backward_vs_autograd(name):
 def test_emulated_bf16_backward_vs_autograd(name):
     g = gaps(BF16_CASES[name], dtype=torch.bfloat16)
     assert all(r <= BF16_REL_L2 and gap <= BF16_ROW_GAP for r, gap in g.values()), (name, g)
+
+
+@pytest.mark.parametrize("name", list(PB_CASES))
+def test_emulated_probs_bf16_backward_vs_autograd(name):
+    case, dtype = PB_CASES[name]
+    g = gaps(case, dtype=dtype, probs_bf16=True)
+    if dtype == torch.float32:
+        assert max(g.values()) <= PB_F32_REL_L2, (name, g)
+    else:
+        assert all(r <= PB_BF16_REL_L2 and gap <= BF16_ROW_GAP for r, gap in g.values()), \
+            (name, g)
+
+
+@pytest.mark.parametrize("name", list(PB_CASES))
+def test_probs_bf16_flag_ignored_breaks_the_gate(name):
+    """The chip check's fault 32 (the backward ignores the flag) must break
+    the probs_bf16 gate by twice its limit."""
+    case, dtype = PB_CASES[name]
+    g = gaps(case, dtype=dtype, probs_bf16=True, fault=FAULT_FLAG)
+    worst = max(x[0] if dtype == torch.bfloat16 else x for x in g.values())
+    limit = PB_BF16_REL_L2 if dtype == torch.bfloat16 else PB_F32_REL_L2
+    assert worst > 2 * limit, (name, g)
 
 
 def test_planted_faults_break_the_gate():

@@ -25,8 +25,11 @@ the kernel of the route its shape picks (``mamba_scan``, the chunked one,
 or ``mamba_scan_seq``) once, and no other.  The attention backward
 (``flash_attention_bwd``) is held against autograd through the plain
 version by relative L2 (``BWD_REL``), one launch a call, repeatable bit for
-bit, and its planted faults must break it; the kernel routes without a
-backward must refuse a gradient.
+bit, and its planted faults must break it; with ``probs_bf16`` against the
+plain version's gradient (its roundings passing the gradient through), the
+flag ignored breaking it; the MoE layer's backward through the wire
+kernels bit for bit against the plain versions; the kernel routes without
+a backward (the scans) must refuse a gradient.
 """
 
 import numpy as np
@@ -813,8 +816,8 @@ def test_flash_attention_bwd_faults_break_it(dev):
 
 
 def test_kernel_routes_without_a_backward_refuse_a_gradient(dev):
-    """mamba_scan, rwkv_scan, the MoE wire route and a probs_bf16 flash call
-    raise on CUDA tensors that need a gradient, naming the ROADMAP item."""
+    """mamba_scan and rwkv_scan raise on CUDA tensors that need a gradient,
+    naming the ROADMAP item."""
     x = torch.zeros((1, 4, 2, 64), device=dev, requires_grad=True)
     dt = torch.zeros((1, 4, 2), device=dev)
     bc = torch.zeros((1, 4, 16), device=dev)
@@ -824,15 +827,77 @@ def test_kernel_routes_without_a_backward_refuse_a_gradient(dev):
     with pytest.raises(NotImplementedError, match="item 7c"):
         ops.rwkv_scan(x, x, x, x, torch.zeros((2, 64), device=dev),
                       torch.zeros((1, 2, 64, 64), device=dev))
-    q = torch.zeros((1, 2, 8, 16), device=dev, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ops.flash_attention(q, q, q, probs_bf16=True)
+
+
+#: probs_bf16's backward against autograd through the plain version with the
+#: flag (tests/test_torch_flash_bwd_tiles.py's PB_F32_REL_L2 and PB_BF16_REL_L2:
+#: on float32 operands a rounding of P at a bf16 midpoint can go either way)
+PB_BWD_REL = {torch.float32: 2e-4, torch.bfloat16: 5e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window", [
+    (2, 4, 2, 130, 130, 64, True, 0), (1, 4, 4, 100, 100, 192, True, 0),
+    (1, 4, 2, 150, 150, 128, True, 40)])
+def test_flash_attention_probs_bf16_bwd(dev, dtype, b, hq, hkv, tq, tk, d, causal, window):
+    """FlashAttentionFn with probs_bf16: one backward launch, the plain
+    version's gradients within PB_BWD_REL, and the flag ignored (fault 32)
+    past twice that."""
+    g = torch.Generator(device=dev).manual_seed(tq + d)
+    q = torch.randn((b, hq, tq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, hkv, tk, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn_like(q)
+    counter = fa._BWD_F32 if dtype == torch.float32 else fa._BWD
+    before = counter.launches
+    q_, k_, v_ = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(q_, k_, v_, causal=causal, window=window, probs_bf16=True)
+    got = torch.autograd.grad(out, (q_, k_, v_), do)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window,
+                                        probs_bf16=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert max(_rel(x, y) for x, y in zip(got, want)) <= PB_BWD_REL[dtype]
+    try:
+        fa.bwd_fault = 32
+        off = fa.flash_attention_bwd(q, k, v, do, causal, window, probs_bf16=True)
+    finally:
+        fa.bwd_fault = 0
+    assert max(_rel(x, y) for x, y in zip(off, want)) > 2 * PB_BWD_REL[dtype]
+
+
+@pytest.mark.parametrize("knobs", [{}, {"moe_dedup_dispatch": True},
+                                   {"moe_payload_dtype": "bfloat16"}],
+                         ids=["base", "dedup", "bf16_payload"])
+def test_moe_backward_through_the_wire_kernels(dev, knobs):
+    """moe_apply's forward and backward at reduced arctic-480b (float32)
+    through the wire kernels against the plain versions: y and every
+    gradient bit for bit (the wire moves words), the transposes launching
+    the wire kernels."""
+    import dataclasses
+
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import moe
-    cfg = reduced(get_config("arctic-480b"))
+    cfg = dataclasses.replace(reduced(get_config("arctic-480b")), **knobs)
     params = moe.moe_init(torch.Generator(device=dev).manual_seed(0), cfg, torch.float32, dev)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        moe.moe_apply(params, torch.zeros((1, 4, cfg.d_model), device=dev, requires_grad=True),
-                      cfg)
-    with torch.no_grad():                      # no gradient wanted: the kernels run
-        ops.flash_attention(q, q, q, probs_bf16=True)
+    x = torch.randn((2, 12, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    leaves = [x, params["router"], *params["experts"].values(),
+              *params["dense"].values()]
+    runs = {}
+    for impl in ("auto", "torch"):
+        ts = [t.detach().requires_grad_() for t in leaves]
+        p = dict(params, router=ts[1], experts=dict(zip(params["experts"], ts[2:5])),
+                 dense=dict(zip(params["dense"], ts[5:])))
+        before = {n: c for n, c in build.launch_counts().items()}
+        y, aux, _ = moe.moe_apply(p, ts[0], cfg, impl=impl)
+        fwd = {n: c - before[n] for n, c in build.launch_counts().items()}
+        grads = torch.autograd.grad((y ** 2).sum() + aux, ts)
+        bwd = {n: c - before[n] - fwd[n] for n, c in build.launch_counts().items()}
+        runs[impl] = (y, grads, fwd, bwd)
+    (yk, gk, fwd, bwd), (yp, gp, fwdp, bwdp) = runs["auto"], runs["torch"]
+    assert torch.equal(yk, yp)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gp))
+    assert all(bool(g.abs().gt(0).any()) for g in gk[2:5])     # every expert stack learns
+    assert fwd["bin_offsets"] == 1 and fwd["pack_rows"] == 1 and fwd["place_rows"] == 6
+    assert bwd["pack_rows"] == 1 and bwd["place_rows"] == 1 and bwd["bin_offsets"] == 0
+    assert not any(fwdp.values()) and not any(bwdp.values())

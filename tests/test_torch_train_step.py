@@ -6,10 +6,13 @@ AdamW state carried across (``interop.lm_params_from_numpy``,
 mesh))`` under a 1 x 1 mesh, for 1 and 3 steps on the same numpy batches
 (reduced stablelm-1.6b, float32): the loss, ``grad_norm``, every parameter
 and every moment at 1e-5 relative; also with ``grad_accum=2`` (float32
-gradients averaged over two microbatches).  The refusals: arctic-480b and
-deepseek-v3-671b (MoE, MLA), zamba2-7b and rwkv6-1.6b (the recurrent
-kinds) and ``attn_probs_bf16``, each naming its ROADMAP item, and the CLI
-exiting 2 for them.  The CLI's kill and restore: ``--kill-at 7`` exits 17,
+gradients averaged over two microbatches).  What ROADMAP Queue 1 item 7b
+brought trains: reduced arctic-480b and deepseek-v3-671b (MoE, MLA, the
+MTP head) and ``attn_probs_bf16``, one step of finite loss and gradients
+that changes every parameter with a gradient, and one CLI step.  The
+refusals: zamba2-7b and rwkv6-1.6b (the recurrent kinds, item 7c) and a
+layout of two ranks (item 7d), each naming its ROADMAP item, and the CLI
+exiting 2 for the recurrent kinds.  The CLI's kill and restore: ``--kill-at 7`` exits 17,
 the rerun prints ``restored checkpoint at step 5``, and its losses at steps
 5-11 equal an uninterrupted run's bit for bit (read from the step
 function's metrics; the printed lines keep JAX's four decimals).
@@ -31,6 +34,8 @@ from repro_torch import configs as tcfg
 from repro_torch import interop, tree
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.core.backend import SerialBackend
+from repro_torch.models.sharding import Layout
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from test_torch_train import batch_of, leaf_gaps
 
@@ -71,20 +76,42 @@ def test_train_step_matches_jax(mesh11, steps, accum):
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(_np(opt_j))
 
 
-@pytest.mark.parametrize("arch,over,item", [
-    ("arctic-480b", {}, "7b"), ("deepseek-v3-671b", {}, "7b"), ("zamba2-7b", {}, "7c"),
-    ("rwkv6-1.6b", {}, "7c"), ("qwen3-4b", {"attn_probs_bf16": True}, "7b")],
-    ids=["arctic", "deepseek", "zamba2", "rwkv6", "probs_bf16"])
-def test_refusals_name_their_roadmap_item(arch, over, item, capsys):
+@pytest.mark.parametrize("arch,over", [
+    ("arctic-480b", {}), ("deepseek-v3-671b", {}), ("qwen3-4b", {"attn_probs_bf16": True})],
+    ids=["arctic", "deepseek", "probs_bf16"])
+def test_item_7b_configs_train(arch, over, capsys):
     cfg = tcfg.reduced(tcfg.get_config(arch), **over)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tsteps.make_train_step(cfg)
-    params = tsteps.trainable(tsteps.init_state(cfg, torch.Generator().manual_seed(0),
-                                                "cpu")[0])
+    params, opt = tsteps.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    before = [p.detach().clone() for p in tree.leaves(params)]
     batch = {k: torch.from_numpy(v) for k, v in batch_of(cfg, 1, t=8).items()}
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tsteps.lm.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(tsteps.lm.loss_fn(params, cfg, batch)[0], tree.leaves(params),
+                                allow_unused=True)
+    assert all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+    params, opt, m = tsteps.make_train_step(cfg)(params, opt, batch)
+    assert all(bool(torch.isfinite(m[k])) for k in ("loss", "nll", "aux", "grad_norm"))
+    for i, (p, p0, g) in enumerate(zip(tree.leaves(params), before, grads)):
+        if g is not None and bool(g.abs().gt(0).any()):
+            assert not torch.equal(p.detach(), p0), i
     if not over:
+        assert ttrain.main(["--arch", arch, "--reduced", "--cpu", "--steps", "1",
+                            "--batch", "2", "--seq", "16"]) == 0
+        assert "loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,layout,item", [
+    ("zamba2-7b", None, "7c"), ("rwkv6-1.6b", None, "7c"), ("stablelm-1.6b", (2, 1), "7d")],
+    ids=["zamba2", "rwkv6", "two_ranks"])
+def test_refusals_name_their_roadmap_item(arch, layout, item, capsys):
+    cfg = tcfg.reduced(tcfg.get_config(arch))
+    lay = None if layout is None else Layout(*layout, 0, 0, SerialBackend(), SerialBackend())
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tsteps.make_train_step(cfg, layout=lay)
+    if layout is None:
+        params = tsteps.trainable(tsteps.init_state(cfg, torch.Generator().manual_seed(0),
+                                                    "cpu")[0])
+        batch = {k: torch.from_numpy(v) for k, v in batch_of(cfg, 1, t=8).items()}
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            tsteps.lm.loss_fn(params, cfg, batch)
         assert ttrain.main(["--arch", arch, "--reduced", "--cpu", "--steps", "1"]) == 2
         assert f"item {item}" in capsys.readouterr().err
 
